@@ -1,0 +1,462 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's SpKAdd main path once on one CUDA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the root of a checkout; it imports ``src/repro_torch`` (never JAX,
+never the reference package ``repro``) and exits non-zero, printing no
+result, when no CUDA card is present or the package is missing.
+
+0. Build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
+   ``nvcc`` (one process per source, in parallel) and print the build time,
+   the compiler's register/shared-memory report and the card.
+1. ``vec``: one collection through ``spkadd_auto`` — k = 64 ER matrices of
+   65,536 × 512 with 512 nonzeros per column (16,777,216 nonzeros), the
+   stage reduction of a sparse SUMMA. Dispatch must say ``vec``; the
+   partition kernel must launch; one counted sort; the result must equal
+   the ``sorted`` path bitwise and a float64 numpy sum to 1e-5.
+2. ``sorted``: phase 1's collection through ``spkadd_run(..., "sorted")``;
+   the segment-fold kernel must launch.
+3. ``hash``: B = 512 collections (one per tenant, a stream-service
+   co-flush) of k = 16 matrices of 65,536 × 256 with 512 nonzeros each,
+   through ``spkadd_batched``. Dispatch must say ``hash``; the sliding-hash
+   kernel must launch with zero sorts before compaction and one compaction
+   sort; every row must equal the batched ``sorted`` path bitwise and a
+   float64 numpy sum to 1e-5.
+4. One profiled call of each phase (device time by kernel, busy share),
+   then each kernel against its plain PyTorch version on the card, on the
+   inputs its path gives it: bitwise (tolerance 0). Then JSON lines of the
+   phases' end-to-end times, the profiles and the kernel numbers (median ms
+   by CUDA events, bound, plain and library times), the card's name and
+   power limit, and as the last line ``{"ok": true, "device": {...}}``.
+
+Every launch counter is set to 0 just before its path runs and read just
+after; launches made to time or compare a kernel do not count.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "src")
+
+# H100 SXM peaks (NVIDIA data sheet): device memory rate, and the float32
+# rate outside the tensor cores (the kernels' f32 adds).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(nbytes: int, adds: int):
+    """The least time the card could take: the larger of the bytes moved
+    over the memory rate and the f32 adds over the f32 rate. Returns
+    ``(ms, "bytes" | "operations")``."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = adds / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: {SRC}/repro_torch not found; run this script "
+              f"from the root of a checkout", file=sys.stderr)
+        return 1
+    sys.path.insert(0, SRC)
+    try:
+        return run(args, torch)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        return 1
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Median device time of ``fn`` over ``reps`` calls (after one warm-up),
+    each bracketed by CUDA events."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Median host time of ``fn`` ending in a device synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def device_profile(torch, fn, wall_ms: float, top: int = 6) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device time summed by
+    kernel name (the ``top`` largest) and the device's busy share of
+    ``wall_ms``, the call's unprofiled median host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us > 0:
+            rows.append((ev.key[:90], us / 1e3, ev.count))
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {"device_ms": device_ms, "wall_ms": wall_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "top": [list(r) for r in rows[:top]]}
+
+
+def bitwise_equal(torch, a, b) -> bool:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def same_coo(torch, a, b) -> bool:
+    return (a.shape == b.shape and bitwise_equal(torch, a.keys, b.keys)
+            and bitwise_equal(torch, a.nnz, b.nnz)
+            and bitwise_equal(torch, a.vals, b.vals))
+
+
+def run(args, torch) -> int:
+    from repro_torch import obs
+    from repro_torch.core import engine as E
+    from repro_torch.core import sparse as S
+    from repro_torch.kernels import _build, hash_slide, ops as kops
+    from repro_torch.kernels import partition, segment
+
+    dev = torch.device("cuda")
+    card = nvidia_smi_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # ---- 0. build -------------------------------------------------------
+    t0 = time.monotonic()
+    _build.build_all()
+    build_s = time.monotonic() - t0
+    log(f"kernel build: {build_s:.2f} s (nvcc {_build.find_nvcc()})")
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    budget = kops.device_smem_budget(dev)
+    log(f"shared-memory budget per block: {budget} B")
+    kernels = {
+        "partition": partition.partitioned_accumulate_raw,
+        "hash_slide": hash_slide.hash_slide_raw,
+        "segment_fold": segment.segment_fold,
+    }
+
+    def reset_counts():
+        for fn in kernels.values():
+            fn.launches = 0
+
+    rng = np.random.default_rng(args.seed)
+    phases = {}
+
+    # ---- 1. vec: one collection through spkadd_auto ---------------------
+    k1, m1, n1, d1 = 64, 65536, 512, 512
+    nnz1 = n1 * d1
+    rows1 = rng.integers(0, m1, size=(k1, nnz1), dtype=np.int32)
+    cols1 = np.repeat(np.arange(n1, dtype=np.int32), d1)
+    vals1 = rng.standard_normal((k1, nnz1), dtype=np.float32)
+    mats = [S.from_coords(rows1[i], cols1, vals1[i], (m1, n1))
+            for i in range(k1)]
+    sig, alg = E.explain_dispatch(mats)
+    log(f"phase vec: k={sig.k} density={sig.density:.4f} "
+        f"cf={sig.compression:.4f} -> {alg}")
+    check(alg == "vec", f"phase vec dispatched {alg!r}, expected 'vec'")
+    torch.cuda.synchronize()
+    reset_counts()
+    sorts0 = S.sort_calls()
+    out_vec = E.spkadd_auto(mats)
+    torch.cuda.synchronize()
+    launches = {"partition": kernels["partition"].launches}
+    vec_sorts = S.sort_calls() - sorts0
+    check(launches["partition"] > 0, "phase vec: partition kernel not launched")
+    check(vec_sorts == 1, f"phase vec: {vec_sorts} counted sorts, expected 1")
+    geom1 = kops.partitioned_launch_geometry(
+        out_vec.cap, m=m1, n=n1, smem_budget_bytes=budget)
+    log(f"phase vec: partition launches={launches['partition']} "
+        f"sorts={vec_sorts} geometry={geom1._asdict()}")
+
+    # numpy float64 reference (independent of the port's folds)
+    keys_np = (cols1[None, :].astype(np.int64) * m1 + rows1).reshape(-1)
+    ref64 = np.bincount(keys_np, weights=vals1.reshape(-1).astype(np.float64),
+                        minlength=m1 * n1)
+    distinct = np.flatnonzero(np.bincount(keys_np, minlength=m1 * n1))
+    nnz_out = int(out_vec.nnz)
+    check(nnz_out == distinct.size,
+          f"phase vec: nnz {nnz_out} != distinct keys {distinct.size}")
+    ok_keys = out_vec.keys[:nnz_out].cpu().numpy()
+    check(np.array_equal(ok_keys, distinct), "phase vec: keys differ from numpy")
+    ok_vals = out_vec.vals[:nnz_out].cpu().numpy()
+    check(np.isfinite(ok_vals).all(), "phase vec: non-finite values")
+    check(np.allclose(ok_vals, ref64[distinct], rtol=1e-5, atol=1e-5),
+          "phase vec: values differ from the float64 numpy sum beyond 1e-5")
+    phases["vec"] = {"k": k1, "m": m1, "n": n1, "total_nnz": k1 * nnz1,
+                     "out_nnz": nnz_out,
+                     "ms": host_ms(torch, lambda: E.spkadd_auto(mats), 5)}
+
+    # ---- 2. sorted: the same collection through spkadd_run --------------
+    torch.cuda.synchronize()
+    reset_counts()
+    out_sorted = E.spkadd_run(mats, algorithm="sorted")
+    torch.cuda.synchronize()
+    launches["segment_fold"] = kernels["segment_fold"].launches
+    check(launches["segment_fold"] > 0,
+          "phase sorted: segment-fold kernel not launched")
+    check(same_coo(torch, out_vec, out_sorted),
+          "phase vec: spkadd_auto (vec) is not bitwise equal to sorted")
+    log(f"phase sorted: segment_fold launches={launches['segment_fold']}; "
+        f"vec == sorted bitwise")
+    phases["sorted"] = {
+        "ms": host_ms(torch, lambda: E.spkadd_run(mats, algorithm="sorted"),
+                      5)}
+
+    # ---- 3. hash: B collections through spkadd_batched ------------------
+    B2, k2, m2, n2, per2 = 512, 16, 65536, 256, 512
+    rows2 = rng.integers(0, m2, size=(k2, B2, per2), dtype=np.int32)
+    cols2 = np.tile(np.repeat(np.arange(n2, dtype=np.int32), per2 // n2),
+                    (B2, 1))
+    vals2 = rng.standard_normal((k2, B2, per2), dtype=np.float32)
+    stacked = [S.from_coords(rows2[i], cols2, vals2[i], (m2, n2))
+               for i in range(k2)]
+    sig2, req2, eff2 = E.explain_batched_dispatch(stacked)
+    log(f"phase hash: B={B2} k={sig2.k} cf={sig2.compression:.4f} -> "
+        f"{req2}/{eff2}")
+    check(eff2 == "hash", f"phase hash dispatched {eff2!r}, expected 'hash'")
+    compactions0 = obs.counter("engine.hash.compaction_sorts").value
+    torch.cuda.synchronize()
+    reset_counts()
+    out_hash = E.spkadd_batched(stacked)
+    torch.cuda.synchronize()
+    launches["hash_slide"] = kernels["hash_slide"].launches
+    check(launches["hash_slide"] > 0, "phase hash: hash kernel not launched")
+    presort = obs.gauge("engine.hash.presort_sorts").value
+    compactions = obs.counter("engine.hash.compaction_sorts").value \
+        - compactions0
+    check(presort == 0, f"phase hash: {presort} sorts before compaction")
+    check(compactions == 1, f"phase hash: {compactions} compaction sorts")
+    geom2 = kops.hash_launch_geometry(out_hash.cap, m=m2, n=n2,
+                                      smem_budget_bytes=budget)
+    log(f"phase hash: hash_slide launches={launches['hash_slide']} "
+        f"presort={presort} compactions={compactions} "
+        f"geometry={geom2._asdict()}")
+    out_hash_sorted = E.spkadd_batched(stacked, algorithm="sorted")
+    check(same_coo(torch, out_hash, out_hash_sorted),
+          "phase hash: a batch row differs bitwise from sorted")
+    # host reference for the batch: distinct (row, key) pairs and f64 sums
+    keys2 = (cols2[None].astype(np.int64) * m2 + rows2).transpose(1, 0, 2)
+    comb = (np.arange(B2, dtype=np.int64)[:, None, None] * (m2 * n2)
+            + keys2).reshape(-1)
+    uniq, inv = np.unique(comb, return_inverse=True)
+    sums = np.bincount(inv, weights=vals2.transpose(1, 0, 2).reshape(-1)
+                       .astype(np.float64))
+    hk = out_hash.keys.cpu().numpy()
+    hv = out_hash.vals.cpu().numpy()
+    hn = out_hash.nnz.cpu().numpy()
+    got_keys = np.concatenate([b * (m2 * n2) + hk[b, :hn[b]].astype(np.int64)
+                               for b in range(B2)])
+    got_vals = np.concatenate([hv[b, :hn[b]] for b in range(B2)])
+    check(np.array_equal(got_keys, uniq), "phase hash: keys differ from numpy")
+    check(np.isfinite(got_vals).all(), "phase hash: non-finite values")
+    check(np.allclose(got_vals, sums, rtol=1e-5, atol=1e-5),
+          "phase hash: values differ from the float64 numpy sum beyond 1e-5")
+    phases["hash"] = {"B": B2, "k": k2, "m": m2, "n": n2,
+                      "nnz_per_collection": k2 * per2,
+                      "ms": host_ms(torch, lambda: E.spkadd_batched(stacked),
+                                    5)}
+
+    # where the time of each phase's engine call goes, on the device
+    profiles = {
+        "vec": device_profile(torch, lambda: E.spkadd_auto(mats),
+                              phases["vec"]["ms"]),
+        "sorted": device_profile(
+            torch, lambda: E.spkadd_run(mats, algorithm="sorted"),
+            phases["sorted"]["ms"]),
+        "hash": device_profile(torch, lambda: E.spkadd_batched(stacked),
+                               phases["hash"]["ms"]),
+    }
+    for name, prof in profiles.items():
+        log(f"profile {name}: device {prof['device_ms']:.3f} ms of "
+            f"{prof['wall_ms']:.3f} ms wall; top {prof['top'][:3]}")
+
+    # ---- 4. kernels against their plain versions ------------------------
+    report = []
+
+    # partition, at phase 1's step tables
+    cat1 = S.concat(mats)
+    plan, keys_p, steps = S.plan_and_partition(
+        cat1.keys[None], cat1.shape, part_elems=geom1.part_elems,
+        chunk=geom1.chunk)
+    vals_p = torch.zeros(keys_p.shape, dtype=torch.float32, device=dev)
+    vals_p[:, :cat1.cap] = torch.gather(cat1.vals[None], -1, plan.order)
+    pkw = dict(mn=m1 * n1, part_elems=geom1.part_elems, parts=geom1.parts,
+               chunk=geom1.chunk)
+    got = partition.partitioned_accumulate_raw(
+        keys_p, vals_p, steps.chunk_id, steps.part_id, **pkw)
+    want = partition.partitioned_accumulate_plain(
+        keys_p, vals_p, steps.chunk_id, steps.part_id, **pkw)
+    check(bitwise_equal(torch, got, want),
+          "partition kernel differs from its plain version")
+    lib_acc = torch.zeros(max(got.shape[1], m1 * n1 + 1), device=dev)
+    lib_idx = keys_p[0].long()
+    part_bytes = 4 * (keys_p.numel() + vals_p.numel() + steps.chunk_id.numel()
+                      + steps.part_id.numel() + got.numel())
+    part_bound = bound(part_bytes, int((keys_p < m1 * n1).sum()))
+    report.append({
+        "name": "partition", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/partition.cu",
+        "replaces": "src/repro/kernels/partition.py:62",
+        "launches": launches["partition"],
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": cuda_ms(torch, lambda: partition.partitioned_accumulate_raw(
+            keys_p, vals_p, steps.chunk_id, steps.part_id, **pkw), 20),
+        "plain_ms": cuda_ms(torch, lambda: partition.partitioned_accumulate_plain(
+            keys_p, vals_p, steps.chunk_id, steps.part_id, **pkw), 3),
+        "bound_ms": part_bound[0],
+        "bound_by": part_bound[1],
+        "library_ms": cuda_ms(torch, lambda: lib_acc.index_add_(
+            0, lib_idx, vals_p[0]), 20),
+        "bytes": part_bytes, "geometry": geom1._asdict(),
+    })
+    del got, want, lib_acc
+
+    # hash_slide, at phase 2's padded streams
+    cat2 = S.concat(stacked)
+    hkw = dict(mn=m2 * n2, table_size=geom2.table_size,
+               part_span=geom2.part_span, parts=geom2.parts,
+               chunk=geom2.chunk)
+    check(cat2.cap % geom2.chunk == 0, "phase hash stream is not chunk-aligned")
+    tk, tv = hash_slide.hash_slide_raw(cat2.keys, cat2.vals, **hkw)
+    t_plain = time.perf_counter()
+    pk, pv = hash_slide.hash_slide_plain(cat2.keys, cat2.vals, **hkw)
+    torch.cuda.synchronize()
+    hash_plain_ms = (time.perf_counter() - t_plain) * 1e3
+    check(bitwise_equal(torch, tk, pk) and bitwise_equal(torch, tv, pv),
+          "hash_slide kernel tables differ from its plain version")
+    hash_bytes = 4 * (cat2.keys.numel() + cat2.vals.numel() + tk.numel()
+                      + tv.numel())
+    hash_bound = bound(hash_bytes, int((cat2.keys < m2 * n2).sum()))
+    report.append({
+        "name": "hash_slide", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hash_slide.cu",
+        "replaces": "src/repro/kernels/hash_slide.py:83",
+        "launches": launches["hash_slide"],
+        "max_abs_err": float((tv - pv).abs().max()),
+        "ms": cuda_ms(torch, lambda: hash_slide.hash_slide_raw(
+            cat2.keys, cat2.vals, **hkw), 20),
+        "plain_ms": hash_plain_ms,
+        "bound_ms": hash_bound[0],
+        "bound_by": hash_bound[1],
+        "library_ms": None,
+        "bytes": hash_bytes, "geometry": geom2._asdict(),
+    })
+
+    # segment_fold, on phase 1's plan-sorted stream
+    v_s = torch.gather(cat1.vals, -1, plan.order[0])
+    gid = plan.gid[0]
+    got = segment.segment_fold(v_s, gid, cat1.cap)
+    want = segment.segment_fold_plain(v_s, gid, cat1.cap)
+    check(bitwise_equal(torch, got, want),
+          "segment_fold kernel differs from its plain version")
+    seg_acc = torch.zeros(cat1.cap, device=dev)
+    gid_long = gid.long()
+    seg_bytes = 4 * (v_s.numel() + gid.numel() + got.numel())
+    seg_bound = bound(seg_bytes, v_s.numel())
+    report.append({
+        "name": "segment_fold", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_fold.cu",
+        "replaces": "src/repro/core/sparse.py:325",
+        "launches": launches["segment_fold"],
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": cuda_ms(torch, lambda: segment.segment_fold(v_s, gid, cat1.cap),
+                      20),
+        "plain_ms": cuda_ms(torch, lambda: segment.segment_fold_plain(
+            v_s, gid, cat1.cap), 3),
+        "bound_ms": seg_bound[0],
+        "bound_by": seg_bound[1],
+        "library_ms": cuda_ms(torch, lambda: seg_acc.index_add_(
+            0, gid_long, v_s), 20),
+        "bytes": seg_bytes,
+    })
+
+    for r in report:
+        check(r["launches"] > 0, f"{r['name']}: no launch on its path")
+        check(r["max_abs_err"] == 0.0, f"{r['name']}: max_abs_err "
+              f"{r['max_abs_err']}")
+        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.2f} ms, library {r['library_ms']}) "
+            f"launches={r['launches']}")
+    phases["build_s"] = build_s
+    phases["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(json.dumps({"phases": phases}), flush=True)
+    print(json.dumps({"profile": profiles}), flush=True)
+    print(json.dumps({"kernels": report}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

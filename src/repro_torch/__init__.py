@@ -1,0 +1,10 @@
+"""repro_torch — the SpKAdd engine ported to PyTorch and CUDA (Hopper).
+
+A second package beside ``repro`` (the JAX/Pallas reference), mirroring its
+module names: ``core.sparse``, ``core.spkadd``, ``core.engine``,
+``kernels.*``, ``obs``. It imports neither JAX nor anything of ``repro``.
+Entry points follow their input tensors' device: on a CUDA card every
+kernel-backed step launches a hand-written CUDA kernel (``kernels/csrc``,
+built with ``nvcc`` at first use); on the CPU the kernels' plain PyTorch
+versions run.
+"""

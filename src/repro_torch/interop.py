@@ -1,0 +1,51 @@
+"""Interop: carry ``PaddedCOO`` state between the reference and the port.
+
+The system has no weights; its state is ``PaddedCOO`` collections plus the
+cost-model table (a JSON file both packages read the same way). These
+helpers turn a PaddedCOO's leaves, as numpy arrays (or anything
+``np.asarray`` takes — a reference PaddedCOO's leaves included), into the
+port's tensors and back, without importing the reference.
+"""
+from __future__ import annotations
+
+from typing import Iterable, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.sparse import PaddedCOO, resolve_device
+
+#: ``(keys, vals, nnz, shape)`` as numpy arrays — the field order of both
+#: packages' PaddedCOO.
+NumpyCOO = Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]
+
+
+def padded_coo_from_numpy(keys, vals, nnz, shape: Tuple[int, int],
+                          device=None) -> PaddedCOO:
+    """Leaves -> port PaddedCOO on ``device`` (``None`` = the CUDA card;
+    raises without one unless ``device="cpu"``). Keys become int32, nnz an
+    int32 tensor; values keep their dtype."""
+    dev = resolve_device(device)
+    m, n = (int(s) for s in shape)
+    return PaddedCOO(
+        keys=torch.as_tensor(np.array(keys, dtype=np.int32), device=dev),
+        vals=torch.as_tensor(np.array(vals), device=dev),
+        nnz=torch.as_tensor(np.array(nnz, dtype=np.int32), device=dev),
+        shape=(m, n))
+
+
+def padded_coo_to_numpy(a: PaddedCOO) -> NumpyCOO:
+    """Port PaddedCOO -> ``(keys, vals, nnz, shape)`` numpy leaves."""
+    return (a.keys.cpu().numpy(), a.vals.cpu().numpy(), a.nnz.cpu().numpy(),
+            tuple(a.shape))
+
+
+def collection_from_numpy(mats: Iterable[Sequence], device=None
+                          ) -> List[PaddedCOO]:
+    """A collection of ``(keys, vals, nnz, shape)`` leaf tuples (a list of
+    reference PaddedCOOs is one) -> list of port PaddedCOOs."""
+    return [padded_coo_from_numpy(*a, device=device) for a in mats]
+
+
+def collection_to_numpy(mats: Iterable[PaddedCOO]) -> List[NumpyCOO]:
+    return [padded_coo_to_numpy(a) for a in mats]

@@ -1,0 +1,67 @@
+"""Import hygiene of the port: ``src/repro_torch`` and ``chip_smoke.py``
+import neither JAX nor anything of the reference package ``repro``, and the
+constructors refuse to default to a card that is not there."""
+import ast
+import glob
+import os
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = sorted(glob.glob(os.path.join(REPO, "src", "repro_torch", "**",
+                                           "*.py"), recursive=True))
+SCANNED = PORT_FILES + [os.path.join(REPO, "chip_smoke.py")]
+
+
+def imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_scan_covers_the_port():
+    names = {os.path.relpath(p, REPO) for p in SCANNED}
+    assert "src/repro_torch/core/engine.py" in names
+    assert "src/repro_torch/kernels/partition.py" in names
+    assert "chip_smoke.py" in names
+
+
+@pytest.mark.parametrize("path", SCANNED,
+                         ids=[os.path.relpath(p, REPO) for p in SCANNED])
+def test_no_jax_and_no_reference_imports(path):
+    for mod in imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "optax"), (path, mod)
+        assert top != "repro", (path, mod)
+
+
+def test_kernel_sources_stand_alone():
+    csrc = os.path.join(REPO, "src", "repro_torch", "kernels", "csrc")
+    sources = sorted(os.listdir(csrc))
+    assert {"partition.cu", "hash_slide.cu", "segment_fold.cu"} <= set(sources)
+    for name in sources:
+        with open(os.path.join(csrc, name)) as f:
+            text = f.read()
+        assert "torch/extension.h" not in text, name
+
+
+def test_constructors_refuse_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None is valid here")
+    from repro_torch.core import sparse as TS
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TS.from_coords([1], [0], [2.0], (4, 4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TS.resolve_device(None)
+    assert TS.resolve_device("cpu").type == "cpu"
