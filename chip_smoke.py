@@ -7,9 +7,9 @@ Run from the root of a checkout; it imports ``src/repro_torch`` (never JAX,
 never the reference package ``repro``) and exits non-zero, printing no
 result, when no CUDA card is present or the package is missing.
 
-0. Build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` (one process per source, in parallel) and print the build time,
-   the compiler's register/shared-memory report and the card.
+0. Build the five CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+   with ``nvcc`` (one process per source, in parallel) and print the build
+   time, the compiler's register/shared-memory report and the card.
 1. ``vec``: one collection through ``spkadd_auto`` — k = 64 ER matrices of
    65,536 × 512 with 512 nonzeros per column (16,777,216 nonzeros), the
    stage reduction of a sparse SUMMA. Dispatch must say ``vec``; the
@@ -23,12 +23,26 @@ result, when no CUDA card is present or the package is missing.
    kernel must launch with zero sorts before compaction and one compaction
    sort; every row must equal the batched ``sorted`` path bitwise and a
    float64 numpy sum to 1e-5.
-4. One profiled call of each phase (device time by kernel, busy share),
-   then each kernel against its plain PyTorch version on the card, on the
-   inputs its path gives it: bitwise (tolerance 0). Then JSON lines of the
-   phases' end-to-end times, the profiles and the kernel numbers (median ms
-   by CUDA events, bound, plain and library times), the card's name and
-   power limit, and as the last line ``{"ok": true, "device": {...}}``.
+4. ``family``: phase 1's collection through the algorithm family's front
+   door, ``spkadd(mats, a)`` for ``incremental``, ``tree``, ``sorted``,
+   ``spa``, ``vec`` and ``blocked_spa``. Every result but ``tree``'s must
+   equal ``sorted`` bitwise once exact zeros are dropped (the
+   dense-accumulator members drop them, the merge paths keep them);
+   ``tree`` adds pairwise and, like every member, must equal the float64
+   numpy sum to 1e-5. ``vec`` and ``blocked_spa`` must launch the SPA
+   kernel.
+5. ``hash_alg``: the faithful hash algorithm, ``spkadd(mats, "hash")``, on
+   k = 64 ER matrices of 65,536 × 32 with 512 nonzeros per column
+   (1,048,576 nonzeros, a 2^22-slot table): bitwise equal to ``sorted``
+   (keys, values and nnz, nothing dropped); ``ops.hash_symbolic`` must
+   equal ``symbolic_nnz``; both hash kernels must launch.
+6. One profiled call of each phase (device time by kernel, busy share),
+   then each of the six kernels against its plain PyTorch version on the
+   card, on the inputs its path gives it: bitwise (tolerance 0). Then JSON
+   lines of the phases' end-to-end times, the profiles and the kernel
+   numbers (median ms by CUDA events, bound, plain and library times), the
+   card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before its path runs and read just
 after; launches made to time or compare a kernel do not count.
@@ -180,8 +194,9 @@ def run(args, torch) -> int:
     from repro_torch import obs
     from repro_torch.core import engine as E
     from repro_torch.core import sparse as S
-    from repro_torch.kernels import _build, hash_slide, ops as kops
-    from repro_torch.kernels import partition, segment
+    from repro_torch.core import spkadd as A
+    from repro_torch.kernels import _build, hash_accum, hash_slide, ops as kops
+    from repro_torch.kernels import partition, segment, spa_accum
 
     dev = torch.device("cuda")
     card = nvidia_smi_line()
@@ -202,6 +217,9 @@ def run(args, torch) -> int:
         "partition": partition.partitioned_accumulate_raw,
         "hash_slide": hash_slide.hash_slide_raw,
         "segment_fold": segment.segment_fold,
+        "spa_accum": spa_accum.spa_accumulate_raw,
+        "hash_accum": hash_accum.hash_accumulate_raw,
+        "hash_symbolic": hash_accum.hash_symbolic_raw,
     }
 
     def reset_counts():
@@ -325,6 +343,120 @@ def run(args, torch) -> int:
                       "ms": host_ms(torch, lambda: E.spkadd_batched(stacked),
                                     5)}
 
+    # ---- 4. family: the algorithm family's front door ------------------
+    def nonzero_entries(out):
+        """(keys, vals) of the entries that are valid and not exactly 0."""
+        keep = out.valid_mask() & (out.vals != 0)
+        return out.keys[keep], out.vals[keep]
+
+    sorted_nz = nonzero_entries(out_sorted)
+    family = {}
+    # incremental and tree are timed once, on the checked call: their
+    # segment folds walk the sentinel padding run serially (ROADMAP queue
+    # 2), seconds a call, and further calls would show nothing new
+    timed_once = ("incremental", "tree")
+    for alg in ("incremental", "tree", "sorted", "spa", "vec", "blocked_spa"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = A.spkadd(mats, algorithm=alg)
+        torch.cuda.synchronize()
+        checked_ms = (time.perf_counter() - t0) * 1e3
+        used = {k: fn.launches for k, fn in kernels.items() if fn.launches}
+        nz_k, nz_v = nonzero_entries(out)
+        if alg != "tree":
+            check(bitwise_equal(torch, nz_k, sorted_nz[0])
+                  and bitwise_equal(torch, nz_v, sorted_nz[1]),
+                  f"phase family: {alg} differs bitwise from sorted")
+        else:
+            check(int(out.nnz) == distinct.size,
+                  f"phase family: tree nnz {int(out.nnz)} != distinct keys "
+                  f"{distinct.size}")
+        hk_np, hv_np = nz_k.cpu().numpy(), nz_v.cpu().numpy()
+        check(np.isfinite(hv_np).all(), f"phase family: {alg} non-finite")
+        check(np.isin(hk_np, distinct).all(),
+              f"phase family: {alg} keys differ from numpy")
+        check(np.allclose(hv_np, ref64[hk_np], rtol=1e-5, atol=1e-5),
+              f"phase family: {alg} values differ from the float64 numpy "
+              f"sum beyond 1e-5")
+        if alg in ("vec", "blocked_spa"):
+            check(used.get("spa_accum", 0) > 0,
+                  f"phase family: {alg} did not launch the SPA kernel")
+            launches["spa_accum"] = launches.get("spa_accum", 0) \
+                + used["spa_accum"]
+        del out
+        family[alg] = {
+            "ms": (checked_ms if alg in timed_once else
+                   host_ms(torch, lambda: A.spkadd(mats, algorithm=alg), 3)),
+            "timed_calls": 1 if alg in timed_once else 3,
+            "launches": used, "out_nnz": int(hk_np.size)}
+        log(f"phase family: {alg} {family[alg]['ms']:.2f} ms, "
+            f"launches {used}; equal to sorted"
+            f"{' (tree: float64 only)' if alg == 'tree' else ''}")
+    spa_budget = kops.spa_tile_budget(dev)
+    spa_rows, spa_chunk = kops.vec_launch_geometry(
+        k1 * nnz1, m=m1, n=n1, smem_budget_bytes=spa_budget)
+    spa_parts = -(-m1 // spa_rows)
+    phases["family"] = {"k": k1, "m": m1, "n": n1, "total_nnz": k1 * nnz1,
+                        "algorithms": family,
+                        "spa_geometry": {"block_rows": spa_rows,
+                                         "parts": spa_parts,
+                                         "chunk": spa_chunk,
+                                         "tile_budget": spa_budget}}
+
+    # ---- 5. hash_alg: the faithful hash algorithm -----------------------
+    k3, m3, n3, d3 = 64, 65536, 32, 512
+    nnz3 = n3 * d3
+    rows3 = rng.integers(0, m3, size=(k3, nnz3), dtype=np.int32)
+    cols3 = np.repeat(np.arange(n3, dtype=np.int32), d3)
+    vals3 = rng.standard_normal((k3, nnz3), dtype=np.float32)
+    mats3 = [S.from_coords(rows3[i], cols3, vals3[i], (m3, n3))
+             for i in range(k3)]
+    cat3 = S.concat(mats3)
+    sent3 = S.sentinel_key((m3, n3))
+    torch.cuda.synchronize()
+    reset_counts()
+    out_h = A.spkadd(mats3, algorithm="hash")
+    torch.cuda.synchronize()
+    launches["hash_accum"] = kernels["hash_accum"].launches
+    check(launches["hash_accum"] > 0, "phase hash_alg: hash kernel not "
+          "launched")
+    reset_counts()
+    sym = kops.hash_symbolic(cat3.keys, sent=sent3)
+    torch.cuda.synchronize()
+    launches["hash_symbolic"] = kernels["hash_symbolic"].launches
+    check(launches["hash_symbolic"] > 0, "phase hash_alg: symbolic kernel "
+          "not launched")
+    out_hs = A.spkadd(mats3, algorithm="sorted")
+    check(same_coo(torch, out_h, out_hs),
+          "phase hash_alg: hash is not bitwise equal to sorted")
+    sym_ref = int(A.symbolic_nnz(mats3))
+    check(int(sym) == sym_ref == int(out_h.nnz),
+          f"phase hash_alg: hash_symbolic {int(sym)}, symbolic_nnz "
+          f"{sym_ref}, nnz {int(out_h.nnz)}")
+    keys3 = (cols3[None, :].astype(np.int64) * m3 + rows3).reshape(-1)
+    ref3 = np.bincount(keys3, weights=vals3.reshape(-1).astype(np.float64),
+                       minlength=m3 * n3)
+    distinct3 = np.flatnonzero(np.bincount(keys3, minlength=m3 * n3))
+    nh = int(out_h.nnz)
+    check(np.array_equal(out_h.keys[:nh].cpu().numpy(), distinct3),
+          "phase hash_alg: keys differ from numpy")
+    hv3 = out_h.vals[:nh].cpu().numpy()
+    check(np.isfinite(hv3).all() and np.allclose(hv3, ref3[distinct3],
+                                                 rtol=1e-5, atol=1e-5),
+          "phase hash_alg: values differ from the float64 numpy sum "
+          "beyond 1e-5")
+    table3 = hash_accum.hash_table_size(cat3.cap + 1)
+    phases["hash_alg"] = {
+        "k": k3, "m": m3, "n": n3, "total_nnz": k3 * nnz3, "out_nnz": nh,
+        "table_size": table3,
+        "ms": host_ms(torch, lambda: A.spkadd(mats3, algorithm="hash"), 3),
+        "symbolic_ms": host_ms(torch, lambda: kops.hash_symbolic(
+            cat3.keys, sent=sent3), 3)}
+    log(f"phase hash_alg: hash == sorted bitwise, nnz {nh}, table "
+        f"{table3} slots; {phases['hash_alg']['ms']:.2f} ms, symbolic "
+        f"{phases['hash_alg']['symbolic_ms']:.2f} ms")
+
     # where the time of each phase's engine call goes, on the device
     profiles = {
         "vec": device_profile(torch, lambda: E.spkadd_auto(mats),
@@ -334,6 +466,15 @@ def run(args, torch) -> int:
             phases["sorted"]["ms"]),
         "hash": device_profile(torch, lambda: E.spkadd_batched(stacked),
                                phases["hash"]["ms"]),
+        "family_tree": device_profile(
+            torch, lambda: A.spkadd(mats, algorithm="tree"),
+            family["tree"]["ms"]),
+        "family_blocked_spa": device_profile(
+            torch, lambda: A.spkadd(mats, algorithm="blocked_spa"),
+            family["blocked_spa"]["ms"]),
+        "hash_alg": device_profile(
+            torch, lambda: A.spkadd(mats3, algorithm="hash"),
+            phases["hash_alg"]["ms"]),
     }
     for name, prof in profiles.items():
         log(f"profile {name}: device {prof['device_ms']:.3f} ms of "
@@ -437,6 +578,125 @@ def run(args, torch) -> int:
         "library_ms": cuda_ms(torch, lambda: seg_acc.index_add_(
             0, gid_long, v_s), 20),
         "bytes": seg_bytes,
+    })
+
+    # spa_accum, on the family's concatenated stream as given (the
+    # blocked_spa path) and stable-sorted (the vec path)
+    spa_keys, spa_vals = kops.pad_stream(cat1.keys, cat1.vals, m1 * n1,
+                                          spa_chunk)
+    spa_order = torch.argsort(spa_keys, stable=True)
+    spa_sorted = (spa_keys[spa_order], spa_vals[spa_order])
+    skw = dict(m=m1, n=n1, block_rows=spa_rows, chunk=spa_chunk)
+    spa_err = 0.0
+    for keys_, vals_ in ((spa_keys, spa_vals), spa_sorted):
+        got = spa_accum.spa_accumulate_raw(keys_, vals_, **skw)
+        want = spa_accum.spa_accumulate_plain(keys_, vals_, **skw)
+        check(bitwise_equal(torch, got, want),
+              "spa_accum kernel differs from its plain version")
+        spa_err = max(spa_err, float((got - want).abs().max()))
+        del got, want
+    spa_bytes = 8 * spa_keys.numel() + 4 * m1 * n1
+    spa_bound = bound(spa_bytes, int((spa_keys < m1 * n1).sum()))
+    spa_lib = torch.zeros(m1 * n1 + 1, device=dev)
+    spa_idx = spa_keys.long()
+    report.append({
+        "name": "spa_accum", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/spa_accum.cu",
+        "replaces": "src/repro/kernels/spa_accum.py:55",
+        "launches": launches["spa_accum"],
+        "max_abs_err": spa_err,
+        "ms": cuda_ms(torch, lambda: spa_accum.spa_accumulate_raw(
+            spa_keys, spa_vals, **skw), 5),
+        "sorted_stream_ms": cuda_ms(torch, lambda: spa_accum
+                                    .spa_accumulate_raw(*spa_sorted, **skw),
+                                    5),
+        "plain_ms": cuda_ms(torch, lambda: spa_accum.spa_accumulate_plain(
+            spa_keys, spa_vals, **skw), 3),
+        "bound_ms": spa_bound[0],
+        "bound_by": spa_bound[1],
+        "library_ms": cuda_ms(torch, lambda: spa_lib.index_add_(
+            0, spa_idx, spa_vals), 20),
+        "bytes": spa_bytes,
+        "all_pairs_bytes": 8 * spa_keys.numel() * spa_parts,
+        "geometry": phases["family"]["spa_geometry"],
+    })
+    del spa_lib, spa_idx, spa_sorted, spa_order
+
+    # hash_accum and hash_symbolic: at the hash_alg phase's stream (a
+    # device-memory table of 2^22 slots), and on its first 4,096 and
+    # 16,384 elements (a shared-memory and a device-memory table); the
+    # plain versions run on a CPU copy
+    hash_cases = {}
+    for cap in (4096, 16384, cat3.cap):
+        hk_, hv_ = cat3.keys[:cap], cat3.vals[:cap]
+        hk_cpu, hv_cpu = hk_.cpu(), hv_.cpu()
+        tk_, tv_ = hash_accum.hash_accumulate_raw(hk_, hv_, sent=sent3)
+        t_plain = time.perf_counter()
+        pk_, pv_ = hash_accum.hash_accumulate_plain(hk_cpu, hv_cpu,
+                                                    sent=sent3)
+        acc_plain_ms = (time.perf_counter() - t_plain) * 1e3
+        check(bitwise_equal(torch, tk_.cpu(), pk_)
+              and bitwise_equal(torch, tv_.cpu(), pv_),
+              f"hash_accum kernel table differs from its plain version at "
+              f"cap {cap}")
+        nz_ = hash_accum.hash_symbolic_raw(hk_, sent=sent3)
+        t_plain = time.perf_counter()
+        pnz_ = hash_accum.hash_symbolic_plain(hk_cpu, sent=sent3)
+        sym_plain_ms = (time.perf_counter() - t_plain) * 1e3
+        check(int(nz_) == int(pnz_), f"hash_symbolic kernel count differs "
+              f"from its plain version at cap {cap}")
+        size_ = hash_accum.hash_table_size(cap + 1)
+        hash_cases[cap] = {
+            "table_size": size_,
+            "acc_in_smem": hash_accum.table_in_smem(size_, symbolic=False,
+                                                    device=dev),
+            "sym_in_smem": hash_accum.table_in_smem(size_, symbolic=True,
+                                                    device=dev),
+            "acc_ms": cuda_ms(torch, lambda: hash_accum.hash_accumulate_raw(
+                hk_, hv_, sent=sent3), 3),
+            "sym_ms": cuda_ms(torch, lambda: hash_accum.hash_symbolic_raw(
+                hk_, sent=sent3), 3),
+            "acc_plain_ms": acc_plain_ms, "sym_plain_ms": sym_plain_ms,
+            "acc_err": float((tv_.cpu() - pv_).abs().max()),
+            "valid": int((hk_ != sent3).sum())}
+        log(f"hash kernels at cap {cap}: {hash_cases[cap]}")
+    full = hash_cases[cat3.cap]
+    acc_bytes = 8 * cat3.cap + 8 * full["table_size"]
+    acc_bound = bound(acc_bytes, full["valid"])
+    sym_bytes = 4 * cat3.cap + 4
+    sym_bound = bound(sym_bytes, 0)
+    # library yardstick for the symbolic count (the port never calls it):
+    # the distinct non-sentinel keys of the same stream, which is what the
+    # kernel counts in a table that is not undersized, as 2^22 slots is not
+    def unique_count():
+        return int((torch.unique(cat3.keys) != sent3).sum())
+    check(unique_count() == int(sym), "hash_symbolic: torch.unique count "
+          "differs from the kernel's")
+    sym_library_ms = cuda_ms(torch, unique_count, 3)
+    small = {c: hash_cases[c] for c in (4096, 16384)}
+    report.append({
+        "name": "hash_accum", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hash_accum.cu",
+        "replaces": "src/repro/kernels/hash_accum.py:75",
+        "launches": launches["hash_accum"],
+        "max_abs_err": max(c["acc_err"] for c in hash_cases.values()),
+        "ms": full["acc_ms"], "plain_ms": full["acc_plain_ms"],
+        "bound_ms": acc_bound[0], "bound_by": acc_bound[1],
+        "library_ms": None, "bytes": acc_bytes,
+        "table_size": full["table_size"], "in_smem": full["acc_in_smem"],
+        "smaller_caps": small,
+    })
+    report.append({
+        "name": "hash_symbolic", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/hash_accum.cu",
+        "replaces": "src/repro/kernels/hash_accum.py:126",
+        "launches": launches["hash_symbolic"],
+        "max_abs_err": 0.0,
+        "ms": full["sym_ms"], "plain_ms": full["sym_plain_ms"],
+        "bound_ms": sym_bound[0], "bound_by": sym_bound[1],
+        "library_ms": sym_library_ms, "library": "torch.unique",
+        "bytes": sym_bytes,
+        "table_size": full["table_size"], "in_smem": full["sym_in_smem"],
     })
 
     for r in report:

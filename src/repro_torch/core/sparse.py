@@ -165,18 +165,28 @@ def from_coords(rows, cols, vals, shape: Tuple[int, int], nnz=None,
     return PaddedCOO(keys=keys, vals=vals, nnz=nnz, shape=shape)
 
 
+def top_k_abs(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest ``|x|`` along the last axis, largest
+    first, ties to the lower index: the rule of the reference's
+    ``lax.top_k`` (``torch.topk`` breaks ties in another order).
+
+    A stable descending sort, not counted by :func:`sort_calls`: the
+    reference's ``top_k`` is not a counted sort either."""
+    order = torch.sort(x.abs(), dim=-1, descending=True, stable=True).indices
+    return order[..., :k]
+
+
 def from_dense(dense: torch.Tensor, cap: int) -> PaddedCOO:
     """Dense -> PaddedCOO keeping at most ``cap`` nonzeros (all, if they fit).
 
-    Selection is by |value| via top-k, so truncation (if any) keeps the
-    heavy entries; with ``cap >= nnz(dense)`` this is exact. Truncation
-    among equal magnitudes may keep other entries than the reference's
-    ``lax.top_k``.
+    Selection is by |value| (:func:`top_k_abs`), so truncation (if any)
+    keeps the heavy entries, ties to the lower key; with
+    ``cap >= nnz(dense)`` this is exact.
     """
     m, n = dense.shape
     flat = dense.T.reshape(-1)  # col-major to match keys
     k = min(cap, m * n)
-    _, idx = torch.topk(flat.abs(), k)
+    idx = top_k_abs(flat, k)
     v = flat[idx]
     valid = v != 0.0
     keys = torch.where(valid, idx.to(torch.int32), sentinel_key((m, n)))

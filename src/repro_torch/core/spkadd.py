@@ -1,12 +1,24 @@
-"""The SpKAdd algorithm family (paper §II–III), kernel-free half.
+"""The SpKAdd algorithm family (paper §II–III).
 
-The port of the part of ``src/repro/core/spkadd.py`` that needs no kernel
-of its own: the symbolic phase, 2-way addition, and the incremental, tree
-and sorted k-way algorithms. Each returns ``B = sum_i A_i`` for a list of
-PaddedCOO matrices of one logical shape. The engine's regimes
-(``core/engine.py``) carry the accumulator kernels; the family's
-kernel-backed members (``spa``, ``vec``, ``blocked_spa``, ``hash``) are not
-ported yet and raise a ``ValueError`` that says so.
+The port of ``src/repro/core/spkadd.py``. Each algorithm returns
+``B = sum_i A_i`` for a list of PaddedCOO matrices of one logical shape:
+
+=====================  ===============================================
+paper algorithm        this module
+=====================  ===============================================
+2-way incremental      ``spkadd_incremental`` (fold-left of 2-way adds)
+2-way tree             ``spkadd_tree`` (balanced reduction)
+k-way heap             ``spkadd_sorted`` (sort + ordered segment fold)
+k-way SPA              ``spkadd_spa`` (dense accumulator, ordered fold)
+k-way hash             ``spkadd_hash`` (``kernels/hash_accum``)
+k-way sliding SPA      ``spkadd_blocked_spa`` (``kernels/spa_accum``)
+k-way sliding, vec     ``spkadd_vec`` (the same kernel, sorted stream)
+=====================  ===============================================
+
+The dense-accumulator members (``spa``, ``blocked_spa``, ``vec``) end in
+:func:`_resparsify_flat`, which keeps the ``out_cap`` heaviest entries and
+drops exact zeros; ``sorted`` and ``hash`` keep keys whose sum is exactly
+zero. The engine's regimes (``core/engine.py``) are the production paths.
 """
 from __future__ import annotations
 
@@ -15,7 +27,9 @@ from typing import List, Sequence
 import torch
 
 from repro_torch.core.sparse import (PaddedCOO, compress, concat,
-                                     sentinel_key, stable_sort, with_capacity)
+                                     sentinel_key, sort_by_key,
+                                     stable_argsort, stable_sort, top_k_abs,
+                                     with_capacity)
 
 
 # ---------------------------------------------------------------------------
@@ -91,24 +105,110 @@ def spkadd_sorted(mats: Sequence[PaddedCOO]) -> PaddedCOO:
     return compress(concat(mats))
 
 
+def _resparsify_flat(flat: torch.Tensor, shape, out_cap: int) -> PaddedCOO:
+    """Dense ``(m*n,)`` key-ordered accumulator -> key-sorted PaddedCOO
+    keeping the ``out_cap`` heaviest entries (exact when the true nnz
+    fits), ties to the lower key as the reference's ``lax.top_k`` keeps
+    them; exact zeros are dropped. The shared back half of every
+    dense-accumulator algorithm."""
+    idx = top_k_abs(flat, out_cap)
+    vals = flat[idx]
+    valid = vals != 0.0
+    keys = torch.where(valid, idx.to(torch.int32), sentinel_key(shape))
+    order = stable_argsort(keys)
+    return PaddedCOO(keys=keys[order],
+                     vals=torch.where(valid, vals, 0.0)[order],
+                     nnz=valid.sum(dtype=torch.int32), shape=shape)
+
+
+def _spa_flat(mats: Sequence[PaddedCOO]) -> torch.Tensor:
+    """The dense SPA accumulator, flat in key order, in the inputs' value
+    type. The reference scatter-adds each matrix in turn, which folds every
+    key's values in operand order; a CUDA scatter-add does not keep that
+    order, so the port takes the concatenated stream through one counted
+    stable sort and the ordered segment fold (``PaddedCOO.to_dense``)."""
+    return concat(mats).to_dense().T.reshape(-1)
+
+
+def spkadd_spa(mats: Sequence[PaddedCOO], out_cap: int | None = None) -> PaddedCOO:
+    """k-way SPA (paper Alg. 4): dense ``m×n`` accumulator, then one
+    re-sparsification keeping at most ``out_cap`` entries (default: the sum
+    of the input capacities, clipped to ``m*n``)."""
+    m, n = mats[0].shape
+    if out_cap is None:
+        out_cap = sum(a.cap for a in mats)
+    return _resparsify_flat(_spa_flat(mats), mats[0].shape,
+                            min(out_cap, m * n))
+
+
+def spkadd_spa_dense(mats: Sequence[PaddedCOO]) -> torch.Tensor:
+    """SPA variant returning the dense ``(m, n)`` accumulator: the form the
+    gradient-allreduce path consumes."""
+    m, n = mats[0].shape
+    return _spa_flat(mats).reshape(n, m).T
+
+
+def spkadd_blocked_spa(mats: Sequence[PaddedCOO], block_rows: int | None = None,
+                       smem_budget_bytes: int | None = None) -> PaddedCOO:
+    """Sliding SPA (paper Alg. 7/8 with the cache as one block's shared
+    memory): the all-pairs kernel of ``kernels/spa_accum`` folds the
+    concatenated stream, unsorted, into ``(block_rows, n)`` row tiles; then
+    one re-sparsification. ``smem_budget_bytes`` defaults to
+    ``kernels.ops.spa_tile_budget`` of the inputs' device."""
+    from repro_torch.kernels import ops as kops
+
+    m, n = mats[0].shape
+    cat = concat(mats)
+    flat = kops.spa_accumulate_flat(cat.keys, cat.vals, m=m, n=n,
+                                    block_rows=block_rows,
+                                    smem_budget_bytes=smem_budget_bytes)
+    return _resparsify_flat(flat, cat.shape, min(cat.cap, m * n))
+
+
+def spkadd_vec(mats: Sequence[PaddedCOO], block_rows: int | None = None,
+               smem_budget_bytes: int | None = None,
+               fold: str = "auto") -> PaddedCOO:
+    """The reference's lane-parallel sliding SpKAdd: the same all-pairs
+    kernel on the stable-sorted stream (one counted sort), with the fold
+    name checked as the reference checks it; then one re-sparsification."""
+    from repro_torch.kernels import ops as kops
+
+    m, n = mats[0].shape
+    cat = concat(mats)
+    flat = kops.vec_accumulate_flat(cat.keys, cat.vals, m=m, n=n,
+                                    block_rows=block_rows,
+                                    smem_budget_bytes=smem_budget_bytes,
+                                    fold=fold)
+    return _resparsify_flat(flat, cat.shape, min(cat.cap, m * n))
+
+
+def spkadd_hash(mats: Sequence[PaddedCOO]) -> PaddedCOO:
+    """Faithful hash-table SpKAdd (paper Alg. 5) through
+    ``kernels/hash_accum``: one table takes the concatenated stream in
+    order, is compacted by one counted sort, and the result is sorted by
+    key."""
+    from repro_torch.kernels import ops as kops
+
+    cat = concat(mats)
+    keys, vals, nnz = kops.hash_accumulate(cat.keys, cat.vals,
+                                           sent=sentinel_key(cat.shape))
+    return sort_by_key(PaddedCOO(keys=keys, vals=vals, nnz=nnz,
+                                 shape=cat.shape))
+
+
 ALGORITHMS = {
     "incremental": spkadd_incremental,
     "tree": spkadd_tree,
     "sorted": spkadd_sorted,
+    "spa": spkadd_spa,
+    "vec": spkadd_vec,
+    "blocked_spa": spkadd_blocked_spa,
+    "hash": spkadd_hash,
 }
-
-#: Members of the reference's family whose kernels are not ported yet.
-NOT_YET_PORTED = ("spa", "vec", "blocked_spa", "hash")
 
 
 def spkadd(mats: Sequence[PaddedCOO], algorithm: str = "sorted", **kw) -> PaddedCOO:
     """Front door: ``B = sum_i A_i`` with a selectable algorithm."""
-    if algorithm in NOT_YET_PORTED:
-        raise ValueError(
-            f"SpKAdd algorithm {algorithm!r} is not yet ported to repro_torch "
-            f"(not yet ported: {list(NOT_YET_PORTED)}); ported: "
-            f"{sorted(ALGORITHMS)}; the engine's regime of that name is "
-            f"reached through engine.spkadd_auto")
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown SpKAdd algorithm {algorithm!r}; "
                          f"choose from {sorted(ALGORITHMS)}")

@@ -29,7 +29,8 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 #: One shared library per source, in this order.
-SOURCES = ("partition", "hash_slide", "segment_fold")
+SOURCES = ("partition", "hash_slide", "segment_fold", "spa_accum",
+           "hash_accum")
 
 #: Hopper only (``sm_90a``); no fast-math: every fold is an IEEE f32 add.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,12 +1,12 @@
-"""Launch geometry and public wrappers around the port's main-path kernels.
+"""Launch geometry and public wrappers around the port's kernels.
 
-The port of the main-path half of ``src/repro/kernels/ops.py``: the
-geometry formulas are the reference's, line for line, so at equal budgets
-the port launches the same parts, tiles, tables and chunks. What differs is
-the budget: the reference sizes tiles to 16 MiB of TPU VMEM, the port to
-one thread block's shared memory on the card (:func:`device_smem_budget`).
-``spa_accumulate*``, ``vec_accumulate*`` and ``hash_accumulate`` /
-``hash_symbolic`` wait with their kernels.
+The port of ``src/repro/kernels/ops.py``: the geometry formulas are the
+reference's, line for line, so at equal budgets the port launches the same
+parts, tiles, tables and chunks. What differs is the budget: the reference
+sizes tiles to 16 MiB of TPU VMEM, the port to one thread block's shared
+memory on the card (:func:`device_smem_budget`; for the dense SPA tile,
+:func:`spa_tile_budget`). The wrappers pad streams, launch, and compact raw
+kernel outputs back to the PaddedCOO calling convention.
 """
 from __future__ import annotations
 
@@ -16,11 +16,12 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.sparse import next_pow2 as _next_pow2
+from repro_torch.core.sparse import stable_argsort as _stable_argsort
 from repro_torch.kernels import hash_accum as _hash
 from repro_torch.kernels import partition as _part
-
-#: Default input chunk (the reference's ``spa_accum.DEFAULT_CHUNK``).
-DEFAULT_CHUNK = 1024
+from repro_torch.kernels import spa_accum as _spa
+from repro_torch.kernels import vec_accum as _vec
+from repro_torch.kernels.spa_accum import DEFAULT_CHUNK
 
 #: The reference's VMEM budget, used for tensors on the CPU (see
 #: :func:`device_smem_budget`).
@@ -79,6 +80,170 @@ def fold_working_set_bytes(fold: str, *, tile_elems: int, chunk: int) -> int:
     inputs = 2 * chunk * 8
     inter = chunk * tile_elems * 8 if fold == "onehot" else 0
     return out_tile + inputs + inter
+
+
+def spa_tile_budget(device=None) -> int:
+    """The budget the dense SPA tile is sized to (paper Alg. 7's M) for
+    tensors on ``device``: on the CPU the reference's 16 MiB, so that the
+    geometry there is the reference's; on the card
+    :func:`device_smem_budget` less the stage the SPA kernel keeps beside
+    its tile (``spa_accum.stage_bytes``), since ``choose_block_rows``
+    counts the tile alone and the two must fit one block together."""
+    dev = torch.device("cuda" if device is None else device)
+    budget = device_smem_budget(dev)
+    if dev.type == "cuda":
+        budget -= _spa.stage_bytes()
+    return budget
+
+
+def pad_stream(keys: torch.Tensor, vals: torch.Tensor, mn: int, chunk: int):
+    """Pad a stream to a chunk multiple with sentinel keys ``mn`` and zero
+    values; keys ``>= mn`` become the sentinel, their values ``0.0``."""
+    cap = keys.shape[0]
+    cap_pad = _round_up(max(cap, 1), chunk)
+    valid = keys < mn
+    keys_p = torch.full((cap_pad,), mn, dtype=torch.int32, device=keys.device)
+    vals_p = torch.zeros((cap_pad,), dtype=torch.float32, device=keys.device)
+    keys_p[:cap] = torch.where(valid, keys, mn)
+    vals_p[:cap] = torch.where(valid, vals.to(torch.float32), 0.0)
+    return keys_p, vals_p
+
+
+# ---------------------------------------------------------------------------
+# sliding dense SPA and vec launches (kernels/spa_accum.py, the all-pairs grid)
+# ---------------------------------------------------------------------------
+
+def spa_accumulate(keys: torch.Tensor, vals: torch.Tensor, *, m: int, n: int,
+                   block_rows: int | None = None,
+                   smem_budget_bytes: int | None = None,
+                   chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """Sliding blocked-SPA accumulate -> dense ``(m, n)`` f32.
+
+    Pads the stream to a chunk multiple (sentinel keys), sizes the row block
+    to the budget (default :func:`spa_tile_budget` of the keys' device),
+    launches the all-pairs kernel with the ``serial`` fold on the stream
+    **as given** (no sort), and crops the result.
+    """
+    if block_rows is None:
+        budget = (spa_tile_budget(keys.device) if smem_budget_bytes is None
+                  else smem_budget_bytes)
+        block_rows = choose_block_rows(m, n, budget)
+    block_rows = min(block_rows, _round_up(m, 8))
+    keys_p, vals_p = pad_stream(keys, vals, m * n, chunk)
+    return _spa.spa_accumulate_raw(keys_p, vals_p, m=m, n=n,
+                                   block_rows=block_rows, chunk=chunk)
+
+
+def spa_accumulate_flat(keys: torch.Tensor, vals: torch.Tensor, *, m: int,
+                        n: int, **kw) -> torch.Tensor:
+    """:func:`spa_accumulate` -> flat ``(m*n,)`` f32 in key order
+    (col-major), so ``flat[key]`` is the accumulated value of ``key``."""
+    return spa_accumulate(keys, vals, m=m, n=n, **kw).T.reshape(-1)
+
+
+#: The reference's tile-size limit for its one-hot fold, mirrored for
+#: readers of both packages. It selects nothing in the port, whose kernel
+#: runs one fold for every fold name.
+DEFAULT_ONEHOT_MAX_BLOCK_ELEMS = 4096
+
+
+def vec_launch_geometry(cap: int, *, m: int, n: int,
+                        block_rows: int | None = None,
+                        smem_budget_bytes: int = REFERENCE_VMEM_BUDGET,
+                        chunk: int | None = None) -> tuple[int, int]:
+    """``(block_rows, chunk)`` the vec launch uses for a ``cap``-long
+    stream: the reference's formula, shared with :func:`vec_store_counts`."""
+    if block_rows is None:
+        block_rows = choose_block_rows(m, n, smem_budget_bytes)
+    block_rows = min(block_rows, _round_up(m, 8))
+    if chunk is None:
+        chunk = min(DEFAULT_CHUNK, _next_pow2(max(cap, 8)))
+    return block_rows, chunk
+
+
+def vec_accumulate(keys: torch.Tensor, vals: torch.Tensor, *, m: int, n: int,
+                   fold: str = "auto", block_rows: int | None = None,
+                   smem_budget_bytes: int | None = None,
+                   chunk: int | None = None) -> torch.Tensor:
+    """Sliding accumulate of the **stable-sorted** stream -> dense
+    ``(m, n)`` f32.
+
+    The reference's vec launch: one counted stable sort of the keys, then
+    the all-pairs kernel. ``fold`` is checked as the reference checks it
+    (``"auto"`` or a name in ``vec_accum.FOLDS``, power-of-two chunk for the
+    vectorized folds); every name gives the same bits, and ``"auto"`` is
+    checked as ``"sort"``. The budget defaults to :func:`spa_tile_budget`
+    of the keys' device.
+    """
+    mn = m * n
+    valid = keys < mn
+    keys_c = torch.where(valid, keys, mn).to(torch.int32)
+    vals_c = torch.where(valid, vals.to(torch.float32), 0.0)
+    order = _stable_argsort(keys_c)
+    budget = (spa_tile_budget(keys.device) if smem_budget_bytes is None
+              else smem_budget_bytes)
+    block_rows, chunk = vec_launch_geometry(
+        keys.shape[0], m=m, n=n, block_rows=block_rows,
+        smem_budget_bytes=budget, chunk=chunk)
+    keys_p, vals_p = pad_stream(keys_c[order], vals_c[order], mn, chunk)
+    return _spa.spa_accumulate_raw(keys_p, vals_p, m=m, n=n,
+                                   block_rows=block_rows, chunk=chunk,
+                                   fold="sort" if fold == "auto" else fold)
+
+
+def vec_accumulate_flat(keys: torch.Tensor, vals: torch.Tensor, *, m: int,
+                        n: int, **kw) -> torch.Tensor:
+    """:func:`vec_accumulate` -> flat ``(m*n,)`` f32 in key order
+    (col-major)."""
+    return vec_accumulate(keys, vals, m=m, n=n, **kw).T.reshape(-1)
+
+
+def vec_store_counts(keys, *, m: int, n: int, block_rows: int | None = None,
+                     smem_budget_bytes: int = REFERENCE_VMEM_BUDGET,
+                     chunk: int | None = None) -> dict:
+    """Host-side serial-store counts (serial vs sort-fold vs one-hot) the
+    reference's TPU folds would issue at the geometry
+    :func:`vec_accumulate` uses for this stream; also set as the
+    ``kernels.vec.stores.*`` gauges. Observability only."""
+    block_rows, chunk = vec_launch_geometry(
+        len(keys), m=m, n=n, block_rows=block_rows,
+        smem_budget_bytes=smem_budget_bytes, chunk=chunk)
+    counts = _vec.chunk_store_counts(keys, m=m, n=n, block_rows=block_rows,
+                                     chunk=chunk)
+    obs.gauge("kernels.vec.stores.serial").set(counts["serial"])
+    obs.gauge("kernels.vec.stores.sort_fold").set(counts["sort_fold"])
+    obs.gauge("kernels.vec.stores.onehot_fold").set(counts["onehot_fold"])
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# faithful hash launch (kernels/hash_accum.py)
+# ---------------------------------------------------------------------------
+
+def hash_accumulate(keys: torch.Tensor, vals: torch.Tensor, *, sent: int,
+                    table_size: int | None = None):
+    """Faithful hash SpKAdd -> ``(keys[cap], vals[cap], nnz)``, compacted.
+
+    The raw table is compacted by moving occupied slots to the front (one
+    counted stable sort on emptiness, so occupied slots keep table order),
+    then truncated or padded to the input capacity.
+    """
+    cap = keys.shape[0]
+    tkeys, tvals = _hash.hash_accumulate_raw(keys, vals, sent=sent,
+                                             table_size=table_size)
+    occupied = tkeys != -1
+    order = _stable_argsort(torch.logical_not(occupied))
+    occ = occupied[order]
+    ck = torch.where(occ, tkeys[order], sent)[:cap]
+    cv = torch.where(occ, tvals[order], 0.0)[:cap]
+    nnz = occupied.sum(dtype=torch.int32)
+    return ck.to(torch.int32), cv, nnz
+
+
+def hash_symbolic(keys: torch.Tensor, *, sent: int,
+                  table_size: int | None = None) -> torch.Tensor:
+    """Faithful symbolic phase (distinct-key count, int32 scalar)."""
+    return _hash.hash_symbolic_raw(keys, sent=sent, table_size=table_size)
 
 
 # ---------------------------------------------------------------------------

@@ -62,7 +62,7 @@ def topk_block_ref(x: torch.Tensor, k: int, block: int):
     Returns (indices into flat x, values), both (num_blocks*k,)."""
     nb = x.shape[0] // block
     xb = x[: nb * block].reshape(nb, block)
-    _, idx = torch.topk(xb.abs(), k, dim=-1)
+    idx = _sparse.top_k_abs(xb, k)
     base = (torch.arange(nb, device=x.device) * block).unsqueeze(1)
     flat_idx = (base + idx).reshape(-1).to(torch.int32)
     return flat_idx, x[flat_idx.long()]

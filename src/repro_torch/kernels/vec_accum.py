@@ -7,11 +7,11 @@ right, in stream order, continuing from the tile's current value. The
 bitonic network and the one-hot matmul are TPU lane tricks; what they
 compute is that one fold. So the port has one plain fold,
 :func:`fold_runs`, which is the semantics of all three, and the CUDA
-kernels (``csrc/partition.cu``, ``csrc/segment_fold.cu``) fold each run
-with one thread in the same order.
+kernels (``csrc/partition.cu``, ``csrc/segment_fold.cu``,
+``csrc/spa_accum.cu``) fold each slot's values in the same order.
 
 :data:`FOLDS` keeps the reference's fold names, all of which name this one
-fold. The reference's per-fold counters (``engine.partitioned.fold.*``)
+fold; :func:`apply_fold` validates a name and folds a stream in any order. The reference's per-fold counters (``engine.partitioned.fold.*``)
 have no counterpart in the port.
 """
 from __future__ import annotations
@@ -60,6 +60,27 @@ def fold_runs(tile: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
                              totals)
     out[heads] = totals
     return out.view(B, T)
+
+
+def apply_fold(fold: str, tile: torch.Tensor, slot: torch.Tensor,
+               vals: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The reference's in-tile fold by name, on a stream in **any** order.
+
+    ``fold`` must be one of :data:`FOLDS`; all three name one result: each
+    slot's valid values folded left to right in stream order, continuing
+    from the tile's value. The stream is first sorted stably by slot (not a
+    counted sort: the reference's in-kernel folds are not counted either),
+    which groups each slot's values without reordering them, then
+    :func:`fold_runs` folds the runs. Shapes as in :func:`fold_runs`.
+    """
+    if fold not in FOLDS:
+        raise ValueError(f"unknown fold {fold!r}; one of {FOLDS}")
+    T = tile.shape[-1]
+    order = torch.argsort(torch.where(valid, slot.long(), T), dim=-1,
+                          stable=True)
+    return fold_runs(tile, torch.gather(slot, -1, order),
+                     torch.gather(vals, -1, order),
+                     torch.gather(valid, -1, order))
 
 
 def chunk_store_counts(keys, *, m: int, n: int, block_rows: int,

@@ -15,8 +15,9 @@ import torch
 
 from repro_torch.core import engine as E
 from repro_torch.core import sparse as S
-from repro_torch.kernels import hash_slide, ops as kops
-from repro_torch.kernels import partition, segment
+from repro_torch.core import spkadd as A
+from repro_torch.kernels import hash_accum, hash_slide, ops as kops
+from repro_torch.kernels import partition, segment, spa_accum
 from repro_torch.kernels.hash_accum import hash_table_size
 
 pytestmark = pytest.mark.cuda
@@ -207,3 +208,152 @@ def test_launches_keep_the_callers_current_device(cuda):
             got = E._CANONICAL[regime](gpu)
             assert torch.cuda.current_device() == 0, regime
             np.testing.assert_array_equal(bits(got.vals), bits(want.vals))
+
+
+# ---------------------------------------------------------------------------
+# spa_accum: the all-pairs dense SPA kernel
+# ---------------------------------------------------------------------------
+
+def spa_stream(seed, m, n, cap, chunk, *, dup=1, sort=False, sentinel_run=0):
+    """A stream of ``cap`` keys (every ``dup``-th key only, so duplicates
+    are frequent), 10 % sentinels and, optionally, ``sentinel_run``
+    sentinels in a row at the front; padded to a chunk multiple."""
+    rng = np.random.default_rng(seed)
+    mn = m * n
+    keys = rng.integers(0, max(mn // dup, 1), size=cap) * dup
+    keys[rng.random(cap) < 0.1] = mn
+    keys[:sentinel_run] = mn
+    vals = rng.standard_normal(cap).astype(np.float32)
+    vals[::9] = -0.0
+    vals[keys >= mn] = 0.0
+    if sort:
+        order = np.argsort(keys, kind="stable")
+        keys, vals = keys[order], vals[order]
+    cap_pad = -(-cap // chunk) * chunk
+    kp = np.full(cap_pad, mn, np.int32)
+    vp = np.zeros(cap_pad, np.float32)
+    kp[:cap], vp[:cap] = keys, vals
+    return torch.as_tensor(kp), torch.as_tensor(vp)
+
+
+@pytest.mark.parametrize("m,n,cap,block_rows,chunk,dup,sort,sentinel_run", [
+    (64, 16, 5000, 16, 1024, 1, False, 0),   # unsorted, duplicates, 4 parts
+    (64, 16, 5000, 16, 1024, 37, True, 0),   # sorted runs across steps
+    (60, 7, 3000, 16, 64, 5, False, 2048),   # m % block_rows != 0, all-
+                                             # sentinel steps first
+    (8, 4, 4096, 8, 1024, 8, True, 0),       # one part, runs of ~1,000
+    (300, 3, 777, 104, 7, 1, False, 0),      # part edges, odd chunk
+])
+def test_spa_kernel_bitwise_vs_plain(cuda, m, n, cap, block_rows, chunk, dup,
+                                     sort, sentinel_run):
+    keys, vals = spa_stream(m * n + cap, m, n, cap, chunk, dup=dup,
+                            sort=sort, sentinel_run=sentinel_run)
+    kw = dict(m=m, n=n, block_rows=block_rows, chunk=chunk)
+    want = spa_accum.spa_accumulate_raw(keys, vals, **kw)
+    before = spa_accum.spa_accumulate_raw.launches
+    got = spa_accum.spa_accumulate_raw(keys.to(cuda), vals.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert spa_accum.spa_accumulate_raw.launches == before + 1
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def test_spa_kernel_keys_at_part_edges(cuda):
+    """Every row at and next to a part boundary, in every column, twice."""
+    m, n, block_rows = 40, 5, 8
+    rows = np.asarray([r for p in range(0, m, block_rows)
+                       for r in (p - 1, p, p + block_rows - 1) if 0 <= r < m])
+    keys = np.concatenate([(np.arange(n)[:, None] * m + rows).ravel()] * 2)
+    vals = np.arange(keys.size, dtype=np.float32) * 0.25 - 3.0
+    kp, vp = torch.as_tensor(keys.astype(np.int32)), torch.as_tensor(vals)
+    kw = dict(m=m, n=n, block_rows=block_rows, chunk=keys.size)
+    want = spa_accum.spa_accumulate_raw(kp, vp, **kw)
+    got = spa_accum.spa_accumulate_raw(kp.to(cuda), vp.to(cuda), **kw)
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def test_spa_kernel_refuses_a_too_wide_tile(cuda):
+    keys = torch.full((64,), 8 * 8000, dtype=torch.int32, device=cuda)
+    vals = torch.zeros(64, device=cuda)
+    before = spa_accum.spa_accumulate_raw.launches
+    with pytest.raises(ValueError, match="block limit"):
+        spa_accum.spa_accumulate_raw(keys, vals, m=8, n=8000, block_rows=8,
+                                     chunk=64)
+    with pytest.raises(ValueError, match="block limit"):
+        kops.spa_accumulate(keys, vals, m=8, n=8000)
+    assert spa_accum.spa_accumulate_raw.launches == before
+
+
+def test_spa_tile_budget_leaves_room_for_the_stage(cuda):
+    budget = kops.spa_tile_budget(cuda)
+    assert budget + spa_accum.stage_bytes() == kops.device_smem_budget(cuda)
+    rows = kops.choose_block_rows(65536, 512, budget)
+    assert rows * 512 * 4 + spa_accum.stage_bytes() <= \
+        kops.device_smem_budget(cuda)
+
+
+# ---------------------------------------------------------------------------
+# hash_accum: the faithful single-table hash kernels
+# ---------------------------------------------------------------------------
+
+def hash_stream(seed, cap, key_range, sent):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, key_range, size=cap).astype(np.int32)
+    keys[rng.random(cap) < 0.1] = sent
+    vals = rng.standard_normal(cap).astype(np.float32)
+    vals[::7] = -0.0
+    return torch.as_tensor(keys), torch.as_tensor(vals)
+
+
+@pytest.mark.parametrize("cap,key_range,table_size", [
+    (4096, 6000, None),       # 16,384 slots: shared-memory table
+    (16384, 30000, None),     # 65,536 slots: device-memory table
+    (3000, 500, None),        # duplicate-heavy, shared memory
+    (300, 200, 64),           # undersized: probes wrap and overwrite
+    (5000, 100000, 65536),    # explicit large table, device memory
+])
+def test_hash_kernels_bitwise_vs_plain(cuda, cap, key_range, table_size):
+    sent = 1 << 20
+    keys, vals = hash_stream(cap + key_range, cap, key_range, sent)
+    kw = dict(sent=sent, table_size=table_size)
+    wk, wv = hash_accum.hash_accumulate_plain(keys, vals, **kw)
+    before = hash_accum.hash_accumulate_raw.launches
+    gk, gv = hash_accum.hash_accumulate_raw(keys.to(cuda), vals.to(cuda),
+                                            **kw)
+    torch.cuda.synchronize()
+    assert hash_accum.hash_accumulate_raw.launches == before + 1
+    np.testing.assert_array_equal(bits(gk), bits(wk))
+    np.testing.assert_array_equal(bits(gv), bits(wv))
+    want = hash_accum.hash_symbolic_plain(keys, **kw)
+    got = hash_accum.hash_symbolic_raw(keys.to(cuda), **kw)
+    assert got.device.type == "cuda" and int(got) == int(want)
+
+
+def test_hash_kernels_collision_chain_and_empty(cuda):
+    table_size, sent = 128, 4096
+    chain = [5 + i * table_size for i in range(6)]
+    stream = chain + chain[::-1] + chain
+    keys = torch.as_tensor(np.asarray(stream + [sent] * 46, np.int32))
+    vals = torch.arange(64, dtype=torch.float32) + 1.0
+    for k, v in ((keys, vals), (keys[:0], vals[:0]),
+                 (torch.full((16,), sent, dtype=torch.int32), vals[:16])):
+        wk, wv = hash_accum.hash_accumulate_plain(k, v, sent=sent,
+                                                  table_size=table_size)
+        gk, gv = hash_accum.hash_accumulate_raw(k.to(cuda), v.to(cuda),
+                                                sent=sent,
+                                                table_size=table_size)
+        np.testing.assert_array_equal(bits(gk), bits(wk))
+        np.testing.assert_array_equal(bits(gv), bits(wv))
+        assert int(hash_accum.hash_symbolic_raw(k.to(cuda), sent=sent)) == \
+            int(hash_accum.hash_symbolic_plain(k, sent=sent))
+
+
+@pytest.mark.parametrize("algorithm", sorted(A.ALGORITHMS))
+def test_family_on_card_equals_cpu(cuda, algorithm):
+    cpu = _collection(17, 6, 48, 8, 40, "cpu")
+    gpu = [S.PaddedCOO(a.keys.to(cuda), a.vals.to(cuda), a.nnz.to(cuda),
+                       a.shape) for a in cpu]
+    want = A.spkadd(cpu, algorithm=algorithm)
+    got = A.spkadd(gpu, algorithm=algorithm)
+    assert int(got.nnz) == int(want.nnz)
+    np.testing.assert_array_equal(bits(got.keys), bits(want.keys))
+    np.testing.assert_array_equal(bits(got.vals), bits(want.vals))

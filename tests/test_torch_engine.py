@@ -247,21 +247,34 @@ def test_engine_counters_and_spans_match_reference_names():
 # the SpKAdd family, symbolic phase, scatter
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("algorithm", ["incremental", "tree", "sorted"])
+@pytest.mark.parametrize("algorithm", ["incremental", "tree", "sorted",
+                                       "spa", "vec", "blocked_spa", "hash"])
 def test_family_matches_reference(algorithm):
+    """The family's members against the reference's; ``blocked_spa`` and
+    ``hash`` against the reference paths that run on this tree and that
+    the contract makes equal (``vec``, ``sorted``)."""
     mats = jax_collection(21, 5, 16, 8, 20)
-    ref = jax.jit(functools.partial(spkadd, algorithm=algorithm))(mats)
+    oracle = {"blocked_spa": "vec", "hash": "sorted"}.get(algorithm,
+                                                          algorithm)
+    ref = jax.jit(functools.partial(spkadd, algorithm=oracle))(mats)
     assert_same_coo(ref, TA.spkadd(to_port(mats), algorithm=algorithm))
     assert_same_coo(ref, TE.spkadd_run(to_port(mats), algorithm=algorithm))
 
 
 def test_family_names_not_yet_ported_and_unknown_raise():
+    """Every member of the reference's family is ported (nothing is left
+    that raises "not yet ported"); an unknown name still raises."""
+    from repro.core.spkadd import ALGORITHMS
+
+    assert set(TA.ALGORITHMS) == set(ALGORITHMS)
+    assert not hasattr(TA, "NOT_YET_PORTED")
     port = to_port(jax_collection(1, 2, 8, 4, 4))
-    for name in TA.NOT_YET_PORTED:
-        with pytest.raises(ValueError, match="not yet ported"):
-            TA.spkadd(port, algorithm=name)
+    for name in ALGORITHMS:
+        assert int(TA.spkadd(port, algorithm=name).nnz) >= 0
     with pytest.raises(ValueError, match="unknown SpKAdd algorithm"):
         TE.spkadd_run(port, algorithm="typo")
+    with pytest.raises(ValueError, match="unknown SpKAdd algorithm"):
+        TA.spkadd(port, algorithm="typo")
 
 
 def test_symbolic_phase_and_two_way_add_match():

@@ -48,7 +48,8 @@ def test_no_jax_and_no_reference_imports(path):
 def test_kernel_sources_stand_alone():
     csrc = os.path.join(REPO, "src", "repro_torch", "kernels", "csrc")
     sources = sorted(os.listdir(csrc))
-    assert {"partition.cu", "hash_slide.cu", "segment_fold.cu"} <= set(sources)
+    assert {"partition.cu", "hash_slide.cu", "segment_fold.cu",
+            "spa_accum.cu", "hash_accum.cu"} <= set(sources)
     for name in sources:
         with open(os.path.join(csrc, name)) as f:
             text = f.read()
