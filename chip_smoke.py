@@ -7,7 +7,7 @@ Run from the root of a checkout; it imports ``src/repro_torch`` (never JAX,
 never the reference package ``repro``) and exits non-zero, printing no
 result, when no CUDA card is present or the package is missing.
 
-0. Build the five CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+0. Build the six CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` (one process per source, in parallel) and print the build
    time, the compiler's register/shared-memory report and the card.
 1. ``vec``: one collection through ``spkadd_auto`` — k = 64 ER matrices of
@@ -36,8 +36,16 @@ result, when no CUDA card is present or the package is missing.
    (1,048,576 nonzeros, a 2^22-slot table): bitwise equal to ``sorted``
    (keys, values and nnz, nothing dropped); ``ops.hash_symbolic`` must
    equal ``symbolic_nnz``; both hash kernels must launch.
-6. One profiled call of each phase (device time by kernel, busy share),
-   then each of the six kernels against its plain PyTorch version on the
+6. ``delta_sync``: SmolLM-135M's parameter tree (:data:`SMOLLM_135M_SHAPES`,
+   162,826,560 f32 parameters on the dyadic grid of
+   ``benchmarks/delta_sync.py``) through ``DeltaPublisher`` (k_fraction
+   0.01, block selector) to replica A (a sync every epoch) and replica B
+   (a window-4 catch-up, one ragged SpKAdd) over 8 epochs: both replicas
+   equal the publisher's shadow bitwise, the block top-k kernel and the
+   engine's kernels launch, and epoch 1's frames equal those of the
+   selection's plain version, byte for byte (:func:`run_delta_sync`).
+7. One profiled call of each phase (device time by kernel, busy share),
+   then each of the seven kernels against its plain PyTorch version on the
    card, on the inputs its path gives it: bitwise (tolerance 0). Then JSON
    lines of the phases' end-to-end times, the profiles and the kernel
    numbers (median ms by CUDA events, bound, plain and library times), the
@@ -56,6 +64,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -76,6 +85,25 @@ def bound(nbytes: int, adds: int):
     by_ops = adds / F32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                             "operations")
+
+
+#: The parameter tree of SmolLM-135M (HF HuggingFaceTB/SmolLM-135M) as the
+#: reference builds it (``build_model(get_config("smollm-135m")).init``,
+#: config ``src/repro/configs/smollm_135m.py``): 12 f32 leaves, 162,826,560
+#: parameters. Written out because this script imports nothing of the
+#: reference; ``tests/test_torch_delta_sync.py`` holds it against
+#: ``jax.eval_shape`` of that init.
+SMOLLM_135M_SHAPES = {
+    "embed": (49152, 576),
+    "final_ln": (576,),
+    "head": (576, 49152),
+    "layers": {
+        "ln1": (30, 576), "ln2": (30, 576),
+        "w1": (30, 576, 1536), "w2": (30, 1536, 576), "w3": (30, 576, 1536),
+        "wk": (30, 576, 192), "wo": (30, 576, 576), "wq": (30, 576, 576),
+        "wv": (30, 576, 192),
+    },
+}
 
 
 class SmokeFailure(Exception):
@@ -162,6 +190,12 @@ def device_profile(torch, fn, wall_ms: float, top: int = 6) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return device_times(torch, prof, wall_ms, top)
+
+
+def device_times(torch, prof, wall_ms: float, top: int = 6) -> dict:
+    """A finished profile's device time summed by kernel name (the ``top``
+    largest) and the device's busy share of ``wall_ms``."""
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -190,13 +224,212 @@ def same_coo(torch, a, b) -> bool:
             and bitwise_equal(torch, a.vals, b.vals))
 
 
+GRID = 2.0 ** -10  # benchmarks/delta_sync.py's update quantum
+
+
+def grid_tree(torch, seq, shapes, lo, hi, dev, pool):
+    """``shapes`` (a nested dict) filled with multiples of 2^-10 drawn in
+    ``[lo, hi)`` with numpy, as f32 tensors on ``dev``: the delta-sync
+    benchmark's dyadic grid, on which every f32 sum of a few such trees is
+    exact in any order. Each leaf draws from its own generator, spawned in
+    order from the ``SeedSequence`` ``seq``, on the threads of ``pool``."""
+    paths = []
+
+    def walk(node, prefix):
+        for name, shape in node.items():
+            if isinstance(shape, dict):
+                walk(shape, prefix + (name,))
+            else:
+                paths.append((prefix + (name,), shape))
+
+    walk(shapes, ())
+    gens = [np.random.default_rng(s) for s in seq.spawn(len(paths))]
+    ints = pool.map(lambda g, p: g.integers(lo, hi, p[1], dtype=np.int16),
+                    gens, paths)
+    out: dict = {}
+    for (path, _), a in zip(paths, ints):
+        node = out
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = torch.from_numpy(a).to(dev).to(torch.float32) * GRID
+    return out
+
+
+def tree_add(a, b):
+    return {k: tree_add(a[k], b[k]) if isinstance(a[k], dict) else a[k] + b[k]
+            for k in a}
+
+
+class FanOut:
+    """One publisher's frames to several replicas' wires (each replica
+    polls its own ``InProcTransport``; resends come from the publisher's
+    ring through the asking replica's wire)."""
+
+    def __init__(self, *wires):
+        self.wires = wires
+
+    def attach_publisher(self, pub) -> None:
+        for w in self.wires:
+            w.attach_publisher(pub)
+
+    def send(self, frame: bytes) -> None:
+        for w in self.wires:
+            w.send(frame)
+
+
+def run_delta_sync(torch, seed: int, dev, kernels: dict):
+    """Phase ``delta_sync``: SmolLM-135M's parameter tree through the port's
+    ``DeltaPublisher`` -> ``InProcTransport`` -> two ``DeltaSubscriber``s.
+
+    8 epochs of grid updates, k_fraction 0.01, the block selector (blocks of
+    4,096). Replica A syncs after every epoch (window 1); replica B sleeps
+    through epochs 1-4, catches up with one ragged SpKAdd (window 4), then
+    syncs after every epoch. Both must equal the
+    publisher's shadow bitwise after each of their syncs, and shadow plus
+    error-feedback residual must equal the true parameters bitwise (grid
+    arithmetic is exact); the block top-k kernel must launch on the path;
+    B's catch-up must launch the engine's kernels; epoch 1's frames must
+    equal, byte for byte, the frames the same publisher state gives with
+    the selection's plain version on the card. Returns the phase's numbers, the top-k launches, and the epoch-1
+    input of the embed leaf's selection (for the kernel line)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tree as T
+    from repro_torch.kernels import topk_block
+    from repro_torch.runtime import (DeltaPublisher, DeltaSubscriber,
+                                     InProcTransport, dense_sync_bytes)
+
+    epochs, k_fraction = 8, 0.01
+    engine_kernels = ("partition", "hash_slide", "segment_fold")
+    seq = np.random.SeedSequence(seed)
+    pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+
+    def grid(lo, hi):
+        return grid_tree(torch, seq, SMOLLM_135M_SHAPES, lo, hi, dev, pool)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = grid(-512, 512)
+    n_params = sum(x.numel() for x in T.leaves(params))
+    wire_a, wire_b = InProcTransport(), InProcTransport()
+    kw = dict(k_fraction=k_fraction, selector="block", device=dev)
+    pub = DeltaPublisher(params, FanOut(wire_a, wire_b), window_epochs=epochs,
+                         **kw)
+    plain_pub = DeltaPublisher(params, InProcTransport(), **kw)
+    rep_a = DeltaSubscriber(params, wire_a, device=dev)
+    rep_b = DeltaSubscriber(params, wire_b, device=dev)
+
+    def same_as_shadow(rep) -> bool:
+        return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(T.leaves(rep.params),
+                                   T.leaves(pub.shadow_params())))
+
+    publish_ms, sync_a_ms, wire_bytes = [], [], []
+    topk_launches = 0
+    embed_x = None
+    for epoch in range(1, epochs + 1):
+        update = grid(-256, 256)
+        params = tree_add(params, update)
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        stats = pub.publish(params)
+        torch.cuda.synchronize()
+        publish_ms.append((time.perf_counter() - t0) * 1e3)
+        topk_launches += kernels["topk_block"].launches
+        wire_bytes.append(stats.bytes)
+        if epoch == 1:
+            # the same epoch from the same state, the selection's plain
+            # version swapped in for the kernel (ops calls it through the
+            # module), must give the same bytes
+            embed_x = update["embed"].reshape(-1).clone()
+            kernel_fn = topk_block.topk_block_raw
+            topk_block.topk_block_raw = topk_block.topk_block_plain
+            try:
+                plain_pub.publish(params)
+            finally:
+                topk_block.topk_block_raw = kernel_fn
+            check(plain_pub.frames_for(1) == pub.frames_for(1),
+                  "phase delta_sync: epoch-1 frames differ from the plain "
+                  "top-k's")
+            del plain_pub
+        del update
+        t0 = time.perf_counter()
+        report = rep_a.sync()
+        torch.cuda.synchronize()
+        sync_a_ms.append((time.perf_counter() - t0) * 1e3)
+        check(report.window == 1 and rep_a.applied_epoch == epoch,
+              f"phase delta_sync: replica A at epoch {epoch}: {report}")
+        check(same_as_shadow(rep_a), f"phase delta_sync: replica A differs "
+              f"from the shadow at epoch {epoch}")
+        if epoch == 4:
+            # B's one catch-up, under the profiler: a single call that
+            # cannot be repeated on the same state
+            torch.cuda.synchronize()
+            for fn in kernels.values():
+                fn.launches = 0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                report = rep_b.sync()
+                torch.cuda.synchronize()
+                catchup_ms = (time.perf_counter() - t0) * 1e3
+            catchup_profile = device_times(torch, prof, catchup_ms)
+            catchup_launches = {name: kernels[name].launches
+                                for name in engine_kernels}
+            check(report.window == 4 and rep_b.applied_epoch == epoch,
+                  f"phase delta_sync: replica B at epoch {epoch}: {report}")
+        elif epoch > 4:
+            report = rep_b.sync()
+            check(report.window == 1 and rep_b.applied_epoch == epoch,
+                  f"phase delta_sync: replica B at epoch {epoch}: {report}")
+        if epoch >= 4:
+            check(same_as_shadow(rep_b), f"phase delta_sync: replica B "
+                  f"differs from the shadow at epoch {epoch}")
+    check(topk_launches > 0, "phase delta_sync: top-k kernel not launched")
+    # error feedback loses nothing: what was not shipped is the residual
+    for p, s, r in zip(T.leaves(params), pub._shadow, pub._residual):
+        check(torch.equal(p.reshape(-1), s + r), "phase delta_sync: shadow "
+              "+ residual differs from the parameters")
+    check(sum(catchup_launches.values()) > 0, "phase delta_sync: the "
+          "window-4 catch-up launched no engine kernel")
+    dense = dense_sync_bytes(params)
+    phase = {
+        "model": "smollm-135m", "params": n_params, "leaves":
+        len(T.leaves(params)), "epochs": epochs, "k_fraction": k_fraction,
+        "selector": "block", "selected_per_epoch": stats.selected,
+        "publish_ms": publish_ms, "sync_a_ms": sync_a_ms,
+        "catchup_b_ms": catchup_ms, "catchup_b_profile": catchup_profile,
+        "wire_bytes_per_sync": wire_bytes,
+        "dense_sync_bytes": dense,
+        "catchup_launches": catchup_launches,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    log(f"phase delta_sync: {n_params} params, publish ms "
+        f"{[round(t, 1) for t in publish_ms]}, sync A ms "
+        f"{[round(t, 1) for t in sync_a_ms]}, catch-up B "
+        f"{catchup_ms:.1f} ms, wire {wire_bytes[-1]} B of "
+        f"{dense} B dense per sync, {stats.selected} selected, top-k "
+        f"launches {topk_launches}, catch-up launches {catchup_launches}, "
+        f"peak {phase['peak_mem_bytes'] / 2**30:.2f} GiB; replicas A and B "
+        f"== shadow bitwise")
+    pool.shutdown()
+
+    def one_sync_round():
+        # params unchanged: each round ships the residual's heaviest entries
+        pub.publish(params)
+        rep_a.sync()
+
+    return phase, topk_launches, embed_x, one_sync_round
+
+
 def run(args, torch) -> int:
     from repro_torch import obs
     from repro_torch.core import engine as E
     from repro_torch.core import sparse as S
     from repro_torch.core import spkadd as A
     from repro_torch.kernels import _build, hash_accum, hash_slide, ops as kops
-    from repro_torch.kernels import partition, segment, spa_accum
+    from repro_torch.kernels import partition, segment, spa_accum, topk_block
 
     dev = torch.device("cuda")
     card = nvidia_smi_line()
@@ -220,6 +453,7 @@ def run(args, torch) -> int:
         "spa_accum": spa_accum.spa_accumulate_raw,
         "hash_accum": hash_accum.hash_accumulate_raw,
         "hash_symbolic": hash_accum.hash_symbolic_raw,
+        "topk_block": topk_block.topk_block_raw,
     }
 
     def reset_counts():
@@ -228,6 +462,13 @@ def run(args, torch) -> int:
 
     rng = np.random.default_rng(args.seed)
     phases = {}
+    stamp = [time.monotonic()]
+
+    def took() -> float:
+        """Seconds since the last call (phase wall time, host clock)."""
+        now = time.monotonic()
+        stamp[0], elapsed = now, now - stamp[0]
+        return elapsed
 
     # ---- 1. vec: one collection through spkadd_auto ---------------------
     k1, m1, n1, d1 = 64, 65536, 512, 512
@@ -272,6 +513,7 @@ def run(args, torch) -> int:
     phases["vec"] = {"k": k1, "m": m1, "n": n1, "total_nnz": k1 * nnz1,
                      "out_nnz": nnz_out,
                      "ms": host_ms(torch, lambda: E.spkadd_auto(mats), 5)}
+    phases["vec"]["phase_s"] = took()
 
     # ---- 2. sorted: the same collection through spkadd_run --------------
     torch.cuda.synchronize()
@@ -288,6 +530,7 @@ def run(args, torch) -> int:
     phases["sorted"] = {
         "ms": host_ms(torch, lambda: E.spkadd_run(mats, algorithm="sorted"),
                       5)}
+    phases["sorted"]["phase_s"] = took()
 
     # ---- 3. hash: B collections through spkadd_batched ------------------
     B2, k2, m2, n2, per2 = 512, 16, 65536, 256, 512
@@ -342,6 +585,7 @@ def run(args, torch) -> int:
                       "nnz_per_collection": k2 * per2,
                       "ms": host_ms(torch, lambda: E.spkadd_batched(stacked),
                                     5)}
+    phases["hash"]["phase_s"] = took()
 
     # ---- 4. family: the algorithm family's front door ------------------
     def nonzero_entries(out):
@@ -351,10 +595,6 @@ def run(args, torch) -> int:
 
     sorted_nz = nonzero_entries(out_sorted)
     family = {}
-    # incremental and tree are timed once, on the checked call: their
-    # segment folds walk the sentinel padding run serially (ROADMAP queue
-    # 2), seconds a call, and further calls would show nothing new
-    timed_once = ("incremental", "tree")
     for alg in ("incremental", "tree", "sorted", "spa", "vec", "blocked_spa"):
         torch.cuda.synchronize()
         reset_counts()
@@ -386,9 +626,8 @@ def run(args, torch) -> int:
                 + used["spa_accum"]
         del out
         family[alg] = {
-            "ms": (checked_ms if alg in timed_once else
-                   host_ms(torch, lambda: A.spkadd(mats, algorithm=alg), 3)),
-            "timed_calls": 1 if alg in timed_once else 3,
+            "ms": host_ms(torch, lambda: A.spkadd(mats, algorithm=alg), 3),
+            "checked_call_ms": checked_ms,
             "launches": used, "out_nnz": int(hk_np.size)}
         log(f"phase family: {alg} {family[alg]['ms']:.2f} ms, "
             f"launches {used}; equal to sorted"
@@ -403,6 +642,7 @@ def run(args, torch) -> int:
                                          "parts": spa_parts,
                                          "chunk": spa_chunk,
                                          "tile_budget": spa_budget}}
+    phases["family"]["phase_s"] = took()
 
     # ---- 5. hash_alg: the faithful hash algorithm -----------------------
     k3, m3, n3, d3 = 64, 65536, 32, 512
@@ -456,6 +696,14 @@ def run(args, torch) -> int:
     log(f"phase hash_alg: hash == sorted bitwise, nnz {nh}, table "
         f"{table3} slots; {phases['hash_alg']['ms']:.2f} ms, symbolic "
         f"{phases['hash_alg']['symbolic_ms']:.2f} ms")
+    phases["hash_alg"]["phase_s"] = took()
+
+    # ---- 6. delta_sync: SmolLM-135M's parameters, publisher -> replicas --
+    del out_vec, out_sorted, out_hash, out_hash_sorted, out_h, out_hs
+    phases["delta_sync"], launches["topk_block"], embed_x, ds_round = \
+        run_delta_sync(torch, args.seed, dev, kernels)
+    phases["delta_sync"]["round_ms"] = host_ms(torch, ds_round, 3)
+    phases["delta_sync"]["phase_s"] = took()
 
     # where the time of each phase's engine call goes, on the device
     profiles = {
@@ -475,12 +723,15 @@ def run(args, torch) -> int:
         "hash_alg": device_profile(
             torch, lambda: A.spkadd(mats3, algorithm="hash"),
             phases["hash_alg"]["ms"]),
+        "delta_sync_round": device_profile(
+            torch, ds_round, phases["delta_sync"]["round_ms"]),
     }
     for name, prof in profiles.items():
         log(f"profile {name}: device {prof['device_ms']:.3f} ms of "
             f"{prof['wall_ms']:.3f} ms wall; top {prof['top'][:3]}")
+    phases["profiles_s"] = took()
 
-    # ---- 4. kernels against their plain versions ------------------------
+    # ---- 7. kernels against their plain versions ------------------------
     report = []
 
     # partition, at phase 1's step tables
@@ -699,6 +950,37 @@ def run(args, torch) -> int:
         "table_size": full["table_size"], "in_smem": full["sym_in_smem"],
     })
 
+    # topk_block, at the embed leaf's selection of epoch 1: 6,912 blocks of
+    # 4,096, 40 per block
+    nb_e, per_e, block_e = embed_x.numel() // 4096, 40, 4096
+    tkw = dict(k=per_e, block=block_e)
+    got_i, got_v = topk_block.topk_block_raw(embed_x, **tkw)
+    want_i, want_v = topk_block.topk_block_plain(embed_x, **tkw)
+    check(bitwise_equal(torch, got_i, want_i)
+          and bitwise_equal(torch, got_v, want_v),
+          "topk_block kernel differs from its plain version")
+    embed_blocks = embed_x.view(nb_e, block_e)
+    topk_bytes = 4 * embed_x.numel() + 8 * nb_e * per_e
+    topk_bound = bound(topk_bytes, embed_x.numel())
+    report.append({
+        "name": "topk_block", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk_block.cu",
+        "replaces": "src/repro/kernels/topk_block.py:21",
+        "launches": launches["topk_block"],
+        "max_abs_err": float((got_v - want_v).abs().max()),
+        "ms": cuda_ms(torch, lambda: topk_block.topk_block_raw(
+            embed_x, **tkw), 20),
+        "plain_ms": cuda_ms(torch, lambda: topk_block.topk_block_plain(
+            embed_x, **tkw), 3),
+        "bound_ms": topk_bound[0], "bound_by": topk_bound[1],
+        # a yardstick only: torch.topk orders ties otherwise
+        "library_ms": cuda_ms(torch, lambda: torch.topk(
+            embed_blocks.abs(), per_e, dim=1), 20),
+        "library": "torch.topk", "bytes": topk_bytes,
+        "geometry": {"blocks": nb_e, "block": block_e, "per": per_e},
+    })
+    del got_i, got_v, want_i, want_v
+
     for r in report:
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")
         check(r["max_abs_err"] == 0.0, f"{r['name']}: max_abs_err "
@@ -706,6 +988,7 @@ def run(args, torch) -> int:
         log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
             f"plain {r['plain_ms']:.2f} ms, library {r['library_ms']}) "
             f"launches={r['launches']}")
+    phases["kernel_checks_s"] = took()
     phases["build_s"] = build_s
     phases["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
     print(json.dumps({"phases": phases}), flush=True)

@@ -2,7 +2,9 @@
 
 A second package beside ``repro`` (the JAX/Pallas reference), mirroring its
 module names: ``core.sparse``, ``core.spkadd``, ``core.engine``,
-``kernels.*``, ``obs``. It imports neither JAX nor anything of ``repro``.
+``core.topk``, ``kernels.*``, ``runtime.*``, ``checkpoint``, ``train.step``
+(the error-feedback state only) and ``obs``, plus ``tree`` (parameter trees
+in JAX's leaf order). It imports neither JAX nor anything of ``repro``.
 Entry points follow their input tensors' device: on a CUDA card every
 kernel-backed step launches a hand-written CUDA kernel (``kernels/csrc``,
 built with ``nvcc`` at first use); on the CPU the kernels' plain PyTorch

@@ -1,0 +1,4 @@
+from repro_torch.checkpoint.checkpoint import (save_checkpoint,
+                                               restore_checkpoint,
+                                               latest_step, AsyncCheckpointer,
+                                               save_on_signal)

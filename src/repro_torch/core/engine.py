@@ -234,13 +234,13 @@ def scatter_accumulate(keys: torch.Tensor, vals: torch.Tensor,
 
     The reference scatters in operand order; the port sorts the clipped
     keys once (counted) and folds each slot's run with the ordered segment
-    fold, which is the same fold.
+    fold, which is the same fold. The discard slot is the fold's dropped
+    id ``length``.
     """
     safe = torch.clamp(keys, 0, length).to(torch.int32)
     order = stable_argsort(safe)
-    acc = segment_fold(torch.gather(vals, -1, order),
-                       torch.gather(safe, -1, order), length + 1)
-    return acc[..., :length]
+    return segment_fold(torch.gather(vals, -1, order),
+                        torch.gather(safe, -1, order), length)
 
 
 def _canonical_gather(out_keys: torch.Tensor, nnz: torch.Tensor,

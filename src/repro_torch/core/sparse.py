@@ -124,7 +124,10 @@ class PaddedCOO(NamedTuple):
         sort and the ordered segment fold."""
         m, n = self.shape
         valid = self.valid_mask()
-        k = torch.where(valid, self.keys, 0).to(torch.int32)
+        # the reference adds padding (as 0.0) into key 0; the port gives it
+        # the dropped id m*n instead, which leaves every sum's bits as they
+        # are (see segment_fold) and sorts the padding behind the real keys
+        k = torch.where(valid, self.keys, m * n).to(torch.int32)
         v = torch.where(valid, self.vals, 0.0)
         order = stable_argsort(k)
         flat = segment_fold(v[order], k[order], m * n)
@@ -349,10 +352,13 @@ def compress(a: PaddedCOO) -> PaddedCOO:
     count of distinct keys."""
     plan = compress_plan(a.keys, a.shape)
     v_s = torch.gather(a.vals, -1, plan.order)
-    out_vals = segment_fold(v_s, plan.gid, a.cap)
-    # zero padding values beyond nnz (groups past nnz hold only padding sums)
+    # padding sorts last and inherits the last group's id in the plan; the
+    # fold drops it instead (id cap), which leaves that group's bits as they
+    # are (see segment_fold) and slots past nnz at the fold's +0.0
     slot = torch.arange(a.cap, device=a.keys.device)
-    out_vals = torch.where(slot < plan.nnz.unsqueeze(-1), out_vals, 0.0)
+    n_valid = a.valid_mask().sum(-1, keepdim=True)
+    out_vals = segment_fold(v_s, torch.where(slot < n_valid, plan.gid, a.cap),
+                            a.cap)
     return PaddedCOO(keys=plan.out_keys, vals=out_vals, nnz=plan.nnz,
                      shape=a.shape)
 

@@ -1,10 +1,13 @@
-"""Interop: carry ``PaddedCOO`` state between the reference and the port.
+"""Interop: carry state between the reference and the port as numpy arrays.
 
-The system has no weights; its state is ``PaddedCOO`` collections plus the
-cost-model table (a JSON file both packages read the same way). These
-helpers turn a PaddedCOO's leaves, as numpy arrays (or anything
-``np.asarray`` takes — a reference PaddedCOO's leaves included), into the
-port's tensors and back, without importing the reference.
+The engine's state is ``PaddedCOO`` collections plus the cost-model table
+(a JSON file both packages read the same way); the delta-sync and
+checkpoint paths carry parameter trees. These helpers turn a PaddedCOO's
+leaves, or a parameter tree's, as numpy arrays (or anything ``np.asarray``
+takes — a reference PaddedCOO's leaves and a reference params tree
+included), into the port's tensors and back, without importing the
+reference. Trees keep their structure; leaves go in JAX's leaf order
+(:mod:`repro_torch.tree`).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Iterable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree as _tree
 from repro_torch.core.sparse import PaddedCOO, resolve_device
 
 #: ``(keys, vals, nnz, shape)`` as numpy arrays — the field order of both
@@ -49,3 +53,17 @@ def collection_from_numpy(mats: Iterable[Sequence], device=None
 
 def collection_to_numpy(mats: Iterable[PaddedCOO]) -> List[NumpyCOO]:
     return [padded_coo_to_numpy(a) for a in mats]
+
+
+def params_from_numpy(tree, device=None):
+    """A params tree (nested dicts, lists, tuples of arrays) -> the same
+    tree of tensors on ``device`` (``None`` = the CUDA card; raises without
+    one unless ``device="cpu"``), dtypes kept."""
+    dev = resolve_device(device)
+    return _tree.tree_map(
+        lambda leaf: torch.as_tensor(np.array(leaf), device=dev), tree)
+
+
+def params_to_numpy(tree):
+    """A params tree of tensors -> the same tree of numpy arrays."""
+    return _tree.tree_map(lambda leaf: leaf.detach().cpu().numpy(), tree)

@@ -30,7 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 #: One shared library per source, in this order.
 SOURCES = ("partition", "hash_slide", "segment_fold", "spa_accum",
-           "hash_accum")
+           "hash_accum", "topk_block")
 
 #: Hopper only (``sm_90a``); no fast-math: every fold is an IEEE f32 add.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -20,6 +20,7 @@ from repro_torch.core.sparse import stable_argsort as _stable_argsort
 from repro_torch.kernels import hash_accum as _hash
 from repro_torch.kernels import partition as _part
 from repro_torch.kernels import spa_accum as _spa
+from repro_torch.kernels import topk_block as _topk
 from repro_torch.kernels import vec_accum as _vec
 from repro_torch.kernels.spa_accum import DEFAULT_CHUNK
 
@@ -244,6 +245,25 @@ def hash_symbolic(keys: torch.Tensor, *, sent: int,
                   table_size: int | None = None) -> torch.Tensor:
     """Faithful symbolic phase (distinct-key count, int32 scalar)."""
     return _hash.hash_symbolic_raw(keys, sent=sent, table_size=table_size)
+
+
+# ---------------------------------------------------------------------------
+# block top-k selection (kernels/topk_block.py)
+# ---------------------------------------------------------------------------
+
+def topk_block(flat: torch.Tensor, *, k: int, block: int):
+    """Top ``k`` by ``|x|`` in each ``block``-element block of the 1-D
+    ``flat``, zero-padded to a block multiple. Padding ranks after every
+    real element of its block (a real zero ties it at the lower index), so
+    it is taken only where ``k`` exceeds the block's real elements. Returns
+    global ``(idx int32 (nb*k,), val (nb*k,))``, values in ``flat``'s type;
+    the selection runs in f32, which holds bf16 and f16 exactly."""
+    size = flat.shape[0]
+    nb = -(-size // block)
+    xp = torch.zeros(nb * block, dtype=torch.float32, device=flat.device)
+    xp[:size] = flat
+    idx, val = _topk.topk_block_raw(xp, k=k, block=block)
+    return idx, val.to(flat.dtype)
 
 
 # ---------------------------------------------------------------------------

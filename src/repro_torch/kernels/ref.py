@@ -18,7 +18,7 @@ def spa_accumulate_ref(keys: torch.Tensor, vals: torch.Tensor, *, m: int,
     """Dense scatter-add oracle: keys are CSC-linearized, >= m*n means
     padding. Returns the dense ``(m, n)`` f32 accumulator."""
     valid = keys < m * n
-    k = torch.where(valid, keys, 0).to(torch.int32)
+    k = torch.where(valid, keys, m * n).to(torch.int32)  # m*n: dropped
     v = torch.where(valid, vals, 0.0).to(torch.float32)
     order = _sparse.stable_argsort(k)
     flat = segment_fold(v[order], k[order], m * n)
@@ -38,13 +38,11 @@ def hash_accumulate_ref(keys: torch.Tensor, vals: torch.Tensor, *, sent: int):
     is_new = first & valid
     gid = torch.clamp(torch.cumsum(is_new, 0, dtype=torch.int32) - 1, 0,
                       max(cap - 1, 0))
-    out_vals = segment_fold(v_s, gid, cap)
+    out_vals = segment_fold(v_s, torch.where(valid, gid, cap), cap)
     out_keys = torch.full((cap + 1,), sent, dtype=torch.int32,
                           device=keys.device)
     out_keys[torch.where(is_new, gid, cap).long()] = k_s.to(torch.int32)
     nnz = is_new.sum(dtype=torch.int32)
-    out_vals = torch.where(torch.arange(cap, device=keys.device) < nnz,
-                           out_vals, 0.0)
     return out_keys[:cap], out_vals, nnz
 
 

@@ -22,7 +22,9 @@ from repro_torch.kernels.vec_accum import fold_runs
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-             ctypes.c_int, _P]
+             ctypes.c_int, ctypes.c_int, _P]
+#: Value types the kernel folds, by the code its C entry point takes.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _as_rows(x: torch.Tensor) -> torch.Tensor:
@@ -47,9 +49,14 @@ def segment_fold(vals: torch.Tensor, gid: torch.Tensor,
     ``vals`` whose ``gid == g``; ``gid`` outside ``[0, num_segments)`` is
     dropped. ``vals``/``gid`` are ``(L,)`` or ``(B, L)`` with ``gid``
     non-decreasing along the last axis (a plan-sorted stream), which is what
-    makes each segment one contiguous run.
+    makes each segment one contiguous run. Values are f32 or bf16; bf16
+    rounds after every add, as PyTorch's bf16 add does.
 
     The reference's ``jax.ops.segment_sum`` over a sorted stream, bitwise.
+    A run is folded by one thread on the card, so callers give sentinel
+    padding the id ``num_segments`` (dropped): a fold from ``+0.0`` is
+    unchanged by zero-valued padding, and a long padding run would be walked
+    serially.
     """
     if vals.shape != gid.shape or vals.dim() not in (1, 2):
         raise ValueError(f"vals/gid must be matching 1-D or 2-D streams, got "
@@ -59,17 +66,20 @@ def segment_fold(vals: torch.Tensor, gid: torch.Tensor,
     if vals.device.type != "cuda" or gid.device != vals.device:
         raise ValueError(f"segment_fold: unsupported devices {vals.device} / "
                          f"{gid.device}")
-    if vals.dtype != torch.float32 or gid.dtype != torch.int32:
-        raise TypeError(f"segment_fold kernel takes f32 vals and int32 gid, "
-                        f"got {vals.dtype} / {gid.dtype}")
+    if vals.dtype not in _DTYPE_CODES or gid.dtype != torch.int32:
+        raise TypeError(f"segment_fold kernel takes f32 or bf16 vals and "
+                        f"int32 gid, got {vals.dtype} / {gid.dtype}")
     v2 = _as_rows(vals).contiguous()
     g2 = _as_rows(gid).contiguous()
     rows, length = v2.shape
-    out = torch.zeros((rows, num_segments), dtype=torch.float32,
+    out = torch.zeros((rows, num_segments), dtype=vals.dtype,
                       device=vals.device)
+    if v2.numel() == 0:
+        return out.reshape(vals.shape[:-1] + (num_segments,))  # no launch
     fn = _build.entry("segment_fold", "spk_segment_fold", _ARGTYPES)
     _build.check(fn(v2.data_ptr(), g2.data_ptr(), out.data_ptr(), rows, length,
-                    num_segments, vals.device.index or 0,
+                    num_segments, _DTYPE_CODES[vals.dtype],
+                    vals.device.index or 0,
                     _build.stream_ptr(vals)), "segment_fold launch")
     segment_fold.launches += 1
     return out.reshape(vals.shape[:-1] + (num_segments,))

@@ -17,8 +17,10 @@ from repro_torch.core import engine as E
 from repro_torch.core import sparse as S
 from repro_torch.core import spkadd as A
 from repro_torch.kernels import hash_accum, hash_slide, ops as kops
-from repro_torch.kernels import partition, segment, spa_accum
+from repro_torch.core import topk as T
+from repro_torch.kernels import partition, segment, spa_accum, topk_block
 from repro_torch.kernels.hash_accum import hash_table_size
+from repro_torch.runtime import delta_sync as D
 
 pytestmark = pytest.mark.cuda
 
@@ -32,8 +34,11 @@ def cuda():
 
 def bits(t):
     t = t.detach().cpu()
-    return t.view(torch.int32).numpy() if t.dtype == torch.float32 \
-        else t.numpy()
+    if t.dtype == torch.float32:
+        return t.view(torch.int32).numpy()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy()
+    return t.numpy()
 
 
 def sorted_stream(seed, mn, cap, chunk, dup=1):
@@ -357,3 +362,200 @@ def test_family_on_card_equals_cpu(cuda, algorithm):
     assert int(got.nnz) == int(want.nnz)
     np.testing.assert_array_equal(bits(got.keys), bits(want.keys))
     np.testing.assert_array_equal(bits(got.vals), bits(want.vals))
+
+
+# ---------------------------------------------------------------------------
+# the ordered segment fold: bf16 values and long padding runs
+# ---------------------------------------------------------------------------
+
+def _bf16_collection(seed, k, m, n, nnz, device):
+    return [a._replace(vals=a.vals.to(torch.bfloat16))
+            for a in _collection(seed, k, m, n, nnz, device)]
+
+
+@pytest.mark.parametrize("algorithm", ["incremental", "tree", "sorted",
+                                       "spa"])
+def test_bf16_family_on_card_equals_cpu(cuda, algorithm):
+    """bf16 values through the ordered segment fold: the card's bits are
+    the CPU's (each add rounded to bf16, as PyTorch's bf16 add does)."""
+    cpu = _bf16_collection(21, 6, 48, 8, 40, "cpu")
+    gpu = [S.PaddedCOO(a.keys.to(cuda), a.vals.to(cuda), a.nnz.to(cuda),
+                       a.shape) for a in cpu]
+    want = A.spkadd(cpu, algorithm=algorithm)
+    before = segment.segment_fold.launches
+    got = A.spkadd(gpu, algorithm=algorithm)
+    torch.cuda.synchronize()
+    assert segment.segment_fold.launches > before
+    assert got.vals.dtype == torch.bfloat16
+    assert int(got.nnz) == int(want.nnz)
+    np.testing.assert_array_equal(bits(got.keys), bits(want.keys))
+    np.testing.assert_array_equal(bits(got.vals), bits(want.vals))
+    np.testing.assert_array_equal(bits(gpu[0].to_dense()),
+                                  bits(cpu[0].to_dense()))
+
+
+def test_bf16_segment_fold_kernel_bitwise_vs_plain(cuda):
+    rng = np.random.default_rng(22)
+    gid = np.sort(rng.integers(0, 50, size=(2, 3000)), axis=1)
+    vals = torch.as_tensor(rng.standard_normal((2, 3000)).astype(np.float32)
+                           * 100).to(torch.bfloat16)
+    g = torch.as_tensor(gid.astype(np.int32))
+    want = segment.segment_fold(vals, g, 50)
+    got = segment.segment_fold(vals.to(cuda), g.to(cuda), 50)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def test_long_padding_stream_bitwise_vs_plain(cuda):
+    """A capacity far past nnz (the two-way adds' layout): the padding run
+    is dropped from the fold, and the result is the CPU's bit for bit, in
+    both the old layout (padding carrying the last group's id) and the
+    compress path's."""
+    rng = np.random.default_rng(23)
+    cap, nnz, segs = 1 << 20, 300, 64
+    gid = np.full(cap, segs - 1, np.int32)
+    gid[:nnz] = np.sort(rng.integers(0, segs, nnz))
+    vals = np.zeros(cap, np.float32)
+    vals[:nnz] = rng.standard_normal(nnz)
+    vals[nnz:][rng.random(cap - nnz) < 0.5] = -0.0
+    g, v = torch.as_tensor(gid), torch.as_tensor(vals)
+    for gg in (g, torch.where(torch.arange(cap) < nnz, g, segs)):
+        want = segment.segment_fold(v, gg, segs)
+        got = segment.segment_fold(v.to(cuda), gg.to(cuda), segs)
+        np.testing.assert_array_equal(bits(got), bits(want))
+    a = S.with_capacity(_collection(24, 1, 512, 64, nnz, "cpu")[0], cap)
+    want = S.compress(a)
+    got = S.compress(S.PaddedCOO(a.keys.to(cuda), a.vals.to(cuda),
+                                 a.nnz.to(cuda), a.shape))
+    np.testing.assert_array_equal(bits(got.keys), bits(want.keys))
+    np.testing.assert_array_equal(bits(got.vals), bits(want.vals))
+
+
+# ---------------------------------------------------------------------------
+# the block top-k kernel and the delta-sync path
+# ---------------------------------------------------------------------------
+
+def _topk_input(seed, n, kind):
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        x = rng.standard_normal(n)
+    elif kind == "equal":      # every |x| equal: ties all the way
+        x = rng.choice([-1.5, 1.5], n)
+    elif kind == "zeros":      # +0.0 and -0.0 only
+        x = np.where(rng.random(n) < 0.5, 0.0, -0.0)
+    else:                      # the delta-sync grid: many ties
+        x = rng.integers(-256, 256, n) * 2.0 ** -10
+    return torch.as_tensor(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("block", [128, 4096])
+@pytest.mark.parametrize("per", [1, 40, -1])
+@pytest.mark.parametrize("kind", ["normal", "equal", "zeros", "grid"])
+def test_topk_block_kernel_bitwise_vs_plain(cuda, block, per, kind):
+    per = block - 1 if per == -1 else per
+    x = _topk_input(block + per, 5 * block, kind)
+    wi, wv = topk_block.topk_block_plain(x, k=per, block=block)
+    before = topk_block.topk_block_raw.launches
+    gi, gv = topk_block.topk_block_raw(x.to(cuda), k=per, block=block)
+    torch.cuda.synchronize()
+    assert topk_block.topk_block_raw.launches == before + 1
+    np.testing.assert_array_equal(bits(gi), bits(wi))
+    np.testing.assert_array_equal(bits(gv), bits(wv))
+
+
+def test_topk_block_kernel_nan_and_padded_tail(cuda):
+    x = _topk_input(30, 4096 + 1000, "grid")
+    x[[3, 17, 4200]] = float("nan")
+    x[5] = -float("nan")
+    want = kops.topk_block(x, k=40, block=4096)  # zero-padded tail block
+    got = kops.topk_block(x.to(cuda), k=40, block=4096)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(bits(g), bits(w))
+
+
+def test_topk_block_refuses_a_block_over_the_budget(cuda):
+    block = 1 << 16  # 256 KiB of f32 > one block's shared memory
+    before = topk_block.topk_block_raw.launches
+    with pytest.raises(ValueError, match="exceeds the kernel's shared"):
+        topk_block.topk_block_raw(torch.zeros(block, device=cuda), k=1,
+                                  block=block)
+    assert topk_block.topk_block_raw.launches == before
+
+
+def test_empty_inputs_launch_nothing(cuda):
+    """A launch counter counts launches: an empty input returns empty
+    outputs without one."""
+    t0, s0 = topk_block.topk_block_raw.launches, segment.segment_fold.launches
+    idx, val = topk_block.topk_block_raw(torch.zeros(0, device=cuda), k=3,
+                                         block=64)
+    out = segment.segment_fold(torch.zeros(0, device=cuda),
+                               torch.zeros(0, dtype=torch.int32,
+                                           device=cuda), 5)
+    torch.cuda.synchronize()
+    assert idx.numel() == val.numel() == 0 and out.shape == (5,)
+    assert (out == 0).all()
+    assert topk_block.topk_block_raw.launches == t0
+    assert segment.segment_fold.launches == s0
+
+
+@pytest.mark.parametrize("selector", ["global", "block"])
+def test_sparsify_with_feedback_on_card_equals_cpu(cuda, selector):
+    res_c, res_g = torch.zeros(9000), torch.zeros(9000, device=cuda)
+    for step in range(3):
+        g = _topk_input(40 + step, 9000, "grid")
+        uc, res_c = T.sparsify_with_feedback(g, res_c, 90, selector=selector)
+        ug, res_g = T.sparsify_with_feedback(g.to(cuda), res_g, 90,
+                                             selector=selector)
+        for a, b in ((ug.idx, uc.idx), (ug.val, uc.val), (res_g, res_c)):
+            np.testing.assert_array_equal(bits(a), bits(b))
+
+
+def test_apply_delta_flat_on_card_equals_cpu(cuda):
+    rng = np.random.default_rng(41)
+    flat = torch.as_tensor(np.where(rng.random(5000) < 0.2, -0.0,
+                                    rng.standard_normal(5000))
+                           .astype(np.float32))
+    idx = torch.as_tensor(np.concatenate([
+        rng.choice(5000, 700, replace=False), [5000, 5000, -1]])
+        .astype(np.int32))
+    val = torch.as_tensor(np.where(rng.random(703) < 0.3, 0.0,
+                                   rng.standard_normal(703))
+                          .astype(np.float32))
+    want = D.apply_delta_flat(flat, idx, val)
+    got = D.apply_delta_flat(flat.to(cuda), idx.to(cuda), val.to(cuda))
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def test_delta_sync_on_card_equals_cpu(cuda):
+    """Publisher frames byte for byte and the subscriber's window fold
+    bitwise, card against CPU, on a tree whose large leaf takes the block
+    top-k kernel and the engine's vec regime."""
+    rng = np.random.default_rng(42)
+    shapes = {"embed": (300, 100), "ln": (3, 40)}
+
+    def grid(lo, hi):
+        return {k: torch.as_tensor(rng.integers(lo, hi, s).astype(np.float32)
+                                   * 2.0 ** -10) for k, s in shapes.items()}
+
+    params = grid(-512, 512)
+    sides = []
+    for dev in ("cpu", cuda):
+        on = {k: v.to(dev) for k, v in params.items()}
+        wire = D.InProcTransport()
+        sides.append((D.DeltaPublisher(on, wire, k_fraction=0.05,
+                                       selector="block", device=dev),
+                      D.DeltaSubscriber(on, wire, device=dev)))
+    (pub_c, sub_c), (pub_g, sub_g) = sides
+    for epoch in range(1, 5):
+        upd = grid(-256, 256)
+        params = {k: params[k] + upd[k] for k in params}
+        pub_c.publish(params)
+        pub_g.publish({k: v.to(cuda) for k, v in params.items()})
+        assert pub_g.frames_for(epoch) == pub_c.frames_for(epoch)
+    report_c, report_g = sub_c.sync(), sub_g.sync()
+    assert tuple(report_g) == tuple(report_c) and report_g.window == 4
+    for k in shapes:
+        np.testing.assert_array_equal(bits(sub_g.params[k]),
+                                      bits(sub_c.params[k]))
+        np.testing.assert_array_equal(bits(sub_c.params[k]),
+                                      bits(pub_c.shadow_params()[k]))
