@@ -30,12 +30,13 @@ result, when no CUDA card is present or the package is missing.
    dense-accumulator members drop them, the merge paths keep them);
    ``tree`` adds pairwise and, like every member, must equal the float64
    numpy sum to 1e-5. ``vec`` and ``blocked_spa`` must launch the SPA
-   kernel.
+   kernels (count, offsets, scatter, fold).
 5. ``hash_alg``: the faithful hash algorithm, ``spkadd(mats, "hash")``, on
    k = 64 ER matrices of 65,536 × 32 with 512 nonzeros per column
    (1,048,576 nonzeros, a 2^22-slot table): bitwise equal to ``sorted``
    (keys, values and nnz, nothing dropped); ``ops.hash_symbolic`` must
-   equal ``symbolic_nnz``; both hash kernels must launch.
+   equal ``symbolic_nnz`` and take the parallel route (a grid over the
+   stream, the table in device memory); both hash kernels must launch.
 6. ``delta_sync``: SmolLM-135M's parameter tree (:data:`SMOLLM_135M_SHAPES`,
    162,826,560 f32 parameters on the dyadic grid of
    ``benchmarks/delta_sync.py``) through ``DeltaPublisher`` (k_fraction
@@ -46,11 +47,13 @@ result, when no CUDA card is present or the package is missing.
    selection's plain version, byte for byte (:func:`run_delta_sync`).
 7. One profiled call of each phase (device time by kernel, busy share),
    then each of the seven kernels against its plain PyTorch version on the
-   card, on the inputs its path gives it: bitwise (tolerance 0). Then JSON
-   lines of the phases' end-to-end times, the profiles and the kernel
-   numbers (median ms by CUDA events, bound, plain and library times), the
-   card's name and power limit, and as the last line
-   ``{"ok": true, "device": {...}}``.
+   card, on the inputs its path gives it: bitwise (tolerance 0). The SPA
+   row adds each stage's time, the bytes its design moves and its time at
+   other tile sizes; the symbolic row its route and the one-thread route's
+   time on a table of ``cap`` slots. Then JSON lines of the phases'
+   end-to-end times, the profiles and the kernel numbers (median ms by
+   CUDA events, bound, plain and library times), the card's name and power
+   limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before its path runs and read just
 after; launches made to time or compare a kernel do not count.
@@ -459,6 +462,7 @@ def run(args, torch) -> int:
     def reset_counts():
         for fn in kernels.values():
             fn.launches = 0
+        hash_accum.hash_symbolic_raw.serial_launches = 0
 
     rng = np.random.default_rng(args.seed)
     phases = {}
@@ -667,6 +671,13 @@ def run(args, torch) -> int:
     launches["hash_symbolic"] = kernels["hash_symbolic"].launches
     check(launches["hash_symbolic"] > 0, "phase hash_alg: symbolic kernel "
           "not launched")
+    table3 = hash_accum.hash_table_size(cat3.cap + 1)
+    sym_route = hash_accum.symbolic_route(cat3.cap, table3, device=dev)
+    check(sym_route == "device" and
+          hash_accum.hash_symbolic_raw.serial_launches == 0,
+          f"phase hash_alg: the symbolic count took the {sym_route!r} route "
+          f"({hash_accum.hash_symbolic_raw.serial_launches} one-thread "
+          f"launches), expected the parallel device-memory route")
     out_hs = A.spkadd(mats3, algorithm="sorted")
     check(same_coo(torch, out_h, out_hs),
           "phase hash_alg: hash is not bitwise equal to sorted")
@@ -686,16 +697,15 @@ def run(args, torch) -> int:
                                                  rtol=1e-5, atol=1e-5),
           "phase hash_alg: values differ from the float64 numpy sum "
           "beyond 1e-5")
-    table3 = hash_accum.hash_table_size(cat3.cap + 1)
     phases["hash_alg"] = {
         "k": k3, "m": m3, "n": n3, "total_nnz": k3 * nnz3, "out_nnz": nh,
-        "table_size": table3,
+        "table_size": table3, "symbolic_route": sym_route,
         "ms": host_ms(torch, lambda: A.spkadd(mats3, algorithm="hash"), 3),
         "symbolic_ms": host_ms(torch, lambda: kops.hash_symbolic(
             cat3.keys, sent=sent3), 3)}
     log(f"phase hash_alg: hash == sorted bitwise, nnz {nh}, table "
         f"{table3} slots; {phases['hash_alg']['ms']:.2f} ms, symbolic "
-        f"{phases['hash_alg']['symbolic_ms']:.2f} ms")
+        f"{phases['hash_alg']['symbolic_ms']:.3f} ms ({sym_route} route)")
     phases["hash_alg"]["phase_s"] = took()
 
     # ---- 6. delta_sync: SmolLM-135M's parameters, publisher -> replicas --
@@ -720,9 +730,15 @@ def run(args, torch) -> int:
         "family_blocked_spa": device_profile(
             torch, lambda: A.spkadd(mats, algorithm="blocked_spa"),
             family["blocked_spa"]["ms"]),
+        "family_vec": device_profile(
+            torch, lambda: A.spkadd(mats, algorithm="vec"),
+            family["vec"]["ms"]),
         "hash_alg": device_profile(
             torch, lambda: A.spkadd(mats3, algorithm="hash"),
             phases["hash_alg"]["ms"]),
+        "hash_alg_symbolic": device_profile(
+            torch, lambda: kops.hash_symbolic(cat3.keys, sent=sent3),
+            phases["hash_alg"]["symbolic_ms"]),
         "delta_sync_round": device_profile(
             torch, ds_round, phases["delta_sync"]["round_ms"]),
     }
@@ -846,8 +862,55 @@ def run(args, torch) -> int:
               "spa_accum kernel differs from its plain version")
         spa_err = max(spa_err, float((got - want).abs().max()))
         del got, want
+    spa_valid = int((spa_keys < m1 * n1).sum())
     spa_bytes = 8 * spa_keys.numel() + 4 * m1 * n1
-    spa_bound = bound(spa_bytes, int((spa_keys < m1 * n1).sum()))
+    spa_bound = bound(spa_bytes, spa_valid)
+    spa_moved = spa_accum.moved_bytes(spa_keys.numel(), spa_valid, m=m1,
+                                      n=n1, block_rows=spa_rows)
+    spa_moved_total = sum(spa_moved.values())
+    # the radix passes move a few times the bound's bytes; the all-pairs
+    # grid moved parts times the stream
+    check(spa_moved_total <= 4 * spa_bytes, f"spa_accum moves "
+          f"{spa_moved_total} B, over 4x the bound's {spa_bytes} B")
+
+    def spa_stage_ms(keys_, vals_, rows, reps=10):
+        """Median device ms of each stage of one pipeline run, summed over
+        the radix passes (CUDA events between the stages' launches)."""
+        run = spa_accum.SpaLaunches(keys_, vals_, m=m1, n=n1,
+                                    block_rows=rows)
+        run.run()
+        times = {name: [] for name, _ in run.stages}
+        for _ in range(reps):
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(len(run.stages) + 1)]
+            events[0].record()
+            for i, (_, launch) in enumerate(run.stages):
+                launch()
+                events[i + 1].record()
+            events[-1].synchronize()
+            rep = dict.fromkeys(times, 0.0)
+            for i, (name, _) in enumerate(run.stages):
+                rep[name] += events[i].elapsed_time(events[i + 1])
+            for name, t in rep.items():
+                times[name].append(t)
+        return {name: statistics.median(t) for name, t in times.items()}
+
+    # the result does not depend on the tile: time it at other tile sizes
+    spa_limit_rows = kops.choose_block_rows(m1, n1, kops.spa_tile_limit(dev))
+    spa_sweep = {}
+    for rows in sorted({8, 16, 32, 64, spa_rows, spa_limit_rows}):
+        rkw = dict(skw, block_rows=rows)
+        spa_sweep[rows] = {
+            "parts": -(-m1 // rows),
+            "passes": spa_accum.bucket_geometry(spa_keys.numel(), m=m1,
+                                                block_rows=rows).passes,
+            "ms": cuda_ms(torch, lambda: spa_accum.spa_accumulate_raw(
+                spa_keys, spa_vals, **rkw), 10),
+            "sorted_stream_ms": cuda_ms(torch, lambda: spa_accum
+                                        .spa_accumulate_raw(*spa_sorted,
+                                                            **rkw), 10),
+            "stage_ms": spa_stage_ms(spa_keys, spa_vals, rows, 5)}
+        log(f"spa_accum at block_rows {rows}: {spa_sweep[rows]}")
     spa_lib = torch.zeros(m1 * n1 + 1, device=dev)
     spa_idx = spa_keys.long()
     report.append({
@@ -857,19 +920,25 @@ def run(args, torch) -> int:
         "launches": launches["spa_accum"],
         "max_abs_err": spa_err,
         "ms": cuda_ms(torch, lambda: spa_accum.spa_accumulate_raw(
-            spa_keys, spa_vals, **skw), 5),
+            spa_keys, spa_vals, **skw), 20),
         "sorted_stream_ms": cuda_ms(torch, lambda: spa_accum
                                     .spa_accumulate_raw(*spa_sorted, **skw),
-                                    5),
+                                    20),
+        "stage_ms": spa_stage_ms(spa_keys, spa_vals, spa_rows),
+        "sorted_stream_stage_ms": spa_stage_ms(*spa_sorted, spa_rows),
         "plain_ms": cuda_ms(torch, lambda: spa_accum.spa_accumulate_plain(
             spa_keys, spa_vals, **skw), 3),
         "bound_ms": spa_bound[0],
         "bound_by": spa_bound[1],
         "library_ms": cuda_ms(torch, lambda: spa_lib.index_add_(
             0, spa_idx, spa_vals), 20),
+        "library": "index_add_",
         "bytes": spa_bytes,
-        "all_pairs_bytes": 8 * spa_keys.numel() * spa_parts,
+        "moved_bytes": spa_moved, "moved_bytes_total": spa_moved_total,
+        "bucket_geometry": spa_accum.bucket_geometry(
+            spa_keys.numel(), m=m1, block_rows=spa_rows)._asdict(),
         "geometry": phases["family"]["spa_geometry"],
+        "by_block_rows": spa_sweep,
     })
     del spa_lib, spa_idx, spa_sorted, spa_order
 
@@ -899,6 +968,8 @@ def run(args, torch) -> int:
         size_ = hash_accum.hash_table_size(cap + 1)
         hash_cases[cap] = {
             "table_size": size_,
+            "sym_route": hash_accum.symbolic_route(cap, size_, device=dev),
+            "sym_err": float(abs(int(nz_) - int(pnz_))),
             "acc_in_smem": hash_accum.table_in_smem(size_, symbolic=False,
                                                     device=dev),
             "sym_in_smem": hash_accum.table_in_smem(size_, symbolic=True,
@@ -906,7 +977,7 @@ def run(args, torch) -> int:
             "acc_ms": cuda_ms(torch, lambda: hash_accum.hash_accumulate_raw(
                 hk_, hv_, sent=sent3), 3),
             "sym_ms": cuda_ms(torch, lambda: hash_accum.hash_symbolic_raw(
-                hk_, sent=sent3), 3),
+                hk_, sent=sent3), 10),
             "acc_plain_ms": acc_plain_ms, "sym_plain_ms": sym_plain_ms,
             "acc_err": float((tv_.cpu() - pv_).abs().max()),
             "valid": int((hk_ != sent3).sum())}
@@ -924,6 +995,22 @@ def run(args, torch) -> int:
     check(unique_count() == int(sym), "hash_symbolic: torch.unique count "
           "differs from the kernel's")
     sym_library_ms = cuda_ms(torch, unique_count, 3)
+    # the one-thread route, on a table of cap slots (table_size <= cap: it
+    # could fill; this stream's 825,197 distinct keys do not fill it, so
+    # its count is the parallel route's)
+    under = cat3.cap
+    check(hash_accum.symbolic_route(cat3.cap, under, device=dev) == "serial",
+          "hash_symbolic: a table of cap slots should take the one-thread "
+          "route")
+    serial0 = hash_accum.hash_symbolic_raw.serial_launches
+    under_nz = int(hash_accum.hash_symbolic_raw(cat3.keys, sent=sent3,
+                                                table_size=under))
+    check(under_nz == int(sym) and
+          hash_accum.hash_symbolic_raw.serial_launches == serial0 + 1,
+          f"hash_symbolic: the one-thread route on {under} slots counted "
+          f"{under_nz}, the parallel route {int(sym)}")
+    under_ms = cuda_ms(torch, lambda: hash_accum.hash_symbolic_raw(
+        cat3.keys, sent=sent3, table_size=under), 1)
     small = {c: hash_cases[c] for c in (4096, 16384)}
     report.append({
         "name": "hash_accum", "route": "cuda",
@@ -942,12 +1029,17 @@ def run(args, torch) -> int:
         "source": "src/repro_torch/kernels/csrc/hash_accum.cu",
         "replaces": "src/repro/kernels/hash_accum.py:126",
         "launches": launches["hash_symbolic"],
-        "max_abs_err": 0.0,
+        "max_abs_err": max(c["sym_err"] for c in hash_cases.values()),
         "ms": full["sym_ms"], "plain_ms": full["sym_plain_ms"],
         "bound_ms": sym_bound[0], "bound_by": sym_bound[1],
         "library_ms": sym_library_ms, "library": "torch.unique",
-        "bytes": sym_bytes,
+        "bytes": sym_bytes, "route": full["sym_route"],
         "table_size": full["table_size"], "in_smem": full["sym_in_smem"],
+        "smaller_caps": {c: {k: hash_cases[c][k] for k in (
+            "table_size", "sym_route", "sym_ms", "sym_plain_ms")}
+            for c in (4096, 16384)},
+        "undersized": {"route": "serial", "table_size": under,
+                       "ms": under_ms},
     })
 
     # topk_block, at the embed leaf's selection of epoch 1: 6,912 blocks of

@@ -150,9 +150,9 @@ def spkadd_spa_dense(mats: Sequence[PaddedCOO]) -> torch.Tensor:
 
 def spkadd_blocked_spa(mats: Sequence[PaddedCOO], block_rows: int | None = None,
                        smem_budget_bytes: int | None = None) -> PaddedCOO:
-    """Sliding SPA (paper Alg. 7/8 with the cache as one block's shared
-    memory): the all-pairs kernel of ``kernels/spa_accum`` folds the
-    concatenated stream, unsorted, into ``(block_rows, n)`` row tiles; then
+    """Sliding SPA (paper Alg. 7/8 with the cache as shared memory):
+    ``kernels/spa_accum`` buckets the concatenated stream, unsorted, by row
+    part and folds each part into its ``(block_rows, n)`` row tile; then
     one re-sparsification. ``smem_budget_bytes`` defaults to
     ``kernels.ops.spa_tile_budget`` of the inputs' device."""
     from repro_torch.kernels import ops as kops
@@ -168,8 +168,8 @@ def spkadd_blocked_spa(mats: Sequence[PaddedCOO], block_rows: int | None = None,
 def spkadd_vec(mats: Sequence[PaddedCOO], block_rows: int | None = None,
                smem_budget_bytes: int | None = None,
                fold: str = "auto") -> PaddedCOO:
-    """The reference's lane-parallel sliding SpKAdd: the same all-pairs
-    kernel on the stable-sorted stream (one counted sort), with the fold
+    """The reference's lane-parallel sliding SpKAdd: the same SPA
+    accumulation on the stable-sorted stream (one counted sort), with the fold
     name checked as the reference checks it; then one re-sparsification."""
     from repro_torch.kernels import ops as kops
 

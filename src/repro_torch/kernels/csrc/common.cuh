@@ -4,7 +4,8 @@
 // interface and loaded with ctypes (repro_torch/kernels/_build.py). Every
 // library exports the two helpers below; each is defined against the
 // kernel its source includes this header for (SPK_KERNEL) and, where the
-// library has a second kernel, SPK_KERNEL_2 as well.
+// library has more kernels that take dynamic shared memory, SPK_KERNEL_2
+// and SPK_KERNEL_3 as well.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -46,6 +47,10 @@ extern "C" int spk_max_dynamic_smem(int device, int* out) {
   err = spk_static_smem(SPK_KERNEL_2, &fixed);
   if (err != cudaSuccess) return static_cast<int>(err);
 #endif
+#ifdef SPK_KERNEL_3
+  err = spk_static_smem(SPK_KERNEL_3, &fixed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#endif
   *out = optin - fixed;
   return 0;
 }
@@ -69,6 +74,11 @@ static inline cudaError_t spk_opt_in(int device) {
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(
           SPK_KERNEL_2, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+#endif
+#ifdef SPK_KERNEL_3
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(
+          SPK_KERNEL_3, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 #endif
     return e;
   };

@@ -14,10 +14,16 @@ where it began, and the reference then overwrites that slot (accumulate)
 or counts nothing (symbolic); the port does the same.
 
 Slot placement depends on insertion order, so the raw tables are compared
-bitwise, not only after compaction. On the card one thread inserts in
-stream order (see the kernel's source note); on the CPU the wrappers take
-:func:`hash_accumulate_plain` and :func:`hash_symbolic_plain`, sequential
-loops meant for small streams.
+bitwise, not only after compaction, and on the card one thread inserts
+them in stream order. The symbolic count returns no table: where the table
+cannot fill (``table_size > cap``, as the default sizing guarantees) it is
+the number of distinct keys other than ``sent`` and ``-1`` plus one for
+each ``-1`` (a ``-1`` key stops on an empty slot and leaves it empty), in
+any insertion order, so there every thread of a grid inserts with
+``atomicCAS``; a table that can fill keeps the one-thread loop
+(:func:`symbolic_route`; the kernels' source note says why each is
+exact). On the CPU the wrappers take :func:`hash_accumulate_plain` and
+:func:`hash_symbolic_plain`, sequential loops meant for small streams.
 """
 from __future__ import annotations
 
@@ -63,6 +69,18 @@ def table_in_smem(table_size: int, *, symbolic: bool, device) -> bool:
     slot_bytes = 4 if symbolic else 8
     limit = _build.max_dynamic_smem("hash_accum", device.index or 0)
     return table_size * slot_bytes + stage_bytes(symbolic) <= limit
+
+
+def symbolic_route(cap: int, table_size: int, *, device) -> str:
+    """The kernel route of :func:`hash_symbolic_raw` for a ``cap``-long
+    stream on a CUDA ``device``: ``"serial"`` (the one-thread loop) when the
+    table can fill (``table_size <= cap``), else the parallel count with the
+    table in one block's shared memory (``"smem"``) or in device memory
+    (``"device"``), as :func:`table_in_smem` decides."""
+    if table_size <= cap:
+        return "serial"
+    return ("smem" if table_in_smem(table_size, symbolic=True, device=device)
+            else "device")
 
 
 def _probe(tk, key: int, mask: int, table_size: int) -> int:
@@ -169,9 +187,9 @@ def hash_symbolic_plain(keys: torch.Tensor, *, sent: int,
 
 def hash_symbolic_raw(keys: torch.Tensor, *, sent: int,
                       table_size: int | None = None) -> torch.Tensor:
-    """Distinct-key count via the faithful hash symbolic phase (a keys-only
-    table), as an int32 scalar. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    """The faithful hash symbolic count (a keys-only table), as an int32
+    scalar. CPU tensors take the plain version; CUDA tensors launch the
+    route :func:`symbolic_route` names."""
     if keys.device.type == "cpu":
         return hash_symbolic_plain(keys, sent=sent, table_size=table_size)
     _check_stream(keys)
@@ -183,18 +201,28 @@ def hash_symbolic_raw(keys: torch.Tensor, *, sent: int,
         raise TypeError(f"hash_symbolic kernel takes int32 keys, got "
                         f"{keys.dtype}")
     keys = keys.contiguous()
+    route = symbolic_route(keys.shape[0], table_size, device=keys.device)
     nz = torch.empty(1, dtype=torch.int32, device=keys.device)
     in_smem = table_in_smem(table_size, symbolic=True, device=keys.device)
     scratch = torch.empty(0 if in_smem else table_size, dtype=torch.int32,
                           device=keys.device)
-    fn = _build.entry("hash_accum", "spk_hash_symbolic", _SYM_ARGTYPES)
+    if route == "serial":
+        fn = _build.entry("hash_accum", "spk_hash_symbolic", _SYM_ARGTYPES)
+    else:
+        fn = _build.entry("hash_accum", "spk_hash_symbolic_par",
+                          _SYM_ARGTYPES)
     _build.check(fn(keys.data_ptr(), nz.data_ptr(), scratch.data_ptr(),
                     keys.shape[0], sent, table_size, int(in_smem),
                     keys.device.index or 0, _build.stream_ptr(keys)),
-                 "hash_symbolic launch")
+                 f"hash_symbolic launch ({route})")
     hash_symbolic_raw.launches += 1
+    if route == "serial":
+        hash_symbolic_raw.serial_launches += 1
     return nz[0]
 
 
-#: Launches of the CUDA kernel (the plain version does not count).
+#: Calls that launched a symbolic kernel, whichever route (the plain
+#: version does not count), and those of them that took the one-thread
+#: route.
 hash_symbolic_raw.launches = 0
+hash_symbolic_raw.serial_launches = 0

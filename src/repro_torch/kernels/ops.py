@@ -83,18 +83,30 @@ def fold_working_set_bytes(fold: str, *, tile_elems: int, chunk: int) -> int:
     return out_tile + inputs + inter
 
 
+#: The dense SPA tile the port sizes to on a CUDA card (bytes): one warp
+#: folds each part's bucket into its tile, so a small tile keeps many warps
+#: on each SM (see :func:`spa_tile_budget`).
+SPA_TILE_BYTES = 16 * 1024
+
+
+def spa_tile_limit(device=None) -> int:
+    """The largest dense SPA tile (bytes) the fold kernel takes on a CUDA
+    ``device``: :func:`device_smem_budget` less the stage the fold keeps
+    beside its tile (``spa_accum.stage_bytes``)."""
+    return device_smem_budget(device) - _spa.stage_bytes()
+
+
 def spa_tile_budget(device=None) -> int:
     """The budget the dense SPA tile is sized to (paper Alg. 7's M) for
     tensors on ``device``: on the CPU the reference's 16 MiB, so that the
-    geometry there is the reference's; on the card
-    :func:`device_smem_budget` less the stage the SPA kernel keeps beside
-    its tile (``spa_accum.stage_bytes``), since ``choose_block_rows``
-    counts the tile alone and the two must fit one block together."""
+    geometry there is the reference's; on the card :data:`SPA_TILE_BYTES`,
+    within :func:`spa_tile_limit`, since ``choose_block_rows`` counts the
+    tile alone and the tile and the fold's stage must fit one block
+    together."""
     dev = torch.device("cuda" if device is None else device)
-    budget = device_smem_budget(dev)
     if dev.type == "cuda":
-        budget -= _spa.stage_bytes()
-    return budget
+        return min(SPA_TILE_BYTES, spa_tile_limit(dev))
+    return device_smem_budget(dev)
 
 
 def pad_stream(keys: torch.Tensor, vals: torch.Tensor, mn: int, chunk: int):
@@ -111,7 +123,7 @@ def pad_stream(keys: torch.Tensor, vals: torch.Tensor, mn: int, chunk: int):
 
 
 # ---------------------------------------------------------------------------
-# sliding dense SPA and vec launches (kernels/spa_accum.py, the all-pairs grid)
+# sliding dense SPA and vec launches (kernels/spa_accum.py)
 # ---------------------------------------------------------------------------
 
 def spa_accumulate(keys: torch.Tensor, vals: torch.Tensor, *, m: int, n: int,
@@ -122,8 +134,8 @@ def spa_accumulate(keys: torch.Tensor, vals: torch.Tensor, *, m: int, n: int,
 
     Pads the stream to a chunk multiple (sentinel keys), sizes the row block
     to the budget (default :func:`spa_tile_budget` of the keys' device),
-    launches the all-pairs kernel with the ``serial`` fold on the stream
-    **as given** (no sort), and crops the result.
+    accumulates with the ``serial`` fold on the stream **as given** (no
+    sort), and crops the result.
     """
     if block_rows is None:
         budget = (spa_tile_budget(keys.device) if smem_budget_bytes is None
@@ -170,7 +182,7 @@ def vec_accumulate(keys: torch.Tensor, vals: torch.Tensor, *, m: int, n: int,
     ``(m, n)`` f32.
 
     The reference's vec launch: one counted stable sort of the keys, then
-    the all-pairs kernel. ``fold`` is checked as the reference checks it
+    the SPA accumulation of ``kernels/spa_accum``. ``fold`` is checked as the reference checks it
     (``"auto"`` or a name in ``vec_accum.FOLDS``, power-of-two chunk for the
     vectorized folds); every name gives the same bits, and ``"auto"`` is
     checked as ``"sort"``. The budget defaults to :func:`spa_tile_budget`

@@ -216,7 +216,7 @@ def test_launches_keep_the_callers_current_device(cuda):
 
 
 # ---------------------------------------------------------------------------
-# spa_accum: the all-pairs dense SPA kernel
+# spa_accum: the bucketed dense SPA kernels
 # ---------------------------------------------------------------------------
 
 def spa_stream(seed, m, n, cap, chunk, *, dup=1, sort=False, sentinel_run=0):
@@ -290,10 +290,74 @@ def test_spa_kernel_refuses_a_too_wide_tile(cuda):
 
 def test_spa_tile_budget_leaves_room_for_the_stage(cuda):
     budget = kops.spa_tile_budget(cuda)
-    assert budget + spa_accum.stage_bytes() == kops.device_smem_budget(cuda)
-    rows = kops.choose_block_rows(65536, 512, budget)
-    assert rows * 512 * 4 + spa_accum.stage_bytes() <= \
-        kops.device_smem_budget(cuda)
+    limit = kops.spa_tile_limit(cuda)
+    assert budget == min(kops.SPA_TILE_BYTES, limit)
+    assert budget + spa_accum.stage_bytes() <= kops.device_smem_budget(cuda)
+    assert limit + spa_accum.stage_bytes() == kops.device_smem_budget(cuda)
+    for b in (budget, limit):
+        rows = kops.choose_block_rows(65536, 512, b)
+        assert rows * 512 * 4 + spa_accum.stage_bytes() <= \
+            kops.device_smem_budget(cuda)
+
+
+@pytest.mark.parametrize("m,n,cap,block_rows,dup,sort,sentinel_run", [
+    (64, 16, 5000, 16, 1, False, 0),        # 4 parts, unsorted
+    (64, 16, 5000, 16, 37, True, 0),        # sorted runs
+    (60, 7, 3000, 16, 5, False, 2048),      # m % block_rows != 0
+    (300, 3, 777, 104, 1, False, 0),        # 3 parts
+    (4096, 64, 70_000, 8, 3, False, 100),   # 512 parts, 5 subtiles
+    (4096, 64, 70_000, 64, 3, True, 100),   # 64 parts: one radix pass
+    (480_000, 1, 5000, 8, 1, False, 0),     # 60,000 parts: two passes
+    (560_000, 1, 3000, 8, 1, False, 0),     # 70,000 parts: three passes
+])
+def test_spa_bucket_kernels_bitwise_vs_plain(cuda, m, n, cap, block_rows, dup,
+                                             sort, sentinel_run):
+    """The count, offsets and scatter kernels give the plain bucketing's
+    arrays bit for bit: the same elements in the same order."""
+    keys, vals = spa_stream(m * n + cap + 1, m, n, cap, 1, dup=dup,
+                            sort=sort, sentinel_run=sentinel_run)
+    kw = dict(m=m, n=n, block_rows=block_rows)
+    want = spa_accum.spa_bucket_plain(keys, vals, **kw)
+    before = spa_accum.spa_bucket_raw.launches
+    got = spa_accum.spa_bucket_raw(keys.to(cuda), vals.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert spa_accum.spa_bucket_raw.launches == before + 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(bits(g), bits(w))
+
+
+def test_spa_kernel_empty_parts_and_one_element(cuda):
+    """Parts with no element come out as zero tiles; a one-element stream
+    and a stream of sentinels only fold as the plain version does."""
+    m, n, block_rows = 48, 5, 8
+    rows = np.r_[0:8, 24:32]            # parts 1, 2, 4 and 5 stay empty
+    rng = np.random.default_rng(4)
+    keys = (rng.integers(0, n, 600) * m + rng.choice(rows, 600)).astype(
+        np.int32)
+    vals = rng.standard_normal(600).astype(np.float32)
+    cases = [(keys, vals), (keys[:1], vals[:1]),
+             (np.full(64, m * n, np.int32), np.zeros(64, np.float32))]
+    for k, v in cases:
+        kp, vp = torch.as_tensor(k), torch.as_tensor(v)
+        kw = dict(m=m, n=n, block_rows=block_rows, chunk=k.size)
+        want = spa_accum.spa_accumulate_plain(kp, vp, **kw)
+        got = spa_accum.spa_accumulate_raw(kp.to(cuda), vp.to(cuda), **kw)
+        np.testing.assert_array_equal(bits(got), bits(want))
+    assert (got == 0).all()
+
+
+def test_spa_kernel_across_tile_sizes(cuda):
+    """The result does not depend on block_rows: every tile size from the
+    smallest to the block limit gives the plain version's bits."""
+    m, n = 2048, 96
+    keys, vals = spa_stream(5, m, n, 40_000, 1024, dup=2)
+    kw = dict(m=m, n=n, chunk=1024)
+    want = spa_accum.spa_accumulate_plain(keys, vals, block_rows=8, **kw)
+    limit_rows = kops.choose_block_rows(m, n, kops.spa_tile_limit(cuda))
+    for rows in (8, 16, 80, limit_rows):
+        got = spa_accum.spa_accumulate_raw(keys.to(cuda), vals.to(cuda),
+                                           block_rows=rows, **kw)
+        np.testing.assert_array_equal(bits(got), bits(want))
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +414,63 @@ def test_hash_kernels_collision_chain_and_empty(cuda):
         np.testing.assert_array_equal(bits(gv), bits(wv))
         assert int(hash_accum.hash_symbolic_raw(k.to(cuda), sent=sent)) == \
             int(hash_accum.hash_symbolic_plain(k, sent=sent))
+
+
+def chain_keys(table_size, sent, length=64):
+    chain = [5 + i * table_size for i in range(6)]
+    stream = chain + chain[::-1] + chain
+    return np.asarray(stream + [sent] * (length - len(stream)), np.int32)
+
+
+@pytest.mark.parametrize("case,route", [
+    ("random_smem", "smem"),          # 4,096 keys: 16,384 slots in smem
+    ("random_device", "device"),      # 16,384 keys: 65,536 slots in HBM
+    ("minus_one_smem", "smem"),       # each -1 counts, its slot stays free
+    ("minus_one_device", "device"),
+    ("chain_smem", "smem"),           # collision chain, default table
+    ("chain_device", "device"),       # the chain in an explicit big table
+    ("empty_smem", "smem"),
+    ("empty_device", "device"),
+    ("undersized", "serial"),         # table <= cap: the one-thread loop
+    ("undersized_minus_one", "serial"),
+])
+def test_hash_symbolic_routes_bitwise_vs_plain(cuda, case, route):
+    rng = np.random.default_rng(len(case))
+    sent, table_size = 1 << 20, None
+    if case.startswith("random") or case.startswith("minus_one"):
+        cap = 4096 if case.endswith("smem") else 16384
+        keys = rng.integers(0, 3 * cap, size=cap).astype(np.int32)
+        keys[rng.random(cap) < 0.1] = sent
+        if case.startswith("minus_one"):
+            keys[rng.random(cap) < 0.05] = -1
+    elif case.startswith("chain"):
+        keys = chain_keys(128, sent)
+        table_size = None if case.endswith("smem") else 1 << 16
+    elif case.startswith("empty"):
+        keys = np.zeros(0, np.int32)
+        table_size = None if case.endswith("smem") else 1 << 16
+    else:
+        keys = rng.permutation(np.repeat(np.arange(300) * 7, 2)).astype(
+            np.int32)
+        table_size = 256
+        if case.endswith("minus_one"):
+            keys[rng.choice(keys.size, 40, replace=False)] = -1
+    kt = torch.as_tensor(keys)
+    size = (hash_table_size(len(keys) + 1) if table_size is None
+            else table_size)
+    assert hash_accum.symbolic_route(len(keys), size, device=cuda) == route
+    want = hash_accum.hash_symbolic_plain(kt, sent=sent,
+                                          table_size=table_size)
+    launches = hash_accum.hash_symbolic_raw.launches
+    serial = hash_accum.hash_symbolic_raw.serial_launches
+    got = hash_accum.hash_symbolic_raw(kt.to(cuda), sent=sent,
+                                       table_size=table_size)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert int(got) == int(want)
+    assert hash_accum.hash_symbolic_raw.launches == launches + 1
+    assert hash_accum.hash_symbolic_raw.serial_launches == \
+        serial + (route == "serial")
 
 
 @pytest.mark.parametrize("algorithm", sorted(A.ALGORITHMS))
