@@ -30,7 +30,8 @@ result, when no CUDA card is present or the package is missing.
    dense-accumulator members drop them, the merge paths keep them);
    ``tree`` adds pairwise and, like every member, must equal the float64
    numpy sum to 1e-5. ``vec`` and ``blocked_spa`` must launch the SPA
-   kernels (count, offsets, scatter, fold).
+   kernels (count, offsets, scatter, fold). Each timed call's host time
+   is kept.
 5. ``hash_alg``: the faithful hash algorithm, ``spkadd(mats, "hash")``, on
    k = 64 ER matrices of 65,536 × 32 with 512 nonzeros per column
    (1,048,576 nonzeros, a 2^22-slot table): bitwise equal to ``sorted``
@@ -46,11 +47,18 @@ result, when no CUDA card is present or the package is missing.
    engine's kernels launch, and epoch 1's frames equal those of the
    selection's plain version, byte for byte (:func:`run_delta_sync`).
 7. One profiled call of each phase (device time by kernel, busy share),
-   then each of the seven kernels against its plain PyTorch version on the
+   ten profiled calls each of the family's ``vec`` and ``blocked_spa``
+   (each call's host time and the CUDA runtime calls that took the most
+   host time: where a slow call waits), then each of the seven kernels against its plain PyTorch version on the
    card, on the inputs its path gives it: bitwise (tolerance 0). The SPA
    row adds each stage's time, the bytes its design moves and its time at
    other tile sizes; the symbolic row its route and the one-thread route's
-   time on a table of ``cap`` slots. Then JSON lines of the phases'
+   time on a table of ``cap`` slots. The partition row adds its sub-tile,
+   blocks per SM, the bytes its design moves and its time at the
+   delta-sync catch-up's largest launch (its inputs rebuilt after the
+   phase by a replay of that launch's engine call); the top-k row its
+   radix passes and its time at each leaf shape of a publish beside
+   ``torch.topk``. Then JSON lines of the phases'
    end-to-end times, the profiles and the kernel numbers (median ms by
    CUDA events, bound, plain and library times), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -169,9 +177,10 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def host_ms(torch, fn, reps: int) -> float:
-    """Median host time of ``fn`` ending in a device synchronize."""
-    times = []
+def host_ms(torch, fn, reps: int, times: list | None = None) -> float:
+    """Median host time of ``fn`` ending in a device synchronize; each
+    call's time is appended to ``times`` when it is given."""
+    times = [] if times is None else times
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -179,6 +188,36 @@ def host_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def host_stall_probe(torch, fn, reps: int = 10, top: int = 4) -> dict:
+    """``reps`` calls of ``fn`` under ``torch.profiler``, to see where a
+    slow call waits: each call's host ms, the device ms of a call (its
+    kernels and copies, averaged), and the CUDA runtime calls that took
+    the most host time over all of them (name: [count, total ms, longest
+    ms])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            calls.append((time.perf_counter() - t0) * 1e3)
+    runtime, device_us = {}, 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += ev.device_time_total
+        elif ev.name.startswith("cu"):
+            ms = ev.time_range.elapsed_us() / 1e3
+            n, total, longest = runtime.get(ev.name, (0, 0.0, 0.0))
+            runtime[ev.name] = (n + 1, total + ms, max(longest, ms))
+    ranked = sorted(runtime.items(), key=lambda r: -r[1][1])[:top]
+    return {"calls_ms": calls, "device_ms": device_us / 1e3 / reps,
+            "runtime": {name: list(r) for name, r in ranked}}
 
 
 def device_profile(torch, fn, wall_ms: float, top: int = 6) -> dict:
@@ -293,11 +332,17 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
     arithmetic is exact); the block top-k kernel must launch on the path;
     B's catch-up must launch the engine's kernels; epoch 1's frames must
     equal, byte for byte, the frames the same publisher state gives with
-    the selection's plain version on the card. Returns the phase's numbers, the top-k launches, and the epoch-1
-    input of the embed leaf's selection (for the kernel line)."""
+    the selection's plain version on the card. Returns the phase's
+    numbers, the top-k launches, what the kernel line times the kernels at
+    (``captured``: the embed leaf's epoch-1 update, the shape of each block
+    top-k call of an epoch-1 publish, and the inputs of the largest
+    partition launch of B's catch-up, rebuilt after the phase by
+    :func:`replay_catchup_partition`), and one round (publish + A's sync)
+    to profile."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import tree as T
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import topk_block
     from repro_torch.runtime import (DeltaPublisher, DeltaSubscriber,
                                      InProcTransport, dense_sync_bytes)
@@ -329,7 +374,8 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
 
     publish_ms, sync_a_ms, wire_bytes = [], [], []
     topk_launches = 0
-    embed_x = None
+    captured = {"topk_leaves": []}
+    catchup_part_calls = []
     for epoch in range(1, epochs + 1):
         update = grid(-256, 256)
         params = tree_add(params, update)
@@ -346,9 +392,15 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
             # the same epoch from the same state, the selection's plain
             # version swapped in for the kernel (ops calls it through the
             # module), must give the same bytes
-            embed_x = update["embed"].reshape(-1).clone()
+            # (and each call's shape is kept for the kernel line)
+            captured["embed_x"] = update["embed"].reshape(-1).clone()
             kernel_fn = topk_block.topk_block_raw
-            topk_block.topk_block_raw = topk_block.topk_block_plain
+
+            def plain_keeping_inputs(x, *, k, block):
+                captured["topk_leaves"].append((x.numel(), k, block))
+                return topk_block.topk_block_plain(x, k=k, block=block)
+
+            topk_block.topk_block_raw = plain_keeping_inputs
             try:
                 plain_pub.publish(params)
             finally:
@@ -372,12 +424,25 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
             torch.cuda.synchronize()
             for fn in kernels.values():
                 fn.launches = 0
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                report = rep_b.sync()
-                torch.cuda.synchronize()
-                catchup_ms = (time.perf_counter() - t0) * 1e3
+            # only the partition launches' shapes are kept: their inputs
+            # are rebuilt after the phase (replay_catchup_partition)
+            part_fn = kops.partitioned_accumulate_flat
+
+            def part_keeping_shapes(*a, **kw):
+                catchup_part_calls.append(
+                    (tuple(tuple(t.shape) for t in a), kw))
+                return part_fn(*a, **kw)
+
+            kops.partitioned_accumulate_flat = part_keeping_shapes
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    report = rep_b.sync()
+                    torch.cuda.synchronize()
+                    catchup_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                kops.partitioned_accumulate_flat = part_fn
             catchup_profile = device_times(torch, prof, catchup_ms)
             catchup_launches = {name: kernels[name].launches
                                 for name in engine_kernels}
@@ -417,13 +482,152 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
         f"peak {phase['peak_mem_bytes'] / 2**30:.2f} GiB; replicas A and B "
         f"== shadow bitwise")
     pool.shutdown()
+    captured["catchup_partition"] = replay_catchup_partition(
+        pub, catchup_part_calls, dev)
 
     def one_sync_round():
         # params unchanged: each round ships the residual's heaviest entries
         pub.publish(params)
         rep_a.sync()
 
-    return phase, topk_launches, embed_x, one_sync_round
+    return phase, topk_launches, captured, one_sync_round
+
+
+def replay_catchup_partition(pub, calls, dev):
+    """The inputs ``(args, kwargs)`` of the largest partition launch of B's
+    catch-up, whose shapes the phase kept in ``calls``: the engine call of
+    that launch's bucket made again, untimed, on the same window's frames
+    (``pub``'s ring) of the leaves of its size. Fails unless the replay
+    launches with the same shapes and arguments."""
+    from repro_torch.core.engine import spkadd_batched_ragged
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.delta_sync import decode_frame, frame_to_coo
+
+    check(calls, "phase delta_sync: the catch-up made no partition launch")
+    shapes, fkw = max(calls, key=launch_slots)
+    size = fkw["m"] * fkw["n"]
+    frames = {}
+    for epoch in range(1, 5):
+        for buf in pub.frames_for(epoch):
+            f = decode_frame(buf)
+            if f.size == size:
+                frames.setdefault(f.shard, []).append(f)
+    got = []
+    part_fn = kops.partitioned_accumulate_flat
+
+    def part_keeping_inputs(*a, **kw):
+        if tuple(tuple(t.shape) for t in a) == shapes and kw == fkw:
+            got.append((a, kw))
+        return part_fn(*a, **kw)
+
+    kops.partitioned_accumulate_flat = part_keeping_inputs
+    try:
+        spkadd_batched_ragged([[frame_to_coo(f, dev) for f in fs]
+                               for fs in frames.values()])
+    finally:
+        kops.partitioned_accumulate_flat = part_fn
+    check(len(got) == 1, "phase delta_sync: the replay of the catch-up did "
+          "not repeat its largest partition launch")
+    return got[0]
+
+
+def launch_slots(call) -> int:
+    """Dense slots a partition launch ``(shapes, kwargs)`` writes."""
+    (key_shape, *_), fkw = call
+    rows = key_shape[0] if len(key_shape) == 2 else 1
+    return rows * fkw["parts"] * fkw["part_elems"]
+
+
+def partition_design(torch, partition, keys, steps, kw, dev) -> dict:
+    """The partition kernel's design numbers at one launch: its sub-tile
+    cut, blocks per SM and the bytes it moves (modelled)."""
+    sub_elems, subs = partition.sub_tile_geometry(kw["part_elems"])
+    B, cap_pad = keys.shape
+    max_steps = steps.chunk_id.shape[1]
+    blocks = B * kw["parts"] * subs
+    nvalid = int((keys < kw["mn"]).sum())
+    out_elems = B * kw["parts"] * kw["part_elems"]
+    # modelled: each round of a search reads one 32-byte sector per thread
+    # and bound (two bounds, over the step table and then the part's span)
+    rounds = (-(-int(np.log2(max(max_steps, 2))) // 8)
+              + -(-int(np.log2(max(cap_pad // kw["parts"], 2))) // 8))
+    return {
+        "sub_elems": sub_elems, "subs": subs, "blocks": blocks,
+        "blocks_per_sm": partition.blocks_per_sm(sub_elems, dev),
+        "design_bytes": 8 * nvalid + 4 * out_elems + 8 * B * max_steps,
+        "search_sector_bytes": blocks * 2 * 256 * 32 * rounds,
+    }
+
+
+def partition_catchup(torch, partition, call) -> dict:
+    """The partition kernel at the delta-sync catch-up's largest launch
+    (the embed/head ``vec`` bucket), against its plain version (bitwise)
+    and ``index_add_`` on the same inputs. ``call``: the ``(args,
+    kwargs)`` of that launch's ``ops.partitioned_accumulate_flat`` call
+    (:func:`replay_catchup_partition`)."""
+    args, fkw = call
+    keys, vals, cid, pid = args
+    if keys.dim() == 1:
+        keys, vals, cid, pid = keys[None], vals[None], cid[None], pid[None]
+    keys, vals = keys.to(torch.int32), vals.to(torch.float32)
+    kw = dict(mn=fkw["m"] * fkw["n"], part_elems=fkw["part_elems"],
+              parts=fkw["parts"], chunk=fkw["chunk"])
+    got = partition.partitioned_accumulate_raw(keys, vals, cid, pid, **kw)
+    want = partition.partitioned_accumulate_plain(keys, vals, cid, pid, **kw)
+    check(bitwise_equal(torch, got, want), "partition kernel differs from "
+          "its plain version at the catch-up's shape")
+    # index_add_ of the valid elements (the sentinel padding would all hit
+    # one slot) into a zero (B, slots) buffer made outside the timing
+    B, stride = keys.shape[0], got.shape[1]
+    valid = keys < kw["mn"]
+    acc = torch.zeros(B * stride, device=keys.device)
+    idx = (keys.long() + torch.arange(B, device=keys.device).unsqueeze(1)
+           * stride)[valid]
+    flat_vals = vals[valid]
+    nbytes = 4 * (keys.numel() + vals.numel() + cid.numel() + pid.numel()
+                  + got.numel())
+    ms_bound = bound(nbytes, int(valid.sum()))
+    return {"B": B, "cap_pad": keys.shape[1], "valid": int(valid.sum()),
+            **kw,
+            "sub_elems": partition.sub_tile_geometry(kw["part_elems"])[0],
+            "ms": cuda_ms(torch, lambda: partition.partitioned_accumulate_raw(
+                keys, vals, cid, pid, **kw), 20),
+            "index_add_ms": cuda_ms(torch, lambda: acc.index_add_(
+                0, idx, flat_vals), 20),
+            "bound_ms": ms_bound[0], "bytes": nbytes}
+
+
+def topk_design(torch, topk_block, x, k, block, leaves, dev, seed) -> dict:
+    """The block top-k kernel's design numbers: the radix passes each block
+    of ``x`` takes (``radix_passes``), and its time at each leaf shape
+    ``(elements, k, block)`` of a delta-sync publish, on values of the
+    delta-sync grid made from ``seed``, beside ``torch.topk`` (each checked
+    bitwise against the plain version)."""
+    passes = topk_block.radix_passes(x, k=k, block=block)
+    per_leaf = []
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for numel, lk, lblock in leaves:
+        lx = torch.randint(-256, 256, (numel,), generator=gen, device=dev,
+                           dtype=torch.int32).float() * GRID
+        gi, gv = topk_block.topk_block_raw(lx, k=lk, block=lblock)
+        pi, pv = topk_block.topk_block_plain(lx, k=lk, block=lblock)
+        check(bitwise_equal(torch, gi, pi) and bitwise_equal(torch, gv, pv),
+              f"topk_block differs from its plain version at a leaf of "
+              f"{lx.numel()}")
+        lb = bound(4 * lx.numel() + 8 * gi.numel(), lx.numel())
+        per_leaf.append({
+            "elements": lx.numel(), "blocks": lx.numel() // lblock,
+            "block": lblock, "k": lk, "bound_ms": lb[0],
+            "ms": cuda_ms(torch, lambda: topk_block.topk_block_raw(
+                lx, k=lk, block=lblock), 10),
+            "torch_topk_ms": cuda_ms(torch, lambda: torch.topk(
+                lx.view(-1, lblock).abs(), lk, dim=1), 10)})
+    return {"radix_passes": {int(p): int(c) for p, c in enumerate(
+                torch.bincount(passes.long()).tolist()) if c},
+            "smem_bytes": topk_block.smem_bytes(block, k),
+            "leaves": per_leaf, "leaves_ms": sum(r["ms"] for r in per_leaf),
+            "leaves_torch_topk_ms": sum(r["torch_topk_ms"]
+                                        for r in per_leaf)}
 
 
 def run(args, torch) -> int:
@@ -629,12 +833,15 @@ def run(args, torch) -> int:
             launches["spa_accum"] = launches.get("spa_accum", 0) \
                 + used["spa_accum"]
         del out
+        calls_ms = []
         family[alg] = {
-            "ms": host_ms(torch, lambda: A.spkadd(mats, algorithm=alg), 3),
-            "checked_call_ms": checked_ms,
+            "ms": host_ms(torch, lambda: A.spkadd(mats, algorithm=alg), 3,
+                          calls_ms),
+            "calls_ms": calls_ms, "checked_call_ms": checked_ms,
             "launches": used, "out_nnz": int(hk_np.size)}
-        log(f"phase family: {alg} {family[alg]['ms']:.2f} ms, "
-            f"launches {used}; equal to sorted"
+        log(f"phase family: {alg} {family[alg]['ms']:.2f} ms (calls "
+            f"{[round(t, 2) for t in calls_ms]}), launches {used}; equal to "
+            f"sorted"
             f"{' (tree: float64 only)' if alg == 'tree' else ''}")
     spa_budget = kops.spa_tile_budget(dev)
     spa_rows, spa_chunk = kops.vec_launch_geometry(
@@ -710,8 +917,9 @@ def run(args, torch) -> int:
 
     # ---- 6. delta_sync: SmolLM-135M's parameters, publisher -> replicas --
     del out_vec, out_sorted, out_hash, out_hash_sorted, out_h, out_hs
-    phases["delta_sync"], launches["topk_block"], embed_x, ds_round = \
+    phases["delta_sync"], launches["topk_block"], captured, ds_round = \
         run_delta_sync(torch, args.seed, dev, kernels)
+    embed_x = captured["embed_x"]
     phases["delta_sync"]["round_ms"] = host_ms(torch, ds_round, 3)
     phases["delta_sync"]["phase_s"] = took()
 
@@ -745,6 +953,17 @@ def run(args, torch) -> int:
     for name, prof in profiles.items():
         log(f"profile {name}: device {prof['device_ms']:.3f} ms of "
             f"{prof['wall_ms']:.3f} ms wall; top {prof['top'][:3]}")
+    # the two family members whose host time has jumped far above their
+    # device time in some runs, ten calls each (after the delta-sync
+    # phase, whose peak memory and profiler start-up it would change)
+    for alg in ("vec", "blocked_spa"):
+        probe = host_stall_probe(torch, lambda: A.spkadd(mats, algorithm=alg))
+        profiles[f"family_{alg}_calls"] = probe
+        runtime = {name: [n, round(total, 2), round(longest, 2)]
+                   for name, (n, total, longest) in probe["runtime"].items()}
+        log(f"profile family_{alg}_calls: host ms "
+            f"{[round(t, 2) for t in probe['calls_ms']]}, device "
+            f"{probe['device_ms']:.2f} ms a call, runtime {runtime}")
     phases["profiles_s"] = took()
 
     # ---- 7. kernels against their plain versions ------------------------
@@ -785,6 +1004,9 @@ def run(args, torch) -> int:
         "library_ms": cuda_ms(torch, lambda: lib_acc.index_add_(
             0, lib_idx, vals_p[0]), 20),
         "bytes": part_bytes, "geometry": geom1._asdict(),
+        **partition_design(torch, partition, keys_p, steps, pkw, dev),
+        "catchup": partition_catchup(torch, partition,
+                                     captured.pop("catchup_partition")),
     })
     del got, want, lib_acc
 
@@ -1070,7 +1292,10 @@ def run(args, torch) -> int:
             embed_blocks.abs(), per_e, dim=1), 20),
         "library": "torch.topk", "bytes": topk_bytes,
         "geometry": {"blocks": nb_e, "block": block_e, "per": per_e},
+        **topk_design(torch, topk_block, embed_x, per_e, block_e,
+                      captured["topk_leaves"], dev, args.seed),
     })
+    captured["topk_leaves"].clear()
     del got_i, got_v, want_i, want_v
 
     for r in report:

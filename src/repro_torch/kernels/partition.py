@@ -13,10 +13,13 @@ out as zeros. The output is the flat col-major dense accumulator,
 ``flat[b, key]`` = that key's values folded left to right in stream order
 from ``+0.0``.
 
-On the CUDA card one block owns each (batch, part) tile in shared memory and
-walks its own steps in order (the kernel's source note says why and what
-bounds it). On the CPU the wrapper takes :func:`partitioned_accumulate_plain`,
-which reads the same step tables and folds with ``vec_accum.fold_runs``.
+On the CUDA card each part is cut into sub-tiles of about
+:data:`SUB_TILE_TARGET` slots (:func:`sub_tile_geometry`), one block each:
+a block finds its own elements by searching the part's chunk span and
+folds each run into its sub-tile in shared memory (the kernel's source
+note says why and what bounds it). On the CPU the wrapper takes
+:func:`partitioned_accumulate_plain`, which reads the same step tables and
+folds with ``vec_accum.fold_runs``.
 """
 from __future__ import annotations
 
@@ -33,10 +36,45 @@ from repro_torch.kernels.vec_accum import fold_runs
 #: the port's geometry equals the reference's at equal budgets).
 LANE_MULT = 128
 
+#: Slots of one block's sub-tile the kernel aims at: a 24 KiB tile, so that
+#: eight blocks of 256 threads share an SM.
+SUB_TILE_TARGET = 6144
+
+#: Sub-tile sizes are multiples of this, so that every sub-tile of a part
+#: whose size is a multiple of 4 starts on a 16-byte boundary.
+SUB_TILE_MULT = 32
+
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, _P]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+
+
+def sub_tile_geometry(part_elems: int) -> tuple[int, int]:
+    """``(sub_elems, subs)``: the card's cut of a ``part_elems``-slot part
+    into ``subs`` sub-tiles of ``sub_elems`` slots (the last may be
+    shorter), as even as a multiple of :data:`SUB_TILE_MULT` allows, each
+    at most about :data:`SUB_TILE_TARGET` slots."""
+    if part_elems < 1:
+        raise ValueError(f"part_elems {part_elems} must be positive")
+    subs = -(-part_elems // SUB_TILE_TARGET)
+    sub_elems = -(-part_elems // subs)
+    sub_elems = -(-sub_elems // SUB_TILE_MULT) * SUB_TILE_MULT
+    return sub_elems, -(-part_elems // sub_elems)
+
+
+def blocks_per_sm(sub_elems: int, device=None) -> int:
+    """Blocks of the CUDA kernel one SM of ``device`` holds at once with a
+    ``sub_elems``-slot tile (the CUDA occupancy calculator)."""
+    dev = torch.device("cuda" if device is None else device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    out = ctypes.c_int(0)
+    fn = _build.entry("partition", "spk_partition_blocks_per_sm",
+                      [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)])
+    _build.check(fn(sub_elems, index, ctypes.byref(out)),
+                 "partition occupancy query")
+    return int(out.value)
 
 
 def _check_args(keys, vals, chunk_id, part_id, chunk):
@@ -84,7 +122,9 @@ def partitioned_accumulate_raw(keys: torch.Tensor, vals: torch.Tensor,
     ``keys``/``vals`` are ``(B, cap_pad)`` **sorted** streams (ascending,
     sentinel-padded to a chunk multiple); ``chunk_id``/``part_id`` are the
     ``(B, max_steps)`` step tables from ``sparse.partition_steps``. CPU
-    tensors take the plain version; CUDA tensors launch the kernel.
+    tensors take the plain version; CUDA tensors launch the kernel, one
+    block a sub-tile of :func:`sub_tile_geometry` (the cut changes no bit
+    of the result).
     """
     if keys.device.type == "cpu":
         return partitioned_accumulate_plain(
@@ -103,12 +143,18 @@ def partitioned_accumulate_raw(keys: torch.Tensor, vals: torch.Tensor,
     B, cap_pad = keys.shape
     if B > 65535:
         raise ValueError(f"batch {B} exceeds the grid's y limit 65535")
+    if max(cap_pad, chunk_id.shape[1]) > 2 ** 31 - 2 ** 10:
+        raise ValueError("the kernel indexes a row with int32: stream or "
+                         "step table too long")
+    # the geometry is sized to one block's shared memory
+    # (ops.device_smem_budget), though a block holds only a sub-tile
     limit = _build.max_dynamic_smem("partition", keys.device.index or 0)
     if part_elems * 4 > limit:
         raise ValueError(f"a {part_elems}-element f32 tile needs "
                          f"{part_elems * 4} B of shared memory, over the "
                          f"block limit {limit} B: size the geometry with "
                          f"ops.device_smem_budget()")
+    sub_elems, subs = sub_tile_geometry(part_elems)
     keys, vals = keys.contiguous(), vals.contiguous()
     chunk_id, part_id = chunk_id.contiguous(), part_id.contiguous()
     out = torch.empty((B, parts * part_elems), dtype=torch.float32,
@@ -117,7 +163,8 @@ def partitioned_accumulate_raw(keys: torch.Tensor, vals: torch.Tensor,
     _build.check(fn(keys.data_ptr(), vals.data_ptr(), chunk_id.data_ptr(),
                     part_id.data_ptr(), out.data_ptr(), B, cap_pad,
                     chunk_id.shape[1], mn, part_elems, parts, chunk,
-                    keys.device.index or 0, _build.stream_ptr(keys)),
+                    sub_elems, subs, keys.device.index or 0,
+                    _build.stream_ptr(keys)),
                  "partition launch")
     partitioned_accumulate_raw.launches += 1
     return out
@@ -140,9 +187,9 @@ def modeled_chunk_loads(keys, *, mn: int, part_elems: int, parts: int,
     (the Pallas pipelining rule). Returns ``onepass`` (the partitioned
     grid), ``legacy_all_pairs`` (``parts × num_chunks``), ``lower_bound``
     (each non-empty chunk once), ``num_chunks``, ``parts`` and ``steps``.
-    On the card each block reads the chunks of its own steps, so the CUDA
-    kernel's chunk reads are ``steps``: a chunk on a part boundary is read
-    by both parts' blocks.
+    On the card each block reads only its own elements (found by a search
+    of the part's chunk span), so no chunk is read twice but for the few
+    keys either side of a block's range.
     """
     from repro_torch.core.sparse import partition_steps
 

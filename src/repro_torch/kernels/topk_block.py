@@ -8,8 +8,11 @@ block of ``block`` elements of a flat array, the ``k`` entries of largest
 
 :func:`topk_block_raw` takes the plain version for a tensor on the CPU and
 the CUDA kernel for a tensor on the card, and has no other path. On the
-card the block is staged in one CTA's shared memory, so a ``block`` whose
-``4 * block`` bytes exceed the kernel's budget raises before any launch.
+card one CTA stages a block's order keys (:func:`order_key`) in shared
+memory, finds the k-th largest by a radix select of up to
+:data:`RADIX_PASSES` passes (:func:`radix_passes` counts them), picks the
+winners in index order and sorts them; a ``block`` and ``k`` whose
+:func:`smem_bytes` exceed the kernel's budget raise before any launch.
 """
 from __future__ import annotations
 
@@ -24,6 +27,11 @@ _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, _P]
 
+#: The kernel's radix digit width and passes.
+DIGIT_BITS = 8
+RADIX_PASSES = 32 // DIGIT_BITS
+_NAN_KEY = 0xFFFFFFFF
+
 
 def _check_args(x: torch.Tensor, k: int, block: int) -> int:
     if x.dim() != 1 or block < 1 or x.shape[0] % block != 0:
@@ -34,6 +42,43 @@ def _check_args(x: torch.Tensor, k: int, block: int) -> int:
     if x.shape[0] >= 2 ** 31:
         raise ValueError("global indices are int32: input too long")
     return x.shape[0] // block
+
+
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's order key of f32 ``x``, as int64: the bits of ``|x|``
+    as an unsigned integer, every NaN (any sign, any payload) mapped to
+    ``0xFFFFFFFF``. A larger key ranks first, ties to the lower index, so a
+    stable descending sort of the keys gives :func:`topk_block_plain`'s
+    order; ``-0.0`` and ``+0.0`` share key 0."""
+    bits = x.to(torch.float32).abs().view(torch.int32).to(torch.int64)
+    return torch.where(torch.isnan(x), torch.full_like(bits, _NAN_KEY),
+                       bits & 0xFFFFFFFF)
+
+
+def radix_passes(x: torch.Tensor, *, k: int, block: int) -> torch.Tensor:
+    """Radix passes the kernel's select takes for each block (int32
+    ``(nb,)``): it stops after the first pass ``d`` at which the elements
+    whose top ``d`` digits are at least the k-th largest key's are exactly
+    ``k``, else after :data:`RADIX_PASSES`. Zero where ``k == 0``."""
+    nb = _check_args(x, k, block)
+    out = torch.zeros(nb, dtype=torch.int32, device=x.device)
+    if k == 0 or nb == 0:
+        return out
+    keys = order_key(x).view(nb, block)
+    kth = torch.sort(keys, dim=1, descending=True).values[:, k - 1:k]
+    out.fill_(RADIX_PASSES)
+    for d in range(RADIX_PASSES - 1, 0, -1):
+        mask = ((1 << (DIGIT_BITS * d)) - 1) << (32 - DIGIT_BITS * d)
+        done = ((keys & mask) >= (kth & mask)).sum(dim=1) == k
+        out = torch.where(done, d, out)
+    return out
+
+
+def smem_bytes(block: int, k: int) -> int:
+    """Dynamic shared memory one CTA of the kernel stages: the block's
+    order keys and the winners' index buffer, padded to a power of two
+    (4 bytes each)."""
+    return 4 * (block + (1 << max(k - 1, 0).bit_length()))
 
 
 def topk_block_plain(x: torch.Tensor, *, k: int, block: int):
@@ -59,9 +104,11 @@ def topk_block_raw(x: torch.Tensor, *, k: int, block: int):
     if x.dtype != torch.float32:
         raise TypeError(f"topk_block kernel takes f32, got {x.dtype}")
     limit = _build.max_dynamic_smem("topk_block", x.device.index or 0)
-    if 4 * block > limit:
-        raise ValueError(f"topk_block: a block of {block} f32 ({4 * block} "
-                         f"B) exceeds the kernel's shared memory ({limit} B)")
+    need = smem_bytes(block, k)
+    if need > limit:
+        raise ValueError(f"topk_block: a block of {block} f32 at k={k} "
+                         f"({need} B of keys and indices) exceeds the "
+                         f"kernel's shared memory ({limit} B)")
     x = x.contiguous()
     idx = torch.empty(nb * k, dtype=torch.int32, device=x.device)
     val = torch.empty(nb * k, dtype=torch.float32, device=x.device)

@@ -94,6 +94,112 @@ def test_partition_kernel_all_sentinel(cuda):
     assert bits(got).tobytes() == np.zeros((1, 256), np.float32).tobytes()
 
 
+def unequal_rows(seed, rows, mn, cap, chunk, dup=1, neg_zero=False):
+    """``rows`` sorted, sentinel-padded streams of unequal lengths."""
+    rng = np.random.default_rng(seed)
+    cap_pad = -(-cap // chunk) * chunk
+    keys = np.full((rows, cap_pad), mn, np.int32)
+    vals = np.zeros((rows, cap_pad), np.float32)
+    for b in range(rows):
+        n = cap - 11 * b
+        k = rng.integers(0, max(mn // dup, 1), size=n) * dup
+        k[rng.random(n) < 0.1] = mn
+        v = rng.standard_normal(n).astype(np.float32)
+        if neg_zero:
+            v[rng.random(n) < 0.3] = -0.0
+        v[k >= mn] = 0.0
+        o = np.argsort(k, kind="stable")
+        keys[b, :n], vals[b, :n] = k[o], v[o]
+    return torch.as_tensor(keys), torch.as_tensor(vals)
+
+
+def partition_on_card(cuda, keys, vals, *, mn, part_elems, chunk):
+    parts = -(-mn // part_elems)
+    steps = S.partition_steps(keys, mn=mn, part_elems=part_elems,
+                              parts=parts, chunk=chunk)
+    kw = dict(mn=mn, part_elems=part_elems, parts=parts, chunk=chunk)
+    want = partition.partitioned_accumulate_plain(keys, vals, *steps, **kw)
+    before = partition.partitioned_accumulate_raw.launches
+    got = partition.partitioned_accumulate_raw(
+        keys.to(cuda), vals.to(cuda), steps.chunk_id.to(cuda),
+        steps.part_id.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert partition.partitioned_accumulate_raw.launches == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("mn,cap,part_elems,chunk,dup,target,neg_zero", [
+    (512, 300, 128, 32, 1, 32, False),    # sub-tile edges between runs
+    (512, 300, 256, 16, 8, 64, True),     # edges at part edges, -0.0 runs
+    (300, 64, 128, 8, 50, 32, False),     # runs of 50 over many chunks
+    (4096, 100, 256, 16, 1, 96, False),   # parts with some sub-tiles empty
+    (1000, 900, 384, 64, 3, 160, True),   # ragged last part and sub-tile
+    (8192, 6000, 2048, 256, 2, 1, False),  # the smallest sub-tiles, 32
+    (8192, 6000, 2048, 256, 1, None, True),  # the default cut
+])
+def test_partition_sub_tiles_bitwise_vs_plain(cuda, monkeypatch, mn, cap,
+                                              part_elems, chunk, dup, target,
+                                              neg_zero):
+    if target is not None:
+        monkeypatch.setattr(partition, "SUB_TILE_TARGET", target)
+    keys, vals = unequal_rows(mn + cap, 3, mn, cap, chunk, dup, neg_zero)
+    got, want = partition_on_card(cuda, keys, vals, mn=mn,
+                                  part_elems=part_elems, chunk=chunk)
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("target", [32, 64])
+def test_partition_signed_zero_runs(cuda, monkeypatch, target):
+    """A run whose first value is -0.0 and a run summing to -0.0 both fold
+    from +0.0 to +0.0; a lone -0.0 too."""
+    monkeypatch.setattr(partition, "SUB_TILE_TARGET", target)
+    keys = torch.tensor([[3, 3, 5, 9, 9, 9, 40, 41, 41, 128, 128, 128]],
+                        dtype=torch.int32)
+    vals = torch.tensor([[-0.0, 1.5, -0.0, -0.0, -0.0, -0.0, 2.0, -0.0, -2.5,
+                          0, 0, 0]])
+    got, want = partition_on_card(cuda, keys, vals, mn=128, part_elems=64,
+                                  chunk=4)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert bits(got)[0, [5, 9]].tolist() == [0, 0]
+
+
+def test_partition_all_sentinel_rows(cuda, monkeypatch):
+    monkeypatch.setattr(partition, "SUB_TILE_TARGET", 64)
+    keys, vals = unequal_rows(3, 3, 1024, 200, 32)
+    keys[1] = 1024
+    vals[1] = 0.0
+    got, want = partition_on_card(cuda, keys, vals, mn=1024, part_elems=256,
+                                  chunk=32)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert not bits(got)[1].any()
+
+
+def test_partition_vec_geometry_at_reduced_m(cuda):
+    """The vec phase's launch (part_elems at the card's budget, the default
+    sub-tiles) on a collection cut from 65,536 to 4,096 rows."""
+    k, m, n, d = 16, 4096, 512, 64
+    mats = _collection(5, k, m, n, n * d, "cpu")
+    cat = S.concat(mats)
+    geom = kops.partitioned_launch_geometry(
+        cat.cap, m=m, n=n, smem_budget_bytes=kops.device_smem_budget(cuda))
+    assert geom.part_elems == 54016
+    plan, keys_p, steps = S.plan_and_partition(
+        cat.keys[None], cat.shape, part_elems=geom.part_elems,
+        chunk=geom.chunk)
+    vals_p = torch.zeros(keys_p.shape)
+    vals_p[:, :cat.cap] = torch.gather(cat.vals[None], -1, plan.order)
+    kw = dict(mn=m * n, part_elems=geom.part_elems, parts=geom.parts,
+              chunk=geom.chunk)
+    want = partition.partitioned_accumulate_plain(keys_p, vals_p, *steps,
+                                                  **kw)
+    got = partition.partitioned_accumulate_raw(
+        keys_p.to(cuda), vals_p.to(cuda), steps.chunk_id.to(cuda),
+        steps.part_id.to(cuda), **kw)
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert partition.blocks_per_sm(partition.sub_tile_geometry(
+        geom.part_elems)[0], cuda) >= 3
+
+
 @pytest.mark.parametrize("parts,chunk", [(1, 64), (2, 64), (4, 32)])
 def test_hash_slide_kernel_bitwise_vs_plain(cuda, parts, chunk):
     mn, cap = 256, 128
@@ -580,6 +686,40 @@ def test_topk_block_kernel_bitwise_vs_plain(cuda, block, per, kind):
     gi, gv = topk_block.topk_block_raw(x.to(cuda), k=per, block=block)
     torch.cuda.synchronize()
     assert topk_block.topk_block_raw.launches == before + 1
+    np.testing.assert_array_equal(bits(gi), bits(wi))
+    np.testing.assert_array_equal(bits(gv), bits(wv))
+
+
+_NAN_BITS = [0x7fc00000, 0x7fc00001, 0xffc00000, 0x7f800001]
+
+
+def _topk_edge_input(seed, n, kind):
+    rng = np.random.default_rng(seed)
+    if kind == "denormal":
+        x = (rng.integers(-4, 5, n) * np.float32(1e-45)).astype(np.float32)
+    elif kind == "signed_zeros":  # +-0 ties beside a few nonzeros
+        x = np.where(rng.random(n) < 0.5, 0.0, -0.0).astype(np.float32)
+        x[rng.choice(n, 3, replace=False)] = [1.0, -1.0, 2.0 ** -149]
+    elif kind == "special":  # NaN payloads and signs, +-inf beside them
+        x = (rng.integers(-4, 4, n) * 0.25).astype(np.float32)
+        where = rng.choice(n, 16, replace=False)
+        x.view(np.uint32)[where[:8]] = np.array(_NAN_BITS * 2, np.uint32)
+        x[where[8:12]] = [np.inf, -np.inf, np.inf, -np.inf]
+    else:
+        return _topk_input(seed, n, kind)
+    return torch.as_tensor(x)
+
+
+@pytest.mark.parametrize("block", [128, 1000, 4096])
+@pytest.mark.parametrize("per", [1, 40, -1, 0])
+@pytest.mark.parametrize("kind", ["grid", "equal", "special", "denormal",
+                                  "signed_zeros"])
+def test_topk_block_radix_select_bitwise_vs_plain(cuda, block, per, kind):
+    per = {-1: block - 1, 0: block}.get(per, per)
+    x = _topk_edge_input(block * 7 + per, 3 * block, kind)
+    wi, wv = topk_block.topk_block_plain(x, k=per, block=block)
+    gi, gv = topk_block.topk_block_raw(x.to(cuda), k=per, block=block)
+    torch.cuda.synchronize()
     np.testing.assert_array_equal(bits(gi), bits(wi))
     np.testing.assert_array_equal(bits(gv), bits(wv))
 
