@@ -35,7 +35,8 @@ result, when no CUDA card is present or the package is missing.
 5. ``hash_alg``: the faithful hash algorithm, ``spkadd(mats, "hash")``, on
    k = 64 ER matrices of 65,536 × 32 with 512 nonzeros per column
    (1,048,576 nonzeros, a 2^22-slot table): bitwise equal to ``sorted``
-   (keys, values and nnz, nothing dropped); ``ops.hash_symbolic`` must
+   (keys, values and nnz, nothing dropped); the accumulate must take its
+   parallel route (no one-thread launch); ``ops.hash_symbolic`` must
    equal ``symbolic_nnz`` and take the parallel route (a grid over the
    stream, the table in device memory); both hash kernels must launch.
 6. ``delta_sync``: SmolLM-135M's parameter tree (:data:`SMOLLM_135M_SHAPES`,
@@ -46,11 +47,19 @@ result, when no CUDA card is present or the package is missing.
    equal the publisher's shadow bitwise, the block top-k kernel and the
    engine's kernels launch, and epoch 1's frames equal those of the
    selection's plain version, byte for byte (:func:`run_delta_sync`).
+   After the phase, each sliding-hash bucket of B's catch-up is replayed:
+   its engine call (``hash``) and the ``vec`` regime on the same
+   collections, timed, both bitwise equal to ``sorted``.
 7. One profiled call of each phase (device time by kernel, busy share),
    ten profiled calls each of the family's ``vec`` and ``blocked_spa``
    (each call's host time and the CUDA runtime calls that took the most
    host time: where a slow call waits), then each of the seven kernels against its plain PyTorch version on the
-   card, on the inputs its path gives it: bitwise (tolerance 0). The SPA
+   card, on the inputs its path gives it: bitwise (tolerance 0); the two
+   hash kernels twice, with the same bits. The sliding-hash row adds its
+   time at the catch-up's largest launch (inputs rebuilt by a replay), with
+   a seeded sample of its parts checked against the plain version, and the
+   hash rows their routes and one-thread launches (``null`` for the
+   sliding-hash kernel, which has no one-thread route). The SPA
    row adds each stage's time, the bytes its design moves and its time at
    other tile sizes; the symbolic row its route and the one-thread route's
    time on a table of ``cap`` slots. The partition row adds its sub-tile,
@@ -335,10 +344,11 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
     the selection's plain version on the card. Returns the phase's
     numbers, the top-k launches, what the kernel line times the kernels at
     (``captured``: the embed leaf's epoch-1 update, the shape of each block
-    top-k call of an epoch-1 publish, and the inputs of the largest
-    partition launch of B's catch-up, rebuilt after the phase by
-    :func:`replay_catchup_partition`), and one round (publish + A's sync)
-    to profile."""
+    top-k call of an epoch-1 publish, the inputs of the largest partition
+    launch of B's catch-up, rebuilt after the phase by
+    :func:`replay_catchup_launch`, and its sliding-hash buckets from
+    :func:`catchup_hash_buckets`), and one round (publish + A's sync) to
+    profile."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import tree as T
@@ -375,7 +385,7 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
     publish_ms, sync_a_ms, wire_bytes = [], [], []
     topk_launches = 0
     captured = {"topk_leaves": []}
-    catchup_part_calls = []
+    catchup_part_calls, catchup_hash_calls = [], []
     for epoch in range(1, epochs + 1):
         update = grid(-256, 256)
         params = tree_add(params, update)
@@ -424,16 +434,24 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
             torch.cuda.synchronize()
             for fn in kernels.values():
                 fn.launches = 0
-            # only the partition launches' shapes are kept: their inputs
-            # are rebuilt after the phase (replay_catchup_partition)
+            # only the partition and sliding-hash launches' shapes are
+            # kept: their inputs are rebuilt after the phase
+            # (replay_catchup_launch)
             part_fn = kops.partitioned_accumulate_flat
+            hash_fn = kops.hash_slide_tables
 
             def part_keeping_shapes(*a, **kw):
                 catchup_part_calls.append(
                     (tuple(tuple(t.shape) for t in a), kw))
                 return part_fn(*a, **kw)
 
+            def hash_keeping_shapes(*a, **kw):
+                catchup_hash_calls.append(
+                    (tuple(tuple(t.shape) for t in a), kw))
+                return hash_fn(*a, **kw)
+
             kops.partitioned_accumulate_flat = part_keeping_shapes
+            kops.hash_slide_tables = hash_keeping_shapes
             try:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
@@ -443,6 +461,7 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
                     catchup_ms = (time.perf_counter() - t0) * 1e3
             finally:
                 kops.partitioned_accumulate_flat = part_fn
+                kops.hash_slide_tables = hash_fn
             catchup_profile = device_times(torch, prof, catchup_ms)
             catchup_launches = {name: kernels[name].launches
                                 for name in engine_kernels}
@@ -482,8 +501,13 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
         f"peak {phase['peak_mem_bytes'] / 2**30:.2f} GiB; replicas A and B "
         f"== shadow bitwise")
     pool.shutdown()
-    captured["catchup_partition"] = replay_catchup_partition(
-        pub, catchup_part_calls, dev)
+    check(catchup_part_calls, "phase delta_sync: the catch-up made no "
+          "partition launch")
+    captured["catchup_partition"] = replay_catchup_launch(
+        pub, max(catchup_part_calls, key=launch_slots), dev,
+        kops, "partitioned_accumulate_flat")
+    captured["catchup_hash"] = catchup_hash_buckets(
+        torch, pub, catchup_hash_calls, dev)
 
     def one_sync_round():
         # params unchanged: each round ships the residual's heaviest entries
@@ -493,42 +517,87 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
     return phase, topk_launches, captured, one_sync_round
 
 
-def replay_catchup_partition(pub, calls, dev):
-    """The inputs ``(args, kwargs)`` of the largest partition launch of B's
-    catch-up, whose shapes the phase kept in ``calls``: the engine call of
-    that launch's bucket made again, untimed, on the same window's frames
-    (``pub``'s ring) of the leaves of its size. Fails unless the replay
-    launches with the same shapes and arguments."""
-    from repro_torch.core.engine import spkadd_batched_ragged
-    from repro_torch.kernels import ops as kops
-    from repro_torch.runtime.delta_sync import decode_frame, frame_to_coo
+def catchup_frames(pub, size: int) -> list:
+    """The frames of B's window-4 catch-up (epochs 1-4, ``pub``'s ring) of
+    the leaves of ``size`` parameters, one collection per leaf."""
+    from repro_torch.runtime.delta_sync import decode_frame
 
-    check(calls, "phase delta_sync: the catch-up made no partition launch")
-    shapes, fkw = max(calls, key=launch_slots)
-    size = fkw["m"] * fkw["n"]
     frames = {}
     for epoch in range(1, 5):
         for buf in pub.frames_for(epoch):
             f = decode_frame(buf)
             if f.size == size:
                 frames.setdefault(f.shard, []).append(f)
-    got = []
-    part_fn = kops.partitioned_accumulate_flat
+    return list(frames.values())
 
-    def part_keeping_inputs(*a, **kw):
+
+def replay_catchup_launch(pub, call, dev, module, name: str):
+    """The inputs ``(args, kwargs)`` of one launch of B's catch-up whose
+    shapes the phase kept (``call``: ``module.name``'s argument shapes and
+    keyword arguments): the engine call of that launch's bucket made again,
+    untimed, on the same window's frames of the leaves of its size. Fails
+    unless the replay launches with the same shapes and arguments."""
+    from repro_torch.core.engine import spkadd_batched_ragged
+    from repro_torch.runtime.delta_sync import frame_to_coo
+
+    shapes, fkw = call
+    colls = [[frame_to_coo(f, dev) for f in fs]
+             for fs in catchup_frames(pub, fkw["m"] * fkw["n"])]
+    got = []
+    fn = getattr(module, name)
+
+    def keeping_inputs(*a, **kw):
         if tuple(tuple(t.shape) for t in a) == shapes and kw == fkw:
             got.append((a, kw))
-        return part_fn(*a, **kw)
+        return fn(*a, **kw)
 
-    kops.partitioned_accumulate_flat = part_keeping_inputs
+    setattr(module, name, keeping_inputs)
     try:
-        spkadd_batched_ragged([[frame_to_coo(f, dev) for f in fs]
-                               for fs in frames.values()])
+        spkadd_batched_ragged(colls)
     finally:
-        kops.partitioned_accumulate_flat = part_fn
-    check(len(got) == 1, "phase delta_sync: the replay of the catch-up did "
-          "not repeat its largest partition launch")
+        setattr(module, name, fn)
+    check(len(got) == 1, f"phase delta_sync: the replay of the catch-up did "
+          f"not repeat its {name} launch")
     return got[0]
+
+
+def catchup_hash_buckets(torch, pub, calls, dev) -> dict:
+    """B's catch-up's sliding-hash buckets, after the phase: each bucket's
+    engine call again (the ``hash`` regime its dispatch picks) beside the
+    ``vec`` regime on the same collections (a measurement only: dispatch
+    stays the reference's cost model), host ms of each, both checked
+    bitwise against the ``sorted`` path; and the largest launch's
+    ``ops.hash_slide_tables`` inputs, from its replay
+    (:func:`replay_catchup_launch`; the kernel line times and checks it)."""
+    from repro_torch.core.engine import spkadd_batched_ragged
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.delta_sync import frame_to_coo
+
+    check(calls, "phase delta_sync: the catch-up made no sliding-hash "
+          "launch")
+    buckets = []
+    for shapes, fkw in calls:
+        size = fkw["m"] * fkw["n"]
+        colls = [[frame_to_coo(f, dev) for f in fs]
+                 for fs in catchup_frames(pub, size)]
+        want = spkadd_batched_ragged(colls, algorithm="sorted")
+        row = {"leaf_size": size, "collections": len(colls),
+               "B": shapes[0][0], "cap": shapes[0][1],
+               "parts": fkw["parts"], "table_size": fkw["table_size"]}
+        for alg in ("auto", "vec"):
+            out = spkadd_batched_ragged(colls, algorithm=alg)
+            check(all(same_coo(torch, a, b) for a, b in zip(out, want)),
+                  f"phase delta_sync: the catch-up's {size}-slot bucket "
+                  f"through {alg} differs from sorted")
+            del out
+            row[f"{alg}_ms"] = host_ms(
+                torch, lambda: spkadd_batched_ragged(colls, algorithm=alg), 3)
+        buckets.append(row)
+        del want, colls
+    largest = max(calls, key=lambda c: c[0][0][0] * c[1]["parts"]
+                  * c[1]["table_size"])
+    return {"buckets": buckets, "largest": replay_catchup_launch(
+        pub, largest, dev, kops, "hash_slide_tables")}
 
 
 def launch_slots(call) -> int:
@@ -564,7 +633,7 @@ def partition_catchup(torch, partition, call) -> dict:
     (the embed/head ``vec`` bucket), against its plain version (bitwise)
     and ``index_add_`` on the same inputs. ``call``: the ``(args,
     kwargs)`` of that launch's ``ops.partitioned_accumulate_flat`` call
-    (:func:`replay_catchup_partition`)."""
+    (:func:`replay_catchup_launch`)."""
     args, fkw = call
     keys, vals, cid, pid = args
     if keys.dim() == 1:
@@ -595,6 +664,62 @@ def partition_catchup(torch, partition, call) -> dict:
             "index_add_ms": cuda_ms(torch, lambda: acc.index_add_(
                 0, idx, flat_vals), 20),
             "bound_ms": ms_bound[0], "bytes": nbytes}
+
+
+def slide_catchup(torch, hash_slide, caught, seed, sample: int = 8) -> dict:
+    """The sliding-hash kernel at the delta-sync catch-up's largest launch
+    (``caught["largest"]``: the ``(args, kwargs)`` of its
+    ``ops.hash_slide_tables`` call, rebuilt after the phase by
+    :func:`catchup_hash_buckets`, padded here as that call pads them): two
+    launches with the same
+    bits; ``sample`` parts drawn from ``seed`` checked bitwise against the
+    plain version (each part's in-range elements, in stream order, as a
+    one-part stream: the same hash, probes and fold); its time, blocks and
+    bytes; and each hash bucket's engine call beside ``vec``."""
+    from repro_torch.kernels import ops as kops
+
+    (keys, vals), fkw = caught["largest"]
+    kw = dict(mn=fkw["m"] * fkw["n"], table_size=fkw["table_size"],
+              part_span=fkw["part_span"], parts=fkw["parts"],
+              chunk=fkw["chunk"])
+    keys, vals = kops.pad_stream(keys, vals, kw["mn"], kw["chunk"])
+    B, cap = keys.shape
+    runs = [hash_slide.hash_slide_raw(keys, vals, **kw) for _ in range(2)]
+    check(all(bitwise_equal(torch, a, b) for a, b in zip(runs[0], runs[1])),
+          "hash_slide: two launches at the catch-up's shape differ")
+    tk, tv = runs[0]
+    T, span, parts = kw["table_size"], kw["part_span"], kw["parts"]
+    rng = np.random.default_rng(seed)
+    picks = sorted({(int(rng.integers(B)), int(rng.integers(parts)))
+                    for _ in range(sample)})
+    k_cpu, v_cpu = keys.cpu(), vals.cpu()
+    for b, p in picks:
+        sel = ((k_cpu[b] >= p * span) & (k_cpu[b] < (p + 1) * span)
+               & (k_cpu[b] < kw["mn"]))
+        n = int(sel.sum())
+        pad = -(-max(n, 1) // kw["chunk"]) * kw["chunk"]
+        pk = torch.full((1, pad), kw["mn"], dtype=torch.int32)
+        pv = torch.zeros((1, pad), dtype=torch.float32)
+        pk[0, :n], pv[0, :n] = k_cpu[b][sel], v_cpu[b][sel]
+        wk, wv = hash_slide.hash_slide_plain(
+            pk, pv, mn=kw["mn"], table_size=T, part_span=kw["mn"], parts=1,
+            chunk=kw["chunk"])
+        lo = p * T
+        check(bitwise_equal(torch, tk[b, lo:lo + T].cpu(), wk[0])
+              and bitwise_equal(torch, tv[b, lo:lo + T].cpu(), wv[0]),
+              f"hash_slide: part {p} of row {b} at the catch-up's shape "
+              f"differs from its plain version")
+    del runs, tk, tv
+    nbytes = 8 * B * cap + 8 * B * parts * T
+    valid = int((keys < kw["mn"]).sum())
+    return {"B": B, "cap": cap, "valid": valid, "parts": parts,
+            "table_size": T, "blocks": B * parts, "sampled_parts": picks,
+            "ms": cuda_ms(torch, lambda: hash_slide.hash_slide_raw(
+                keys, vals, **kw), 5),
+            "bound_ms": bound(nbytes, valid)[0], "bytes": nbytes,
+            "moved_bytes": hash_slide.moved_bytes(B, cap, table_size=T,
+                                                  parts=parts),
+            "buckets": caught["buckets"]}
 
 
 def topk_design(torch, topk_block, x, k, block, leaves, dev, seed) -> dict:
@@ -667,6 +792,7 @@ def run(args, torch) -> int:
         for fn in kernels.values():
             fn.launches = 0
         hash_accum.hash_symbolic_raw.serial_launches = 0
+        hash_accum.hash_accumulate_raw.serial_launches = 0
 
     rng = np.random.default_rng(args.seed)
     phases = {}
@@ -870,8 +996,11 @@ def run(args, torch) -> int:
     out_h = A.spkadd(mats3, algorithm="hash")
     torch.cuda.synchronize()
     launches["hash_accum"] = kernels["hash_accum"].launches
+    acc_serial = hash_accum.hash_accumulate_raw.serial_launches
     check(launches["hash_accum"] > 0, "phase hash_alg: hash kernel not "
           "launched")
+    check(acc_serial == 0, f"phase hash_alg: the accumulate took the "
+          f"one-thread route {acc_serial} times")
     reset_counts()
     sym = kops.hash_symbolic(cat3.keys, sent=sent3)
     torch.cuda.synchronize()
@@ -907,6 +1036,10 @@ def run(args, torch) -> int:
     phases["hash_alg"] = {
         "k": k3, "m": m3, "n": n3, "total_nnz": k3 * nnz3, "out_nnz": nh,
         "table_size": table3, "symbolic_route": sym_route,
+        "accumulate_route": hash_accum.accumulate_route(cat3.cap, table3),
+        "accumulate_serial_launches": acc_serial,
+        "symbolic_serial_launches":
+        hash_accum.hash_symbolic_raw.serial_launches,
         "ms": host_ms(torch, lambda: A.spkadd(mats3, algorithm="hash"), 3),
         "symbolic_ms": host_ms(torch, lambda: kops.hash_symbolic(
             cat3.keys, sent=sent3), 3)}
@@ -1010,19 +1143,24 @@ def run(args, torch) -> int:
     })
     del got, want, lib_acc
 
-    # hash_slide, at phase 2's padded streams
+    # hash_slide, at phase 2's padded streams (one part: no bucketing)
     cat2 = S.concat(stacked)
     hkw = dict(mn=m2 * n2, table_size=geom2.table_size,
                part_span=geom2.part_span, parts=geom2.parts,
                chunk=geom2.chunk)
     check(cat2.cap % geom2.chunk == 0, "phase hash stream is not chunk-aligned")
-    tk, tv = hash_slide.hash_slide_raw(cat2.keys, cat2.vals, **hkw)
+    runs = [hash_slide.hash_slide_raw(cat2.keys, cat2.vals, **hkw)
+            for _ in range(2)]
     t_plain = time.perf_counter()
     pk, pv = hash_slide.hash_slide_plain(cat2.keys, cat2.vals, **hkw)
     torch.cuda.synchronize()
     hash_plain_ms = (time.perf_counter() - t_plain) * 1e3
-    check(bitwise_equal(torch, tk, pk) and bitwise_equal(torch, tv, pv),
+    # two launches, the same bits: no atomic decides a value or a slot
+    check(all(bitwise_equal(torch, tk, pk) and bitwise_equal(torch, tv, pv)
+              for tk, tv in runs),
           "hash_slide kernel tables differ from its plain version")
+    tk, tv = runs[0]
+    del runs
     hash_bytes = 4 * (cat2.keys.numel() + cat2.vals.numel() + tk.numel()
                       + tv.numel())
     hash_bound = bound(hash_bytes, int((cat2.keys < m2 * n2).sum()))
@@ -1038,8 +1176,20 @@ def run(args, torch) -> int:
         "bound_ms": hash_bound[0],
         "bound_by": hash_bound[1],
         "library_ms": None,
+        # the kernel has one route (bucketing when parts > 1) and no
+        # one-thread loop, so nothing to count
+        "kernel_route": "bucketed" if geom2.parts > 1 else "one part",
+        "serial_launches": None,
         "bytes": hash_bytes, "geometry": geom2._asdict(),
+        "blocks": cat2.keys.shape[0] * geom2.parts,
+        "smem_bytes": hash_slide.smem_bytes(geom2.table_size),
+        "moved_bytes": hash_slide.moved_bytes(
+            cat2.keys.shape[0], cat2.cap, table_size=geom2.table_size,
+            parts=geom2.parts),
+        "catchup": slide_catchup(torch, hash_slide,
+                                 captured.pop("catchup_hash"), args.seed),
     })
+    del tk, tv, pk, pv
 
     # segment_fold, on phase 1's plan-sorted stream
     v_s = torch.gather(cat1.vals, -1, plan.order[0])
@@ -1172,15 +1322,19 @@ def run(args, torch) -> int:
     for cap in (4096, 16384, cat3.cap):
         hk_, hv_ = cat3.keys[:cap], cat3.vals[:cap]
         hk_cpu, hv_cpu = hk_.cpu(), hv_.cpu()
-        tk_, tv_ = hash_accum.hash_accumulate_raw(hk_, hv_, sent=sent3)
+        runs = [hash_accum.hash_accumulate_raw(hk_, hv_, sent=sent3)
+                for _ in range(2)]
         t_plain = time.perf_counter()
         pk_, pv_ = hash_accum.hash_accumulate_plain(hk_cpu, hv_cpu,
                                                     sent=sent3)
         acc_plain_ms = (time.perf_counter() - t_plain) * 1e3
-        check(bitwise_equal(torch, tk_.cpu(), pk_)
-              and bitwise_equal(torch, tv_.cpu(), pv_),
+        # two launches, the same bits: no atomic decides a value or a slot
+        check(all(bitwise_equal(torch, a.cpu(), pk_)
+                  and bitwise_equal(torch, b.cpu(), pv_) for a, b in runs),
               f"hash_accum kernel table differs from its plain version at "
               f"cap {cap}")
+        tk_, tv_ = runs[0]
+        del runs
         nz_ = hash_accum.hash_symbolic_raw(hk_, sent=sent3)
         t_plain = time.perf_counter()
         pnz_ = hash_accum.hash_symbolic_plain(hk_cpu, sent=sent3)
@@ -1192,12 +1346,11 @@ def run(args, torch) -> int:
             "table_size": size_,
             "sym_route": hash_accum.symbolic_route(cap, size_, device=dev),
             "sym_err": float(abs(int(nz_) - int(pnz_))),
-            "acc_in_smem": hash_accum.table_in_smem(size_, symbolic=False,
-                                                    device=dev),
+            "acc_route": hash_accum.accumulate_route(cap, size_),
             "sym_in_smem": hash_accum.table_in_smem(size_, symbolic=True,
                                                     device=dev),
             "acc_ms": cuda_ms(torch, lambda: hash_accum.hash_accumulate_raw(
-                hk_, hv_, sent=sent3), 3),
+                hk_, hv_, sent=sent3), 10),
             "sym_ms": cuda_ms(torch, lambda: hash_accum.hash_symbolic_raw(
                 hk_, sent=sent3), 10),
             "acc_plain_ms": acc_plain_ms, "sym_plain_ms": sym_plain_ms,
@@ -1233,6 +1386,25 @@ def run(args, torch) -> int:
           f"{under_nz}, the parallel route {int(sym)}")
     under_ms = cuda_ms(torch, lambda: hash_accum.hash_symbolic_raw(
         cat3.keys, sent=sent3, table_size=under), 1)
+    # the accumulate's one-thread route, kept for tables that can fill: on
+    # the first 16,384 elements with a table of as many slots, against the
+    # plain version
+    under_cap = 16384
+    uk, uv = cat3.keys[:under_cap], cat3.vals[:under_cap]
+    check(hash_accum.accumulate_route(under_cap, under_cap) == "serial",
+          "hash_accum: a table of cap slots should take the one-thread route")
+    serial0 = hash_accum.hash_accumulate_raw.serial_launches
+    gk_, gv_ = hash_accum.hash_accumulate_raw(uk, uv, sent=sent3,
+                                              table_size=under_cap)
+    wk_, wv_ = hash_accum.hash_accumulate_plain(uk.cpu(), uv.cpu(),
+                                                sent=sent3,
+                                                table_size=under_cap)
+    check(bitwise_equal(torch, gk_.cpu(), wk_)
+          and bitwise_equal(torch, gv_.cpu(), wv_)
+          and hash_accum.hash_accumulate_raw.serial_launches == serial0 + 1,
+          "hash_accum: the one-thread route differs from its plain version")
+    acc_under_ms = cuda_ms(torch, lambda: hash_accum.hash_accumulate_raw(
+        uk, uv, sent=sent3, table_size=under_cap), 3)
     small = {c: hash_cases[c] for c in (4096, 16384)}
     report.append({
         "name": "hash_accum", "route": "cuda",
@@ -1243,8 +1415,15 @@ def run(args, torch) -> int:
         "ms": full["acc_ms"], "plain_ms": full["acc_plain_ms"],
         "bound_ms": acc_bound[0], "bound_by": acc_bound[1],
         "library_ms": None, "bytes": acc_bytes,
-        "table_size": full["table_size"], "in_smem": full["acc_in_smem"],
+        "table_size": full["table_size"],
+        "kernel_route": full["acc_route"],
+        "serial_launches": phases["hash_alg"]["accumulate_serial_launches"],
+        "scratch_bytes": hash_accum.parallel_scratch_bytes(
+            cat3.cap, full["table_size"]),
+        "fold_range": hash_accum.fold_range(full["table_size"]),
         "smaller_caps": small,
+        "undersized": {"kernel_route": "serial", "cap": under_cap,
+                       "table_size": under_cap, "ms": acc_under_ms},
     })
     report.append({
         "name": "hash_symbolic", "route": "cuda",
@@ -1255,12 +1434,13 @@ def run(args, torch) -> int:
         "ms": full["sym_ms"], "plain_ms": full["sym_plain_ms"],
         "bound_ms": sym_bound[0], "bound_by": sym_bound[1],
         "library_ms": sym_library_ms, "library": "torch.unique",
-        "bytes": sym_bytes, "route": full["sym_route"],
+        "bytes": sym_bytes, "kernel_route": full["sym_route"],
+        "serial_launches": phases["hash_alg"]["symbolic_serial_launches"],
         "table_size": full["table_size"], "in_smem": full["sym_in_smem"],
         "smaller_caps": {c: {k: hash_cases[c][k] for k in (
             "table_size", "sym_route", "sym_ms", "sym_plain_ms")}
             for c in (4096, 16384)},
-        "undersized": {"route": "serial", "table_size": under,
+        "undersized": {"kernel_route": "serial", "table_size": under,
                        "ms": under_ms},
     })
 

@@ -25,6 +25,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import xla_float
 from repro_torch.kernels.segment import segment_fold
 from repro_torch.obs import metrics as _metrics
 
@@ -191,7 +192,7 @@ def from_dense(dense: torch.Tensor, cap: int) -> PaddedCOO:
     k = min(cap, m * n)
     idx = top_k_abs(flat, k)
     v = flat[idx]
-    valid = v != 0.0
+    valid = xla_float.flush(v) != 0.0  # XLA's compare: a subnormal is 0
     keys = torch.where(valid, idx.to(torch.int32), sentinel_key((m, n)))
     vals = torch.where(valid, v, 0.0)
     nnz = valid.sum(dtype=torch.int32)

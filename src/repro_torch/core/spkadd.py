@@ -30,6 +30,7 @@ from repro_torch.core.sparse import (PaddedCOO, compress, concat,
                                      sentinel_key, sort_by_key,
                                      stable_argsort, stable_sort, top_k_abs,
                                      with_capacity)
+from repro_torch.kernels import xla_float
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +114,7 @@ def _resparsify_flat(flat: torch.Tensor, shape, out_cap: int) -> PaddedCOO:
     dense-accumulator algorithm."""
     idx = top_k_abs(flat, out_cap)
     vals = flat[idx]
-    valid = vals != 0.0
+    valid = xla_float.flush(vals) != 0.0  # XLA's compare: a subnormal is 0
     keys = torch.where(valid, idx.to(torch.int32), sentinel_key(shape))
     order = stable_argsort(keys)
     return PaddedCOO(keys=keys[order],

@@ -24,16 +24,28 @@ from repro_torch.core.sparse import PaddedCOO, resolve_device
 NumpyCOO = Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]
 
 
+def array_to_tensor(a, device) -> torch.Tensor:
+    """Anything ``np.asarray`` takes -> a tensor on ``device``, dtype kept.
+    bf16 (``ml_dtypes.bfloat16``, which JAX's bf16 arrays give and
+    ``torch.as_tensor`` refuses) goes through its uint16 bits, so every bit,
+    NaN payloads included, is kept; ``ml_dtypes`` itself is not imported."""
+    arr = np.array(a)
+    if arr.dtype.name == "bfloat16" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
+
+
 def padded_coo_from_numpy(keys, vals, nnz, shape: Tuple[int, int],
                           device=None) -> PaddedCOO:
     """Leaves -> port PaddedCOO on ``device`` (``None`` = the CUDA card;
     raises without one unless ``device="cpu"``). Keys become int32, nnz an
-    int32 tensor; values keep their dtype."""
+    int32 tensor; values keep their dtype (bf16 included)."""
     dev = resolve_device(device)
     m, n = (int(s) for s in shape)
     return PaddedCOO(
         keys=torch.as_tensor(np.array(keys, dtype=np.int32), device=dev),
-        vals=torch.as_tensor(np.array(vals), device=dev),
+        vals=array_to_tensor(vals, dev),
         nnz=torch.as_tensor(np.array(nnz, dtype=np.int32), device=dev),
         shape=(m, n))
 
@@ -60,8 +72,7 @@ def params_from_numpy(tree, device=None):
     tree of tensors on ``device`` (``None`` = the CUDA card; raises without
     one unless ``device="cpu"``), dtypes kept."""
     dev = resolve_device(device)
-    return _tree.tree_map(
-        lambda leaf: torch.as_tensor(np.array(leaf), device=dev), tree)
+    return _tree.tree_map(lambda leaf: array_to_tensor(leaf, dev), tree)
 
 
 def params_to_numpy(tree):

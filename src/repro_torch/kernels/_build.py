@@ -36,6 +36,18 @@ SOURCES = ("partition", "hash_slide", "segment_fold", "spa_accum",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+#: The flag of the sources whose kernels add values: f32 adds (and
+#: compares) flush subnormal inputs and results to signed zero, XLA's rule
+#: (``xla_float``). ``topk_block`` only orders values and keeps their bits.
+NVCC_FTZ = "-ftz=true"
+FTZ_SOURCES = ("partition", "hash_slide", "segment_fold", "spa_accum",
+               "hash_accum")
+
+
+def flags(name: str) -> Tuple[str, ...]:
+    """``nvcc`` flags of source ``name``."""
+    return NVCC_FLAGS + ((NVCC_FTZ,) if name in FTZ_SOURCES else ())
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[Tuple[str, str], Any] = {}
@@ -53,7 +65,7 @@ def find_nvcc() -> str:
 
 
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags(name)).encode())
     for path in [os.path.join(CSRC_DIR, name + ".cu")] + sorted(
             glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as f:
@@ -90,7 +102,7 @@ def build_all() -> float:
         for name in todo:
             out = library_path(name)
             tmp = f"{out}.{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+            cmd = [nvcc, *flags(name), "-o", tmp,
                    os.path.join(CSRC_DIR, name + ".cu")]
             procs.append((name, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -20,16 +20,56 @@
 // kernel counts nothing. A key of -1 (not the sentinel) stops on the first
 // empty slot, leaves it empty and, in the symbolic loop, counts one.
 //
-// Accumulate (hash_accum_kernel). Slot placement depends on insertion
-// order, and the raw table is returned, so ONE thread inserts, in stream
-// order, and the table comes out bitwise the reference's: the same slots,
-// the same keys, each value its stream-order left fold from +0.0. The
-// block's other threads stage the stream into shared memory a chunk at a
-// time and initialise and write back the table. The table lives in dynamic
-// shared memory when it fits beside the stage (table_size <= 16,384 slots,
-// 8 B each); otherwise the output tensors are the table, in device memory,
-// where a table of up to some 50 MB stays in L2. Bound: the serial probe
-// chain, one dependent shared-memory (or L2) round trip per insert.
+// Accumulate, parallel (acc_*_kernel, with radix_bucket.cuh), for a table
+// that cannot fill (table_size > cap, which the default sizing
+// hash_table_size(cap + 1) guarantees). The raw table is returned, so it
+// must be the reference's bit for bit: the same slots, the same keys, each
+// value the left fold of its slot's values in stream order from +0.0 (IEEE
+// f32 adds; the library is built with -ftz=true, which flushes subnormal
+// inputs and results to signed zero as XLA does). Slot placement depends
+// only on the order of the keys' FIRST occurrences (no deletions, no
+// fill), and it is the unique layout of ordered linear probing with
+// priority = first position (Blelloch and Golovin, FOCS 2007; Shun and
+// Blelloch, SPAA 2014). So, over grids, the table in device memory (2^22
+// slots: 16 MB of keys and positions, then 32 MB of 64-bit words, inside
+// the 50 MB L2):
+//   (a) acc_first_kernel: each key's first stream position, by inserting
+//       the key with atomicCAS into a scratch table (the output tensors)
+//       and keeping the position with atomicMin — order-free;
+//   (b) acc_place_kernel: every occupied scratch slot inserts its
+//       (first_pos << 32 | key) word into the table of 64-bit words
+//       (empty = all ones) by ordered linear probing with 64-bit atomicCAS:
+//       a smaller word is passed, a larger one (or empty) is swapped for
+//       ours and the displaced word carried on; the result does not depend
+//       on the interleaving and equals inserting in first-position order;
+//   (c) acc_slot_kernel gives every element its slot (a read-only probe;
+//       `sent` goes to slot table_size, past every range); the stream of
+//       (slot, value) is stably bucketed by ranges of ACC_RANGE slots, and
+//       acc_fold_kernel, one warp a range, folds its bucket (in stream
+//       order) into the range's values in shared memory in windows of 32
+//       (rb_warp_fold, spa_accum.cu's fold: a ballot per slot bit groups a
+//       window's lanes by slot; the lowest lane folds the group's values
+//       in lane order onto the slot's value), then writes the range's keys
+//       and values out.
+// A key of -1 (not `sent`) stops, in the reference, on the first slot that
+// is empty AT ITS TIME t, leaves it -1 and adds its value there; a key that
+// takes the slot later folds onto that value. A slot is empty at time t
+// exactly when no key whose first position is < t holds it in the final
+// layout, so acc_slot_kernel walks the -1's probe path to the first slot
+// that is empty or whose word's first position is > t, and the fold adds
+// it there in stream order, like any other element. Bound: bytes (the
+// stream read a few times, the table's scratch and words in L2, the table
+// written once); what the design adds is the bucketing's two passes and
+// the L2 atomics of (a) and (b).
+//
+// Accumulate, serial (hash_accum_kernel). An explicit table_size <= cap
+// can fill and wrap to h0, where the layout depends on more than first
+// positions. That case keeps the faithful loop: ONE thread inserts, in
+// stream order, while the block's other threads stage the stream into
+// shared memory a chunk at a time and initialise and write back the table
+// (in shared memory when it fits beside the stage, else in the output
+// tensors). The wrapper picks the route from table_size and cap alone
+// (hash_accum.accumulate_route).
 //
 // Symbolic, parallel (hash_symbolic_smem_kernel, hash_symbolic_fill_kernel
 // + hash_symbolic_par_kernel). Only the count is returned, and where the
@@ -42,10 +82,8 @@
 // time with atomicCAS(slot, -1, key): a CAS that returns -1 counts one
 // (for key -1 it leaves the slot empty, as the reference does); one that
 // returns the key ends the probe. The counts are summed per warp, then
-// per block, and added with one integer atomicAdd per block. This is the
-// only kernel of the port in which an atomic decides a result, and it may
-// because that result is an integer sum whose terms do not depend on the
-// order. A table that fits one block's shared memory (table_in_smem) is
+// per block, and added with one integer atomicAdd per block: an integer
+// sum whose terms do not depend on the order. A table that fits one block's shared memory (table_in_smem) is
 // built there by one block of HASH_THREADS; a larger one lives in device
 // memory (16 MB at 2^22 slots, inside the 50 MB L2), set to -1 by a fill
 // kernel that also zeroes the count, and a grid of blocks inserts. Bound:
@@ -58,6 +96,8 @@
 // stream. The wrapper picks the route from table_size and cap alone.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "radix_bucket.cuh"
 
 #define HASH_THREADS 1024
 #define HASH_STAGE 2048
@@ -253,6 +293,172 @@ hash_symbolic_par_kernel(const int32_t* __restrict__ keys, int32_t* nz,
   if (threadIdx.x == 0 && total != 0) atomicAdd(nz, total);
 }
 
+#define ACC_THREADS 256
+#define ACC_RANGE 4096  // slots a fold warp owns (at most)
+#define ACC_EMPTY 0xFFFFFFFFFFFFFFFFull
+#define ACC_NO_POS 0x7FFFFFFF
+
+// The range of a slot (slot table_size, `sent`, lands past the last).
+struct AccBucket {
+  int range_bits;
+  __device__ __forceinline__ int operator()(int32_t slot) const {
+    return static_cast<int>(static_cast<uint32_t>(slot) >> range_bits);
+  }
+};
+
+// Sets the scratch keys to -1 and positions to ACC_NO_POS, the words to
+// empty.
+__global__ void acc_fill_kernel(int32_t* sk, int32_t* sp,
+                                unsigned long long* words, int table_size) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < table_size;
+       s += stride) {
+    sk[s] = -1;
+    sp[s] = ACC_NO_POS;
+    words[s] = ACC_EMPTY;
+  }
+}
+
+// (a) each key's first stream position (keys `sent` and -1 take no slot).
+__global__ void __launch_bounds__(ACC_THREADS)
+acc_first_kernel(const int32_t* __restrict__ keys, int64_t cap, int sent,
+                 int32_t* sk, int32_t* sp, int table_size) {
+  const uint32_t mask = static_cast<uint32_t>(table_size) - 1u;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * ACC_THREADS;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * ACC_THREADS
+                   + threadIdx.x; e < cap; e += stride) {
+    const int32_t key = keys[e];
+    if (key == sent || key == -1) continue;
+    uint32_t h = (static_cast<uint32_t>(key) * HASH_PRIME) & mask;
+    while (true) {
+      int32_t cur = *reinterpret_cast<volatile int32_t*>(sk + h);
+      if (cur == -1) cur = atomicCAS(sk + h, -1, key);
+      if (cur == -1 || cur == key) break;
+      h = (h + 1u) & mask;
+    }
+    atomicMin(sp + h, static_cast<int32_t>(e));
+  }
+}
+
+// (b) ordered linear probing of every occupied scratch slot's word.
+__global__ void __launch_bounds__(ACC_THREADS)
+acc_place_kernel(const int32_t* __restrict__ sk,
+                 const int32_t* __restrict__ sp, unsigned long long* words,
+                 int table_size) {
+  const uint32_t mask = static_cast<uint32_t>(table_size) - 1u;
+  const int stride = gridDim.x * ACC_THREADS;
+  for (int s = blockIdx.x * ACC_THREADS + threadIdx.x; s < table_size;
+       s += stride) {
+    const int32_t key = sk[s];
+    if (key == -1) continue;
+    unsigned long long w =
+        (static_cast<unsigned long long>(static_cast<uint32_t>(sp[s])) << 32)
+        | static_cast<uint32_t>(key);
+    uint32_t h = (static_cast<uint32_t>(key) * HASH_PRIME) & mask;
+    unsigned long long cur =
+        *reinterpret_cast<volatile unsigned long long*>(words + h);
+    while (true) {
+      if (cur < w) {  // a slot's word only ever gets smaller
+        h = (h + 1u) & mask;
+        cur = *reinterpret_cast<volatile unsigned long long*>(words + h);
+        continue;
+      }
+      const unsigned long long prev = atomicCAS(words + h, cur, w);
+      if (prev != cur) {
+        cur = prev;
+        continue;
+      }
+      if (cur == ACC_EMPTY) break;
+      w = cur;
+      h = (h + 1u) & mask;
+      cur = *reinterpret_cast<volatile unsigned long long*>(words + h);
+    }
+  }
+}
+
+// (c) every element's slot: its key's, or for a -1 at position e the first
+// slot on its path that is empty or first taken after e; `sent` ->
+// table_size.
+__global__ void __launch_bounds__(ACC_THREADS)
+acc_slot_kernel(const int32_t* __restrict__ keys, int64_t cap, int sent,
+                const unsigned long long* __restrict__ words, int table_size,
+                int32_t* __restrict__ slots) {
+  const uint32_t mask = static_cast<uint32_t>(table_size) - 1u;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * ACC_THREADS;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * ACC_THREADS
+                   + threadIdx.x; e < cap; e += stride) {
+    const int32_t key = keys[e];
+    int32_t slot = table_size;
+    if (key != sent) {
+      uint32_t h = (static_cast<uint32_t>(key) * HASH_PRIME) & mask;
+      if (key == -1) {
+        while (true) {
+          const unsigned long long w = words[h];
+          if (w == ACC_EMPTY || static_cast<int64_t>(w >> 32) > e) break;
+          h = (h + 1u) & mask;
+        }
+      } else {
+        while (static_cast<int32_t>(words[h] & 0xFFFFFFFFull) != key)
+          h = (h + 1u) & mask;
+      }
+      slot = static_cast<int32_t>(h);
+    }
+    slots[e] = slot;
+  }
+}
+
+// A slot's place in the range that starts at slot r0.
+struct AccRangeSlot {
+  int32_t r0;
+  __device__ __forceinline__ unsigned operator()(int32_t slot) const {
+    return static_cast<unsigned>(slot - r0);
+  }
+};
+
+// One warp per range of 1 << range_bits slots: fold its bucket (stream
+// order) into the range's values from +0.0 (rb_warp_fold), then write keys
+// and values.
+__global__ void __launch_bounds__(32)
+acc_fold_kernel(const int32_t* __restrict__ bslots,
+                const float* __restrict__ bvals,
+                const int32_t* __restrict__ base,
+                const unsigned long long* __restrict__ words,
+                int32_t* __restrict__ tkeys, float* __restrict__ tvals,
+                int range_bits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int range = 1 << range_bits;
+  float* tile = reinterpret_cast<float*>(smem);
+  float* wv = tile + range;
+  const int lane = threadIdx.x;
+  for (int s = lane; s < range; s += 32) tile[s] = 0.0f;
+  __syncwarp();
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) << range_bits;
+  AccRangeSlot slot_of;
+  slot_of.r0 = static_cast<int32_t>(r0);
+  rb_warp_fold(bslots, bvals, base[blockIdx.x], base[blockIdx.x + 1],
+               slot_of, range_bits, tile, wv);
+  if ((range & 3) == 0) {
+    for (int q = lane; q < range / 4; q += 32) {
+      const ulonglong2 w01 =
+          reinterpret_cast<const ulonglong2*>(words + r0)[2 * q];
+      const ulonglong2 w23 =
+          reinterpret_cast<const ulonglong2*>(words + r0)[2 * q + 1];
+      reinterpret_cast<int4*>(tkeys + r0)[q] = make_int4(
+          static_cast<int>(w01.x & 0xFFFFFFFFull),
+          static_cast<int>(w01.y & 0xFFFFFFFFull),
+          static_cast<int>(w23.x & 0xFFFFFFFFull),
+          static_cast<int>(w23.y & 0xFFFFFFFFull));
+      reinterpret_cast<float4*>(tvals + r0)[q] =
+          reinterpret_cast<const float4*>(tile)[q];
+    }
+  } else {
+    for (int s = lane; s < range; s += 32) {
+      tkeys[r0 + s] = static_cast<int>(words[r0 + s] & 0xFFFFFFFFull);
+      tvals[r0 + s] = tile[s];
+    }
+  }
+}
+
 #define SPK_KERNEL hash_accum_kernel
 #define SPK_KERNEL_2 hash_symbolic_kernel
 #define SPK_KERNEL_3 hash_symbolic_smem_kernel
@@ -277,6 +483,78 @@ extern "C" int spk_hash_accumulate(const void* keys, const void* vals,
       static_cast<const int32_t*>(keys), static_cast<const float*>(vals),
       static_cast<int32_t*>(tkeys), static_cast<float*>(tvals), cap, sent,
       table_size, in_smem);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Slots a fold warp owns for a table_size-slot table (the parallel route).
+extern "C" int spk_hash_acc_range(int table_size) {
+  return table_size < ACC_RANGE ? table_size : ACC_RANGE;
+}
+
+extern "C" int spk_hash_accum_rb_tile() { return RB_TILE; }
+
+// The parallel route (table_size > cap). `scratch`: the table's 64-bit
+// words (table_size), the bucketing's count matrix (rb_scratch_ints(1,
+// cap)), the slots (cap ints), the bucketed slots and values and the
+// bucketing's in-between pass (cap ints and floats each) and the ranges'
+// first positions (ranges + 2 ints).
+extern "C" int spk_hash_accumulate_par(const void* keys, const void* vals,
+                                       void* tkeys, void* tvals, int64_t cap,
+                                       int sent, int table_size,
+                                       void* scratch, int device,
+                                       void* stream) {
+  const SpkLaunchScope scope(device);
+  if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* k = static_cast<const int32_t*>(keys);
+  const float* v = static_cast<const float*>(vals);
+  int32_t* sk = static_cast<int32_t*>(tkeys);
+  int32_t* sp = static_cast<int32_t*>(tvals);  // positions, until the fold
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  // the count matrix first: the scan reads it 16 bytes at a time
+  int32_t* rscratch = reinterpret_cast<int32_t*>(words + table_size);
+  int32_t* slots = rscratch + rb_scratch_ints(1, cap);
+  int32_t* bslots = slots + cap;
+  float* bvals = reinterpret_cast<float*>(bslots + cap);
+  int32_t* tslots = reinterpret_cast<int32_t*>(bvals + cap);
+  float* tvals_mid = reinterpret_cast<float*>(tslots + cap);
+  int32_t* base = reinterpret_cast<int32_t*>(tvals_mid + cap);
+  const int range = spk_hash_acc_range(table_size);
+  int range_bits = 0;
+  while ((1 << range_bits) < range) ++range_bits;
+  const int ranges = table_size >> range_bits;
+
+  const int fill_blocks = (table_size + 4 * ACC_THREADS - 1)
+                          / (4 * ACC_THREADS);
+  acc_fill_kernel<<<fill_blocks, ACC_THREADS, 0, st>>>(sk, sp, words,
+                                                        table_size);
+  const int64_t want = (cap + ACC_THREADS - 1) / ACC_THREADS;
+  const unsigned blocks = static_cast<unsigned>(want < (1 << 20) ? want
+                                                : (1 << 20));
+  if (cap > 0)
+    acc_first_kernel<<<blocks, ACC_THREADS, 0, st>>>(k, cap, sent, sk, sp,
+                                                     table_size);
+  acc_place_kernel<<<fill_blocks, ACC_THREADS, 0, st>>>(sk, sp, words,
+                                                         table_size);
+  if (cap > 0) {
+    acc_slot_kernel<<<blocks, ACC_THREADS, 0, st>>>(k, cap, sent, words,
+                                                    table_size, slots);
+    AccBucket ab;
+    ab.range_bits = range_bits;
+    const cudaError_t e = rb_bucket(slots, v, 1, cap, ab, ranges + 1,
+                                    bslots, bvals, tslots, tvals_mid,
+                                    rscratch, base, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    const cudaError_t e = cudaMemsetAsync(
+        base, 0, sizeof(int32_t) * (ranges + 2), st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  acc_fold_kernel<<<static_cast<unsigned>(ranges), 32,
+                    static_cast<size_t>(range + RB_FOLD_U * 32)
+                        * sizeof(float), st>>>(
+      bslots, bvals, base, words, static_cast<int32_t*>(tkeys),
+      static_cast<float*>(tvals), range_bits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,11 +21,13 @@
 // from +0.0 is never -0.0, so adding +-0.0 pads could not change its bits,
 // and dropping them keeps one thread from walking the whole padding tail.
 //
-// bf16 folds the way the plain version (PyTorch's bf16 add on the CPU)
-// does: each add is taken in f32 and rounded to bf16 at once (round to
-// nearest even), so the running total is a bf16 value after every add. A
-// NaN total may carry another NaN payload than the CPU's, whose vectorised
-// and scalar conversions differ there.
+// Numbers follow XLA's rules, which the plain version states in
+// kernels/xla_float.py: the library is built with -ftz=true, so every f32
+// add flushes subnormal inputs and results to signed zero; bf16 folds take
+// each add in f32 and round the total to bf16 at once, to nearest even,
+// a NaN to the quiet NaN of its sign (0x7fc0 / 0xffc0), so the running
+// total is a bf16 value after every add. (The card's own NaN rules for
+// f32 adds apply to both the kernel and the plain version run there.)
 //
 // Bound: bytes. Every element and gid is read once (twice for the run-head
 // test, the second read from L1) and every output written once.
@@ -45,7 +47,11 @@ __device__ __forceinline__ float spk_from_f32<float>(float v) {
 }
 template <>
 __device__ __forceinline__ __nv_bfloat16 spk_from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+  const uint32_t bits = __float_as_uint(v);
+  const uint32_t out = (bits & 0x7FFFFFFFu) > 0x7F800000u
+                           ? ((bits >> 16) & 0x8000u) | 0x7FC0u
+                           : (bits + 0x7FFFu + ((bits >> 16) & 1u)) >> 16;
+  return __ushort_as_bfloat16(static_cast<unsigned short>(out));
 }
 
 template <typename T>

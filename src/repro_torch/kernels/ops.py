@@ -110,15 +110,16 @@ def spa_tile_budget(device=None) -> int:
 
 
 def pad_stream(keys: torch.Tensor, vals: torch.Tensor, mn: int, chunk: int):
-    """Pad a stream to a chunk multiple with sentinel keys ``mn`` and zero
-    values; keys ``>= mn`` become the sentinel, their values ``0.0``."""
-    cap = keys.shape[0]
-    cap_pad = _round_up(max(cap, 1), chunk)
+    """Pad a stream (or each row of a batch of streams) to a chunk multiple
+    with sentinel keys ``mn`` and zero values; keys ``>= mn`` become the
+    sentinel, their values ``0.0``."""
+    cap = keys.shape[-1]
+    shape = (*keys.shape[:-1], _round_up(max(cap, 1), chunk))
     valid = keys < mn
-    keys_p = torch.full((cap_pad,), mn, dtype=torch.int32, device=keys.device)
-    vals_p = torch.zeros((cap_pad,), dtype=torch.float32, device=keys.device)
-    keys_p[:cap] = torch.where(valid, keys, mn)
-    vals_p[:cap] = torch.where(valid, vals.to(torch.float32), 0.0)
+    keys_p = torch.full(shape, mn, dtype=torch.int32, device=keys.device)
+    vals_p = torch.zeros(shape, dtype=torch.float32, device=keys.device)
+    keys_p[..., :cap] = torch.where(valid, keys, mn)
+    vals_p[..., :cap] = torch.where(valid, vals.to(torch.float32), 0.0)
     return keys_p, vals_p
 
 
@@ -420,16 +421,8 @@ def hash_slide_tables(keys: torch.Tensor, vals: torch.Tensor, *, m: int,
     """
     from repro_torch.kernels import hash_slide as _hslide
 
-    B, cap = keys.shape
     mn = m * n
-    valid = keys < mn
-    cap_pad = _round_up(max(cap, 1), chunk)
-    keys_p = torch.full((B, cap_pad), mn, dtype=torch.int32,
-                        device=keys.device)
-    vals_p = torch.zeros((B, cap_pad), dtype=torch.float32,
-                         device=keys.device)
-    keys_p[:, :cap] = torch.where(valid, keys, mn)
-    vals_p[:, :cap] = torch.where(valid, vals.to(torch.float32), 0.0)
+    keys_p, vals_p = pad_stream(keys, vals, mn, chunk)
     return _hslide.hash_slide_raw(keys_p, vals_p, mn=mn,
                                   table_size=table_size, part_span=part_span,
                                   parts=parts, chunk=chunk)

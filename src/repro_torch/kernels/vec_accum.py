@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import xla_float
+
 #: The reference's fold names (all three are one fold here).
 FOLDS = ("serial", "sort", "onehot")
 
@@ -38,7 +40,9 @@ def fold_runs(tile: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
     longer than ``j`` to that run's total, so each total is built strictly
     left to right and the serial depth is the longest run. Runs already
     exhausted are left untouched (not given ``+ 0.0``), so a ``-0.0`` in the
-    tile keeps its sign.
+    tile keeps its sign. Each add is XLA's (:func:`xla_float.add_as`):
+    subnormals flushed, a bf16 total rounded after every add, a NaN to the
+    quiet NaN of its sign.
     """
     B, T = tile.shape
     out = tile.clone().reshape(-1)
@@ -56,8 +60,8 @@ def fold_runs(tile: torch.Tensor, slot: torch.Tensor, vals: torch.Tensor,
     totals = out[heads]
     for j in range(int(lengths.max())):
         live = lengths > j
-        totals = torch.where(live, totals + v[(starts + j).clamp(max=n - 1)],
-                             totals)
+        step = xla_float.add_as(totals, v[(starts + j).clamp(max=n - 1)])
+        totals = torch.where(live, step, totals)
     out[heads] = totals
     return out.view(B, T)
 

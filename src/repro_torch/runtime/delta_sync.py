@@ -60,6 +60,7 @@ from repro_torch.checkpoint import (latest_step, restore_checkpoint,
 from repro_torch.core.engine import spkadd_batched_ragged
 from repro_torch.core.sparse import PaddedCOO, make_empty, resolve_device
 from repro_torch.core.topk import global_k, sparsify_with_feedback
+from repro_torch.kernels import xla_float
 from repro_torch.runtime.faults import backoff_delay
 from repro_torch.train.step import init_ef_state
 
@@ -159,7 +160,8 @@ def apply_delta_flat(flat: torch.Tensor, idx, val) -> torch.Tensor:
 
     Precondition: the kept indices are unique — top-k selections and the
     engine's canonical output are. Then one gather, one add and one scatter
-    give the in-order add's bits, with no atomics on values.
+    give the in-order add's bits, with no atomics on values. The add is
+    XLA's (:func:`xla_float.add_as`: subnormal inputs and results flushed).
     """
     size = flat.shape[0]
     idx = torch.as_tensor(idx, device=flat.device).long()
@@ -168,7 +170,7 @@ def apply_delta_flat(flat: torch.Tensor, idx, val) -> torch.Tensor:
     keep = (idx >= 0) & (idx < size)
     idx, val = idx[keep], val[keep]
     out = flat.clone()
-    out[idx] = flat[idx] + val
+    out[idx] = xla_float.add_as(flat[idx], val)
     return out
 
 

@@ -11,9 +11,11 @@ delta-frame headers — the port must walk a tree exactly as
 - each leaf named by ``jax.tree_util.keystr`` of its path: ``['layers']``
   for a dict key (its ``repr``), ``[0]`` for a position, concatenated.
 
-A leaf is a tensor, a numpy array or a Python or numpy scalar. Any other
-node type (a namedtuple, a set, an object) raises ``TypeError``: the
-reference may flatten it in an order this module cannot know.
+A leaf is a tensor, a numpy array, a Python or numpy scalar, or any other
+object with ``__array__`` (a ``jax.Array`` of a reference params tree is
+one; JAX is not imported). Any other node type (a namedtuple, a set, an
+object) raises ``TypeError``: the reference may flatten it in an order
+this module cannot know.
 """
 from __future__ import annotations
 
@@ -46,7 +48,7 @@ def _walk(tree, path: str, leaves: List[Any], names: List[str]) -> TreeDef:
         children = tuple(_walk(c, f"{path}[{i}]", leaves, names)
                          for i, c in enumerate(tree))
         return (kind.__name__, children)
-    if isinstance(tree, _LEAF_TYPES):
+    if isinstance(tree, _LEAF_TYPES) or hasattr(tree, "__array__"):
         leaves.append(tree)
         names.append(path)
         return ("leaf",)

@@ -579,6 +579,171 @@ def test_hash_symbolic_routes_bitwise_vs_plain(cuda, case, route):
         serial + (route == "serial")
 
 
+def slide_stream(case, seed):
+    """``(keys, vals, kwargs)`` of a sliding-hash launch for ``case``."""
+    rng = np.random.default_rng(seed)
+    B, cap, chunk = 3, 512, 64
+    if case == "parts_over_256":      # 300 parts: two bucketing passes
+        span, parts = 8, 300
+        mn = span * parts
+    elif case == "empty_parts":       # keys in 2 of 16 parts; a row empty
+        span, parts, mn = 16, 16, 256
+    elif case == "one_key":
+        span, parts, mn = 1024, 1, 1024
+    else:                              # "minus_one": negative keys skipped
+        span, parts, mn = 64, 8, 512
+    keys = rng.integers(0, mn, (B, cap))
+    if case == "empty_parts":
+        keys = rng.choice([3, 7, 9, 200, 201], (B, cap))
+        keys[1] = mn
+    elif case == "one_key":
+        keys[:] = 77
+    elif case == "minus_one":
+        keys[rng.random((B, cap)) < 0.2] = -1
+    keys[rng.random((B, cap)) < 0.05] = mn
+    vals = rng.standard_normal((B, cap)).astype(np.float32)
+    kw = dict(mn=mn, table_size=hash_table_size(min(cap, span)),
+              part_span=span, parts=parts, chunk=chunk)
+    return torch.as_tensor(keys.astype(np.int32)), torch.as_tensor(vals), kw
+
+
+@pytest.mark.parametrize("case", ["parts_over_256", "empty_parts", "one_key",
+                                  "minus_one"])
+def test_hash_slide_kernel_edges_bitwise_twice(cuda, case):
+    """B > 1 and parts > 1 (up to 300: the bucketing's two passes), empty
+    parts, one key, negative keys; two launches give the same bits, so no
+    atomic decides a value."""
+    keys, vals, kw = slide_stream(case, len(case))
+    wk, wv = hash_slide.hash_slide_plain(keys, vals, **kw)
+    runs = [hash_slide.hash_slide_raw(keys.to(cuda), vals.to(cuda), **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for gk, gv in runs:
+        np.testing.assert_array_equal(bits(gk), bits(wk))
+        np.testing.assert_array_equal(bits(gv), bits(wv))
+
+
+@pytest.mark.parametrize("case,route", [
+    ("minus_one", "parallel"),       # -1 keys fold where the loop adds them
+    ("minus_one_first", "parallel"),  # a -1 before the key that takes its slot
+    ("one_key", "parallel"),
+    ("random_big", "parallel"),      # 2^18 keys: 2^19 slots, 128 ranges
+    ("undersized", "serial"),        # table <= cap: the one-thread loop
+    ("undersized_minus_one", "serial"),
+])
+def test_hash_accumulate_routes_bitwise_twice(cuda, case, route):
+    rng = np.random.default_rng(len(case) + 3)
+    sent, table_size = 1 << 20, None
+    if case.startswith("minus_one"):
+        keys = rng.integers(-1, 40, 3000)
+        if case == "minus_one_first":
+            T = hash_table_size(301)  # the default table of the 300 below
+            h = ((0xFFFFFFFF * 2654435761) & (T - 1))
+            k = next(k for k in range(1, 1 << 20)
+                     if (k * 2654435761) & (T - 1) == h)
+            keys = np.asarray([-1, -1, k, -1, k, -1] * 50)
+    elif case == "one_key":
+        keys = np.full(5000, 123)
+    elif case == "random_big":
+        keys = rng.integers(0, 1 << 19, 1 << 18)
+    else:
+        keys = rng.permutation(np.repeat(np.arange(300) * 7, 2))
+        table_size = 256
+        if case.endswith("minus_one"):
+            keys[rng.choice(keys.size, 40, replace=False)] = -1
+    keys = keys.astype(np.int32)
+    keys[rng.random(keys.size) < 0.05] = sent
+    vals = torch.as_tensor(rng.standard_normal(keys.size).astype(np.float32))
+    kt = torch.as_tensor(keys)
+    size = (hash_table_size(len(keys) + 1) if table_size is None
+            else table_size)
+    assert hash_accum.accumulate_route(len(keys), size) == route
+    wk, wv = hash_accum.hash_accumulate_plain(kt, vals, sent=sent,
+                                              table_size=table_size)
+    launches = hash_accum.hash_accumulate_raw.launches
+    serial = hash_accum.hash_accumulate_raw.serial_launches
+    runs = [hash_accum.hash_accumulate_raw(kt.to(cuda), vals.to(cuda),
+                                           sent=sent, table_size=table_size)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for gk, gv in runs:
+        np.testing.assert_array_equal(bits(gk), bits(wk))
+        np.testing.assert_array_equal(bits(gv), bits(wv))
+    assert hash_accum.hash_accumulate_raw.launches == launches + 2
+    assert hash_accum.hash_accumulate_raw.serial_launches == \
+        serial + 2 * (route == "serial")
+
+
+def subnormal_vals(rng, shape):
+    """Values mixing normals, subnormals of both signs and pairs whose sum
+    is subnormal: the -ftz builds must flush as the plain versions do."""
+    return rng.choice(np.float32([1e-40, -1e-40, 1.5e-38, -1.4e-38, -0.0,
+                                  2.0, -3e-39]), shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("kernel", ["segment_fold", "partition", "spa_accum",
+                                    "hash_slide", "hash_accum"])
+def test_ftz_kernels_flush_subnormals_as_the_plain_versions(cuda, kernel):
+    rng = np.random.default_rng(31)
+    mn, cap = 64, 1024
+    keys = np.sort(rng.integers(0, mn, cap)).astype(np.int32)
+    vals = subnormal_vals(rng, cap)
+    k, v = torch.as_tensor(keys), torch.as_tensor(vals)
+    if kernel == "segment_fold":
+        want = segment.segment_fold(v, k, mn)
+        got = segment.segment_fold(v.to(cuda), k.to(cuda), mn)
+        pairs = [(got, want)]
+    elif kernel == "partition":
+        kw = dict(mn=mn, part_elems=16, parts=4, chunk=64)
+        steps = S.partition_steps(k[None], mn=mn, part_elems=16, parts=4,
+                                  chunk=64)
+        want = partition.partitioned_accumulate_plain(k[None], v[None],
+                                                      *steps, **kw)
+        got = partition.partitioned_accumulate_raw(
+            k[None].to(cuda), v[None].to(cuda), steps.chunk_id.to(cuda),
+            steps.part_id.to(cuda), **kw)
+        pairs = [(got, want)]
+    elif kernel == "spa_accum":
+        kw = dict(m=mn, n=1, block_rows=16, chunk=64)
+        perm = torch.as_tensor(rng.permutation(cap))
+        want = spa_accum.spa_accumulate_plain(k[perm], v[perm], **kw)
+        got = spa_accum.spa_accumulate_raw(k[perm].to(cuda),
+                                           v[perm].to(cuda), **kw)
+        pairs = [(got, want)]
+    elif kernel == "hash_slide":
+        perm = torch.as_tensor(rng.permutation(cap))
+        kw = dict(mn=mn, table_size=128, part_span=mn, parts=1, chunk=64)
+        wk, wv = hash_slide.hash_slide_plain(k[perm][None], v[perm][None],
+                                             **kw)
+        gk, gv = hash_slide.hash_slide_raw(k[perm][None].to(cuda),
+                                           v[perm][None].to(cuda), **kw)
+        pairs = [(gk, wk), (gv, wv)]
+    else:
+        perm = torch.as_tensor(rng.permutation(cap))
+        wk, wv = hash_accum.hash_accumulate_plain(k[perm], v[perm], sent=mn)
+        gk, gv = hash_accum.hash_accumulate_raw(k[perm].to(cuda),
+                                                v[perm].to(cuda), sent=mn)
+        pairs = [(gk, wk), (gv, wv)]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def test_bf16_segment_fold_kernel_nan_signs(cuda):
+    """bf16 folds round a NaN total to the quiet NaN of its sign, on the
+    card as in the plain version there: -NaN + 1.0, +inf + -inf,
+    1.0 + -NaN."""
+    raw = np.asarray([0xFFC0, 0x3F80, 0x7F80, 0xFF80, 0x3F80, 0xFFC1,
+                      0x4000], np.uint16)
+    vals = torch.from_numpy(raw.view(np.int16)).view(torch.bfloat16)
+    gid = torch.as_tensor(np.int32([0, 0, 1, 1, 2, 2, 3]))
+    want = segment.segment_fold_plain(vals.to(cuda), gid.to(cuda), 4)
+    got = segment.segment_fold(vals.to(cuda), gid.to(cuda), 4)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert torch.isnan(got[:3].float()).all() and float(got[3]) == 2.0
+
+
 @pytest.mark.parametrize("algorithm", sorted(A.ALGORITHMS))
 def test_family_on_card_equals_cpu(cuda, algorithm):
     cpu = _collection(17, 6, 48, 8, 40, "cpu")

@@ -175,24 +175,28 @@ def test_spkadd_unsorted_inputs_match_reference(algorithm):
 
 @pytest.mark.parametrize("algorithm", ALGOS)
 def test_spkadd_bf16_values_match_reference(algorithm):
-    """bf16 inputs: ``spa`` and the merge paths accumulate in bf16 (both
-    packages round every add to bf16); ``vec``/``blocked_spa``/``hash``
-    cast to f32 first, so ``hash`` is held against ``sorted`` of the
-    f32-cast inputs."""
+    """bf16 inputs, carried into the port by ``interop`` as they are:
+    ``spa`` and the merge paths accumulate in bf16 (both packages round
+    every add to bf16); ``vec``/``blocked_spa``/``hash`` cast to f32 first,
+    so ``hash`` is held against ``sorted`` of the f32-cast inputs. Values
+    are compared in their own type, bit for bit."""
     rng = np.random.default_rng(5)
     f32 = [random_sparse(rng, 16, 8, 24, cap=28)[1] for _ in range(4)]
     mats = [S.PaddedCOO(a.keys, a.vals.astype(jnp.bfloat16), a.nnz, a.shape)
             for a in f32]
-    ports = [TS.PaddedCOO(a.keys, a.vals.to(torch.bfloat16), a.nnz, a.shape)
-             for a in to_port(f32)]
+    ports = to_port(mats)
+    assert all(a.vals.dtype == torch.bfloat16 for a in ports)
     if algorithm == "hash":
         mats = [a._replace(vals=a.vals.astype(jnp.float32)) for a in mats]
     ref = jax_spkadd(ORACLE.get(algorithm, algorithm))(mats)
     port = TA.spkadd(ports, algorithm=algorithm)
     np.testing.assert_array_equal(np.asarray(ref.keys), np_of(port.keys))
     assert int(ref.nnz) == int(port.nnz)
-    rv = np.asarray(ref.vals.astype(jnp.float32))
-    assert_bytes_equal(rv, port.vals.float())
+    rv = np.asarray(ref.vals)
+    pv = port.vals.view(torch.int16) if port.vals.dtype == torch.bfloat16 \
+        else port.vals
+    assert rv.dtype.itemsize == pv.element_size()
+    assert rv.tobytes() == np_of(pv).tobytes()
 
 
 def test_spkadd_spa_dense_and_out_cap_match_reference():
