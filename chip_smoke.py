@@ -7,7 +7,7 @@ Run from the root of a checkout; it imports ``src/repro_torch`` (never JAX,
 never the reference package ``repro``) and exits non-zero, printing no
 result, when no CUDA card is present or the package is missing.
 
-0. Build the six CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+0. Build the seven CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` (one process per source, in parallel) and print the build
    time, the compiler's register/shared-memory report and the card.
 1. ``vec``: one collection through ``spkadd_auto`` — k = 64 ER matrices of
@@ -44,16 +44,30 @@ result, when no CUDA card is present or the package is missing.
    ``benchmarks/delta_sync.py``) through ``DeltaPublisher`` (k_fraction
    0.01, block selector) to replica A (a sync every epoch) and replica B
    (a window-4 catch-up, one ragged SpKAdd) over 8 epochs: both replicas
-   equal the publisher's shadow bitwise, the block top-k kernel and the
-   engine's kernels launch, and epoch 1's frames equal those of the
-   selection's plain version, byte for byte (:func:`run_delta_sync`).
+   equal the publisher's shadow bitwise, the block top-k kernel, the
+   flushing add (``xla_add``) and the engine's kernels launch, and epoch
+   1's frames equal those of the selection's plain version, byte for byte
+   (:func:`run_delta_sync`). One round (publish + A's sync) is timed with
+   the kernel, with the add's plain version swapped in, and with the
+   kernel again.
    After the phase, each sliding-hash bucket of B's catch-up is replayed:
    its engine call (``hash``) and the ``vec`` regime on the same
    collections, timed, both bitwise equal to ``sorted``.
-7. One profiled call of each phase (device time by kernel, busy share),
+7. ``stream_service``: the multi-tenant stream service
+   (:func:`run_stream_service`): the three chaos cells of
+   ``benchmarks/stream_service.py --smoke`` on the card with the
+   reference's counts, then 64 tenants (512 cut to fit the card's memory,
+   :data:`STREAM_TENANTS`) of 65,536 x 256 (the deployment the ``hash``
+   phase's co-flush stands for) driven open-loop through the
+   port's ``StreamService`` with the journal on: every co-flush dispatches
+   ``hash`` and launches the sliding-hash kernel, nothing is shed, the
+   sums equal a ``sorted`` drive bitwise and float64 sums to 1e-5, and a
+   drive that crashes at flush 2 recovers every tenant bitwise; one
+   co-flush after recovery is profiled.
+8. One profiled call of each phase (device time by kernel, busy share),
    ten profiled calls each of the family's ``vec`` and ``blocked_spa``
    (each call's host time and the CUDA runtime calls that took the most
-   host time: where a slow call waits), then each of the seven kernels against its plain PyTorch version on the
+   host time: where a slow call waits), then each of the eight kernels against its plain PyTorch version on the
    card, on the inputs its path gives it: bitwise (tolerance 0); the two
    hash kernels twice, with the same bits. The sliding-hash row adds its
    time at the catch-up's largest launch (inputs rebuilt by a replay), with
@@ -383,7 +397,7 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
                                    T.leaves(pub.shadow_params())))
 
     publish_ms, sync_a_ms, wire_bytes = [], [], []
-    topk_launches = 0
+    topk_launches = xla_add_launches = 0
     captured = {"topk_leaves": []}
     catchup_part_calls, catchup_hash_calls = [], []
     for epoch in range(1, epochs + 1):
@@ -397,6 +411,7 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
         torch.cuda.synchronize()
         publish_ms.append((time.perf_counter() - t0) * 1e3)
         topk_launches += kernels["topk_block"].launches
+        xla_add_launches += kernels["xla_add"].launches
         wire_bytes.append(stats.bytes)
         if epoch == 1:
             # the same epoch from the same state, the selection's plain
@@ -475,6 +490,8 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
             check(same_as_shadow(rep_b), f"phase delta_sync: replica B "
                   f"differs from the shadow at epoch {epoch}")
     check(topk_launches > 0, "phase delta_sync: top-k kernel not launched")
+    check(xla_add_launches > 0, "phase delta_sync: xla_add kernel not "
+          "launched")
     # error feedback loses nothing: what was not shipped is the residual
     for p, s, r in zip(T.leaves(params), pub._shadow, pub._residual):
         check(torch.equal(p.reshape(-1), s + r), "phase delta_sync: shadow "
@@ -491,13 +508,15 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
         "wire_bytes_per_sync": wire_bytes,
         "dense_sync_bytes": dense,
         "catchup_launches": catchup_launches,
+        "xla_add_launches": xla_add_launches,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
     log(f"phase delta_sync: {n_params} params, publish ms "
         f"{[round(t, 1) for t in publish_ms]}, sync A ms "
         f"{[round(t, 1) for t in sync_a_ms]}, catch-up B "
         f"{catchup_ms:.1f} ms, wire {wire_bytes[-1]} B of "
         f"{dense} B dense per sync, {stats.selected} selected, top-k "
-        f"launches {topk_launches}, catch-up launches {catchup_launches}, "
+        f"launches {topk_launches}, xla_add launches {xla_add_launches}, "
+        f"catch-up launches {catchup_launches}, "
         f"peak {phase['peak_mem_bytes'] / 2**30:.2f} GiB; replicas A and B "
         f"== shadow bitwise")
     pool.shutdown()
@@ -515,6 +534,502 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
         rep_a.sync()
 
     return phase, topk_launches, captured, one_sync_round
+
+
+#: The stream-service chaos cells of ``benchmarks/stream_service.py
+#: --smoke`` (32 x 8, 16 nonzeros a push, capacity 256) and the counts the
+#: reference gives for them.
+CELL_SHAPE, CELL_NNZ, CELL_CAP = (32, 8), 16, 256
+CELL_COUNTS = {
+    "crash_replay": {"replayed_records": 10, "bitwise": True,
+                     "ref_flushes": 6, "ref_admitted": 57},
+    "overload_shed": {"evicted_windows": 2, "deferred": 23,
+                      "hot_flushes": 16, "admitted": 134},
+    "torn_journal": {"quarantined": 4, "torn_injected": 14, "replayed": 11},
+}
+CELL_SHED_RATE = 0.09701
+
+
+def coo_state(svc, tenants) -> dict:
+    """Per tenant ``(keys, vals, nnz, flushes)`` of the flushed running sum,
+    on the host: the bitwise-comparable state of a service."""
+    out = {}
+    for t in tenants:
+        s = svc.value(t)
+        out[t] = (s.keys.cpu().numpy(), s.vals.cpu().numpy(), int(s.nnz),
+                  svc.stats()["tenants"][t]["flushes"])
+    return out
+
+
+def same_state(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        np.array_equal(a[t][0], b[t][0])
+        and a[t][1].tobytes() == b[t][1].tobytes()
+        and a[t][2:] == b[t][2:] for t in a)
+
+
+def stream_cells(dev) -> dict:
+    """The three chaos cells through the port on ``dev``, each at its own
+    size and seed, with the numbers the reference's smoke reports."""
+    import tempfile
+
+    from repro_torch.core.stream_service import (REC_MAGIC, StreamService,
+                                                 TornRecordError,
+                                                 decode_journal)
+    from repro_torch.launch import stream_serve as SV
+    from repro_torch.runtime.faults import (ServiceFaultInjector,
+                                            ServiceFaultSpec)
+
+    def mk(a):
+        return SV.make_matrix(CELL_SHAPE, CELL_NNZ, a.mat_seed, device=dev)
+
+    def steady(root, fault_injector=None):
+        return StreamService(soft_pending_nnz=1 << 20,
+                             hard_pending_nnz=1 << 21, flush_deadline=0.5,
+                             journal_root=root,
+                             fault_injector=fault_injector, device=dev)
+
+    def register(svc, names, batch_k):
+        return sum(svc.register_tenant(n, CELL_SHAPE, cap_budget=CELL_CAP,
+                                       batch_k=batch_k) for n in names)
+
+    out = {}
+    names = [SV.tenant_name(i) for i in range(4)]
+    events = SV.build_workload(n_tenants=4, duration=6.0, rate=2.0,
+                               tick_every=0.25, seed=17)
+    with tempfile.TemporaryDirectory() as ref_dir, \
+            tempfile.TemporaryDirectory() as crash_dir:
+        ref = steady(ref_dir)
+        register(ref, names, 3)
+        ref_res = SV.drive(ref, events, make_mat=mk)
+        ref.drain(6.0)
+        inj = ServiceFaultInjector(ServiceFaultSpec(crash_at_flush=(3,),
+                                                    seed=17))
+        svc = steady(crash_dir, inj)
+        register(svc, names, 3)
+        res = SV.drive(svc, events, make_mat=mk)
+        rec = steady(crash_dir)
+        replayed = register(rec, names, 3)
+        res2 = SV.drive(rec, events, make_mat=mk, start_index=res.next_index)
+        rec.drain(6.0)
+        out["crash_replay"] = {
+            "crashed": not res.completed,
+            "crashes_injected": inj.injected["crash"],
+            "resumed_completed": res2.completed,
+            "replayed_records": replayed,
+            "quarantined": sum(t["quarantined_records"]
+                               for t in rec.stats()["tenants"].values()),
+            "bitwise": same_state(coo_state(ref, names),
+                                  coo_state(rec, names)),
+            "ref_flushes": ref.flush_ordinal,
+            "ref_admitted": ref_res.admitted}
+
+    cold = [SV.tenant_name(i) for i in range(4)]
+    hot = [SV.tenant_name(4 + i) for i in range(4)]
+    svc = StreamService(soft_pending_nnz=512, hard_pending_nnz=576,
+                        flush_deadline=0.5, device=dev)
+    register(svc, cold, 16)
+    register(svc, hot, 4)
+    events = SV.build_workload(
+        n_tenants=8, duration=4.0, rate=10.0, tick_every=0.25, seed=25,
+        cold_tenants=cold, cold_until=0.5,
+        faults=ServiceFaultSpec(stall_tenants=tuple(hot), stall_from=0.0,
+                                stall_until=0.5))
+    res = SV.drive(svc, events, make_mat=mk)
+    s = SV.summarize(svc, res, duration=4.0)
+    st = svc.stats()["tenants"]
+    out["overload_shed"] = {
+        "admitted": res.admitted, "deferred": res.deferred,
+        "evicted_nnz_hot": sum(st[n]["evicted_nnz"] for n in hot),
+        "evicted_windows": sum(t["evicted_windows"] for t in st.values()),
+        "hot_flushes": sum(st[n]["flushes"] for n in hot),
+        "shed_rate": s["shed_rate"],
+        "p99_flush_latency": s["p99_flush_latency"],
+        "conserved": all(t["admitted_nnz"] == t["evicted_nnz"]
+                         + t["buffered_nnz"] + t["flushed_nnz"]
+                         for t in st.values())}
+
+    names = [SV.tenant_name(i) for i in range(3)]
+    events = SV.build_workload(n_tenants=3, duration=4.0, rate=4.0,
+                               tick_every=0.25, seed=31)
+    with tempfile.TemporaryDirectory() as root:
+        inj = ServiceFaultInjector(ServiceFaultSpec(torn_write_p=0.3,
+                                                    seed=31))
+        svc = steady(root, inj)
+        register(svc, names, 4)
+        SV.drive(svc, events, make_mat=mk)
+        torn = good = 0
+        for n in names:
+            for fn in sorted(os.listdir(os.path.join(root, n))):
+                if fn.startswith("rec_"):
+                    with open(os.path.join(root, n, fn), "rb") as f:
+                        buf = f.read()
+                    try:
+                        decode_journal(buf, REC_MAGIC)
+                        good += 1
+                    except TornRecordError:
+                        torn += 1
+        rec = steady(root)
+        replayed = register(rec, names, 4)
+        quarantined = sum(t["quarantined_records"]
+                          for t in rec.stats()["tenants"].values())
+        rec.drain(4.0)
+        out["torn_journal"] = {
+            "torn_injected": inj.injected["torn_write"],
+            "expected_torn": torn, "expected_good": good,
+            "quarantined": quarantined, "replayed": replayed,
+            "post_recovery_flushes": rec.flush_ordinal}
+    return out
+
+
+def host_push_sums(events, shape, nnz):
+    """Per tenant, the float64 sum of its pushes by key (sorted keys and
+    sums), from the load generator's draws made again here with numpy:
+    ``rng.choice`` positions of the row-major ``m x n`` array, keyed
+    column-major, and ``standard_normal`` values rounded to f32."""
+    m, n = shape
+    parts = {}
+    for ev in events:
+        if ev.kind != "push":
+            continue
+        rng = np.random.default_rng(ev.arrival.mat_seed)
+        idx = rng.choice(m * n, size=min(nnz, m * n), replace=False)
+        vals = rng.standard_normal(len(idx)).astype(np.float32)
+        parts.setdefault(ev.arrival.tenant, []).append(
+            ((idx % n) * m + idx // n, vals.astype(np.float64)))
+    out = {}
+    for t, ps in parts.items():
+        keys = np.concatenate([k for k, _ in ps])
+        uniq, inv = np.unique(keys, return_inverse=True)
+        out[t] = (uniq, np.bincount(inv, weights=np.concatenate(
+            [v for _, v in ps])))
+    return out
+
+
+#: Tenants of the stream-service drive: 512 cut to 64. On this card the
+#: ``hash`` regime's sliding-hash geometry gives every row of a co-flush
+#: 2 x m x n table slots (2,048 parts of 16,384 at 65,536 x 256: 268 MB of
+#: tables and about 1 GB with the compaction's sort), so one co-flush holds
+#: about 60 tenants in 80 GB; with 512 tenants the first co-flush (120 of
+#: them) ran out of memory. At 64 the largest co-flush has 30.
+STREAM_TENANTS = 64
+
+
+def run_stream_service(torch, seed: int, dev, kernels: dict):
+    """Phase ``stream_service``: the multi-tenant stream service through
+    the port's entry points on the card.
+
+    (a) The chaos cells of ``benchmarks/stream_service.py --smoke`` at
+    their own sizes and seeds (:func:`stream_cells`): their counts must be
+    the reference's (:data:`CELL_COUNTS`), crash_replay bitwise.
+
+    (b) One deployment of the size the engine ``hash`` cell stands for:
+    :data:`STREAM_TENANTS` tenants of 65,536 x 256 in one capacity bucket,
+    512 nonzeros a push (``make_matrix``), windows of 15, a 32,768-entry
+    f32 budget, open-loop arrivals at 8 a tenant a simulated second for 4.0 s
+    from ``seed``, ticks every 0.25 s, a 0.5 s deadline, co-flushes of up
+    to 512 windows, watermarks 2^24 / 2^25, the journal on. Drive 1 is the
+    main path: every co-flush must dispatch ``hash`` and launch the
+    sliding-hash kernel, nothing may be deferred or shed, and each tenant's
+    final sum must equal float64 numpy sums of its pushes to 1e-5 with
+    nothing truncated. Drive 2 replays the events with
+    ``algorithm="sorted"`` (no journal) and must end bitwise equal;
+    drive 3 crashes at flush 2, recovers every tenant over its journal,
+    resumes at the crashed event and must end bitwise equal to drive 1
+    (keys, values, nnz, flush counts). Its first co-flush after recovery
+    runs under ``torch.profiler``, its sliding-hash launches timed by CUDA
+    events, the largest one's inputs kept for the kernel line.
+
+    Returns the phase's numbers and the kept launch ``((keys, vals),
+    kwargs)`` of ``ops.hash_slide_tables``."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import engine as E
+    from repro_torch.core.stream_service import StreamService
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import stream_serve as SV
+    from repro_torch.runtime.faults import (ServiceFaultInjector,
+                                            ServiceFaultSpec)
+
+    t_phase = time.monotonic()
+    for fn in kernels.values():
+        fn.launches = 0
+    cells = stream_cells(dev)
+    cell_launches = {k: fn.launches for k, fn in kernels.items()
+                     if fn.launches}
+    for name, want in CELL_COUNTS.items():
+        got = {k: cells[name][k] for k in want}
+        check(got == want, f"phase stream_service: cell {name} gave {got}, "
+              f"the reference {want}")
+    ov = cells["overload_shed"]
+    check(abs(ov["shed_rate"] - CELL_SHED_RATE) < 5e-6
+          and ov["evicted_nnz_hot"] == 0 and ov["conserved"],
+          f"phase stream_service: cell overload_shed {ov}")
+    cr, tj = cells["crash_replay"], cells["torn_journal"]
+    check(cr["crashed"] and cr["crashes_injected"] == 1
+          and cr["resumed_completed"] and cr["quarantined"] == 0,
+          f"phase stream_service: cell crash_replay {cr}")
+    check(tj["quarantined"] == tj["expected_torn"]
+          and tj["replayed"] == tj["expected_good"]
+          and tj["post_recovery_flushes"] >= 1,
+          f"phase stream_service: cell torn_journal {tj}")
+    check(cell_launches.get("segment_fold", 0) > 0, "phase stream_service: "
+          "the cells' co-flushes launched no segment fold")
+    log(f"phase stream_service: cells {cells}; launches {cell_launches}")
+    cells_s = time.monotonic() - t_phase
+
+    tenants, shape, nnz, cap = STREAM_TENANTS, (65536, 256), 512, 32768
+    batch_k, duration, rate = 15, 4.0, 8.0
+    names = [SV.tenant_name(i) for i in range(tenants)]
+    events = SV.build_workload(n_tenants=tenants, duration=duration,
+                               rate=rate, tick_every=0.25, seed=seed)
+    offered = sum(ev.kind == "push" for ev in events)
+
+    def make_service(root, algorithm="auto", fault_injector=None):
+        return StreamService(soft_pending_nnz=1 << 24,
+                             hard_pending_nnz=1 << 25, flush_deadline=0.5,
+                             max_coflush_windows=512, journal_root=root,
+                             fault_injector=fault_injector,
+                             algorithm=algorithm, device=dev)
+
+    def register(svc):
+        return sum(svc.register_tenant(n, shape, cap_budget=cap,
+                                       batch_k=batch_k) for n in names)
+
+    def mk(a):
+        return SV.make_matrix(shape, nnz, a.mat_seed, device=dev)
+
+    def timed_flushes(svc, into: list, dispatched: list):
+        """Wrap ``svc``'s co-flush to keep each one's report, host ms
+        (ending in a synchronize) and the ``(k, regime)`` of each batched
+        engine call it made (from ``dispatched``)."""
+        inner = svc._flush_bucket
+
+        def flush(key, ready, now):
+            torch.cuda.synchronize()
+            n0 = len(dispatched)
+            t0 = time.perf_counter()
+            report = inner(key, ready, now)
+            torch.cuda.synchronize()
+            into.append((report, (time.perf_counter() - t0) * 1e3,
+                         dispatched[n0:]))
+            return report
+        svc._flush_bucket = flush
+
+    def one_drive(svc, flushes, dispatched, start=0):
+        timed_flushes(svc, flushes, dispatched)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = SV.drive(svc, events, make_mat=mk, start_index=start)
+        if res.completed:
+            svc.drain(duration)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def flush_summary(flushes):
+        return {"count": len(flushes),
+                "tenants": [r.tenants for r, _, _ in flushes],
+                "windows": [r.windows for r, _, _ in flushes],
+                "host_ms": [ms for _, ms, _ in flushes],
+                "dispatch": [d for _, _, d in flushes]}
+
+    out = {"tenants": tenants, "reduced": {"tenants": [512, tenants]},
+           "shape": list(shape), "nnz_per_push": nnz,
+           "batch_k": batch_k, "cap_budget": cap, "rate": rate,
+           "duration": duration, "offered": offered, "cells": cells,
+           "cell_launches": cell_launches, "cells_s": cells_s}
+    with tempfile.TemporaryDirectory() as main_dir, \
+            tempfile.TemporaryDirectory() as crash_dir:
+        # ---- drive 1: the main path ------------------------------------
+        svc = make_service(main_dir)
+        register(svc)
+        dispatched, flushes = [], []
+        explain = E.explain_batched_dispatch
+
+        def explain_keeping(*a, **kw):
+            r = explain(*a, **kw)
+            dispatched.append((r[0].k, r[2]))
+            return r
+
+        E.explain_batched_dispatch = explain_keeping
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        try:
+            res, wall = one_drive(svc, flushes, dispatched)
+        finally:
+            E.explain_batched_dispatch = explain
+        launches = {k: fn.launches for k, fn in kernels.items()
+                    if fn.launches}
+        st = svc.stats()["tenants"]
+        check(res.completed and res.admitted == offered and res.deferred == 0
+              and res.rate_limited == 0, f"phase stream_service: drive 1 "
+              f"admitted {res.admitted} of {offered} (deferred "
+              f"{res.deferred}, rate-limited {res.rate_limited})")
+        check(sum(t["evicted_windows"] for t in st.values()) == 0,
+              "phase stream_service: drive 1 shed windows")
+        # every co-flush runs its windows through ``hash``; the drain's
+        # groups of a sum and one or two pushes (k <= 3) go to ``tree``,
+        # the reference's tiny-k regime
+        hashed = sum(alg == "hash" for _, alg in dispatched)
+        check(flushes and all(
+            any(alg == "hash" for _, alg in d)
+            and all(alg == "hash" or (alg == "tree" and k <= 3)
+                    for k, alg in d) for _, _, d in flushes),
+              f"phase stream_service: co-flush dispatch "
+              f"{[d for _, _, d in flushes]}: expected 'hash' in each, "
+              f"'tree' only at k <= 3")
+        check(launches.get("hash_slide", 0) == hashed,
+              f"phase stream_service: {launches.get('hash_slide', 0)} "
+              f"sliding-hash launches for {hashed} hash dispatches")
+        state1 = coo_state(svc, names)
+        out["drive1"] = {"wall_s": wall, "admitted": res.admitted,
+                         "admitted_per_wall_s": res.admitted / wall,
+                         "launches": launches,
+                         "batched_calls": len(dispatched),
+                         "hash_calls": hashed,
+                         "coflushes": flush_summary(flushes),
+                         "summary": SV.summarize(svc, res,
+                                                 duration=duration)}
+        del svc
+        # the float64 numpy sums of every tenant's pushes; the budget must
+        # have dropped nothing
+        ref64 = host_push_sums(events, shape, nnz)
+        worst = 0.0
+        for t in names:
+            keys, vals, n_out, _ = state1[t]
+            uk, us = ref64.get(t, (np.zeros(0, np.int64), np.zeros(0)))
+            check(uk.size <= cap and n_out == uk.size,
+                  f"phase stream_service: tenant {t} holds {n_out} entries "
+                  f"of {uk.size} distinct keys (budget {cap})")
+            check(np.array_equal(keys[:n_out], uk), f"phase stream_service: "
+                  f"tenant {t}'s keys differ from numpy")
+            got = vals[:n_out]
+            check(np.isfinite(got).all() and np.allclose(
+                got, us, rtol=1e-5, atol=1e-5), f"phase stream_service: "
+                f"tenant {t}'s sums differ from float64 beyond 1e-5")
+            if n_out:
+                worst = max(worst, float(np.abs(got - us).max()))
+        out["drive1"]["max_abs_err_vs_f64"] = worst
+        out["drive1"]["max_distinct_keys"] = max(
+            (ref64[t][0].size for t in ref64), default=0)
+
+        # ---- drive 2: the same events through the sorted path -----------
+        svc = make_service(None, algorithm="sorted")
+        register(svc)
+        flushes2 = []
+        res2, wall2 = one_drive(svc, flushes2, [])
+        check(same_state(state1, coo_state(svc, names)),
+              "phase stream_service: drive 1 differs bitwise from the "
+              "sorted drive")
+        out["drive2_sorted"] = {"wall_s": wall2, "admitted": res2.admitted,
+                                "admitted_per_wall_s": res2.admitted / wall2,
+                                "coflushes": flush_summary(flushes2)}
+        del svc
+
+        # ---- drive 3: a crash at flush 2, recovery, resume --------------
+        inj = ServiceFaultInjector(ServiceFaultSpec(crash_at_flush=(2,)))
+        svc = make_service(crash_dir, fault_injector=inj)
+        register(svc)
+        flushes3 = []
+        res3, wall3 = one_drive(svc, flushes3, [])
+        check(not res3.completed and inj.injected["crash"] == 1,
+              "phase stream_service: drive 3 did not crash at flush 2")
+        del svc
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = make_service(crash_dir)
+        replayed = register(rec)
+        torch.cuda.synchronize()
+        recovery_ms = (time.perf_counter() - t0) * 1e3
+        check(replayed > 0, "phase stream_service: recovery replayed "
+              "nothing")
+        # the first co-flush after recovery (the one the crash swallowed),
+        # under the profiler, its sliding-hash launches timed by events
+        kept, slides = [], []
+        inner = rec._flush_bucket
+        table_fn = kops.hash_slide_tables
+
+        def slide_timed(*a, **kw):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            r = table_fn(*a, **kw)
+            ev1.record()
+            slides.append((ev0, ev1, kw["parts"], tuple(a[0].shape)))
+            kept.append((a, kw))
+            return r
+
+        def profiled_flush(key, ready, now):
+            rec._flush_bucket = inner
+            kops.hash_slide_tables = slide_timed
+            try:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    report = inner(key, ready, now)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                kops.hash_slide_tables = table_fn
+            profiled.update(device_times(torch, prof, wall_ms, top=8))
+            profiled.update(tenants=report.tenants, windows=report.windows,
+                            slide_launches=[
+                                {"ms": e0.elapsed_time(e1), "parts": p,
+                                 "shape": list(s)}
+                                for e0, e1, p, s in slides])
+            return report
+
+        profiled = {}
+        rec._flush_bucket = profiled_flush
+        t0 = time.perf_counter()
+        res4 = SV.drive(rec, events, make_mat=mk, start_index=res3.next_index)
+        rec.drain(duration)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        check(res4.completed and profiled, "phase stream_service: the "
+              "resumed drive did not complete a co-flush")
+        check(same_state(state1, coo_state(rec, names)),
+              "phase stream_service: the recovered drive differs bitwise "
+              "from drive 1")
+        out["drive3_crash"] = {
+            "wall_s_to_crash": wall3, "crashed_at_event": res3.next_index,
+            "recovery_ms": recovery_ms, "replayed_records": replayed,
+            "resumed_wall_s": resumed_s,
+            "coflushes_before_crash": flush_summary(flushes3)}
+        out["coflush_profile"] = profiled
+        del rec
+    d1 = out["drive1"]
+    log(f"phase stream_service: {tenants} tenants, {offered} pushes; drive "
+        f"1 {d1['wall_s']:.2f} s ({d1['admitted_per_wall_s']:.0f} admitted "
+        f"pushes a wall second), {d1['coflushes']['count']} co-flushes "
+        f"(tenants {d1['coflushes']['tenants']}, windows "
+        f"{d1['coflushes']['windows']}, host ms "
+        f"{[round(t, 1) for t in d1['coflushes']['host_ms']]}), "
+        f"{d1['batched_calls']} batched calls ({d1['hash_calls']} hash), "
+        f"launches "
+        f"{d1['launches']}; max |err| vs float64 {d1['max_abs_err_vs_f64']:.3g},"
+        f" at most {d1['max_distinct_keys']} distinct keys a tenant")
+    d2 = out["drive2_sorted"]
+    log(f"phase stream_service: sorted drive {d2['wall_s']:.2f} s "
+        f"({d2['admitted_per_wall_s']:.0f} admitted pushes a wall second), "
+        f"bitwise equal; drive 3 crashed at event {res3.next_index} after "
+        f"{wall3:.2f} s, recovery {recovery_ms:.1f} ms replaying {replayed} "
+        f"records, resumed drive {resumed_s:.2f} s (the profiler's start "
+        f"included), bitwise equal to drive 1")
+    log(f"phase stream_service: profiled co-flush ({profiled['tenants']} "
+        f"tenants, {profiled['windows']} windows): device "
+        f"{profiled['device_ms']:.2f} ms of {profiled['wall_ms']:.2f} ms "
+        f"(idle {1 - profiled['busy_share']:.0%}), top "
+        f"{profiled['top'][:4]}; sliding-hash launches "
+        f"{profiled['slide_launches']}")
+    check(kept, "phase stream_service: the profiled co-flush made no "
+          "sliding-hash launch")
+    largest = max(kept, key=lambda c: c[0][0].numel() * c[1]["parts"])
+    return out, largest
 
 
 def catchup_frames(pub, size: int) -> list:
@@ -666,11 +1181,13 @@ def partition_catchup(torch, partition, call) -> dict:
             "bound_ms": ms_bound[0], "bytes": nbytes}
 
 
-def slide_catchup(torch, hash_slide, caught, seed, sample: int = 8) -> dict:
+def slide_catchup(torch, hash_slide, caught, seed, sample: int = 8,
+                  what: str = "the catch-up's") -> dict:
     """The sliding-hash kernel at the delta-sync catch-up's largest launch
     (``caught["largest"]``: the ``(args, kwargs)`` of its
     ``ops.hash_slide_tables`` call, rebuilt after the phase by
-    :func:`catchup_hash_buckets`, padded here as that call pads them): two
+    :func:`catchup_hash_buckets`, padded here as that call pads them), or
+    at another launch the caller kept (``what`` names it): two
     launches with the same
     bits; ``sample`` parts drawn from ``seed`` checked bitwise against the
     plain version (each part's in-range elements, in stream order, as a
@@ -686,7 +1203,7 @@ def slide_catchup(torch, hash_slide, caught, seed, sample: int = 8) -> dict:
     B, cap = keys.shape
     runs = [hash_slide.hash_slide_raw(keys, vals, **kw) for _ in range(2)]
     check(all(bitwise_equal(torch, a, b) for a, b in zip(runs[0], runs[1])),
-          "hash_slide: two launches at the catch-up's shape differ")
+          f"hash_slide: two launches at {what} shape differ")
     tk, tv = runs[0]
     T, span, parts = kw["table_size"], kw["part_span"], kw["parts"]
     rng = np.random.default_rng(seed)
@@ -707,7 +1224,7 @@ def slide_catchup(torch, hash_slide, caught, seed, sample: int = 8) -> dict:
         lo = p * T
         check(bitwise_equal(torch, tk[b, lo:lo + T].cpu(), wk[0])
               and bitwise_equal(torch, tv[b, lo:lo + T].cpu(), wv[0]),
-              f"hash_slide: part {p} of row {b} at the catch-up's shape "
+              f"hash_slide: part {p} of row {b} at {what} shape "
               f"differs from its plain version")
     del runs, tk, tv
     nbytes = 8 * B * cap + 8 * B * parts * T
@@ -719,7 +1236,7 @@ def slide_catchup(torch, hash_slide, caught, seed, sample: int = 8) -> dict:
             "bound_ms": bound(nbytes, valid)[0], "bytes": nbytes,
             "moved_bytes": hash_slide.moved_bytes(B, cap, table_size=T,
                                                   parts=parts),
-            "buckets": caught["buckets"]}
+            "buckets": caught.get("buckets")}
 
 
 def topk_design(torch, topk_block, x, k, block, leaves, dev, seed) -> dict:
@@ -762,6 +1279,7 @@ def run(args, torch) -> int:
     from repro_torch.core import spkadd as A
     from repro_torch.kernels import _build, hash_accum, hash_slide, ops as kops
     from repro_torch.kernels import partition, segment, spa_accum, topk_block
+    from repro_torch.kernels import xla_add
 
     dev = torch.device("cuda")
     card = nvidia_smi_line()
@@ -786,6 +1304,7 @@ def run(args, torch) -> int:
         "hash_accum": hash_accum.hash_accumulate_raw,
         "hash_symbolic": hash_accum.hash_symbolic_raw,
         "topk_block": topk_block.topk_block_raw,
+        "xla_add": xla_add.xla_add_raw,
     }
 
     def reset_counts():
@@ -1053,8 +1572,27 @@ def run(args, torch) -> int:
     phases["delta_sync"], launches["topk_block"], captured, ds_round = \
         run_delta_sync(torch, args.seed, dev, kernels)
     embed_x = captured["embed_x"]
-    phases["delta_sync"]["round_ms"] = host_ms(torch, ds_round, 3)
+    launches["xla_add"] = phases["delta_sync"]["xla_add_launches"]
+    # the round with the flushing add's plain version (xla_float's extra
+    # passes) in turns with the kernel: kernel, plain, kernel
+    ds = phases["delta_sync"]
+    ds["round_ms"] = host_ms(torch, ds_round, 3)
+    kernel_add = xla_add.xla_add_raw
+    xla_add.xla_add_raw = xla_add.xla_add_plain
+    try:
+        ds["round_plain_add_ms"] = host_ms(torch, ds_round, 3)
+    finally:
+        xla_add.xla_add_raw = kernel_add
+    ds["round_again_ms"] = host_ms(torch, ds_round, 3)
+    log(f"phase delta_sync: round ms {ds['round_ms']:.2f}, with the plain "
+        f"flushing add {ds['round_plain_add_ms']:.2f}, again "
+        f"{ds['round_again_ms']:.2f}")
     phases["delta_sync"]["phase_s"] = took()
+
+    # ---- 7. stream_service: the multi-tenant stream service -------------
+    phases["stream_service"], stream_launch = run_stream_service(
+        torch, args.seed, dev, kernels)
+    phases["stream_service"]["phase_s"] = took()
 
     # where the time of each phase's engine call goes, on the device
     profiles = {
@@ -1188,7 +1726,13 @@ def run(args, torch) -> int:
             parts=geom2.parts),
         "catchup": slide_catchup(torch, hash_slide,
                                  captured.pop("catchup_hash"), args.seed),
+        "stream_service_launches":
+        phases["stream_service"]["drive1"]["launches"]["hash_slide"],
+        "stream_coflush": slide_catchup(
+            torch, hash_slide, {"largest": stream_launch}, args.seed,
+            what="the stream co-flush's"),
     })
+    del stream_launch
     del tk, tv, pk, pv
 
     # segment_fold, on phase 1's plan-sorted stream
@@ -1477,6 +2021,51 @@ def run(args, torch) -> int:
     })
     captured["topk_leaves"].clear()
     del got_i, got_v, want_i, want_v
+
+    # xla_add, at the embed leaf's size (a publish's largest pass): its
+    # epoch-1 update against a seeded second operand, with subnormals of
+    # both signs and pairs whose difference or sum is subnormal planted in
+    # a seeded sample of slots
+    xrng = np.random.default_rng(args.seed + 17)
+    n_x = embed_x.numel()
+    xb = torch.from_numpy(xrng.integers(-256, 256, n_x).astype(np.float32)
+                          * np.float32(GRID)).to(dev)
+    xa = embed_x.clone()
+    plant = torch.from_numpy(xrng.choice(n_x, 4096, replace=False)).to(dev)
+    pa = np.float32([1e-40, -1e-40, 1.5e-38, -1.4e-38, -0.0, 2.0, 1.4e-38,
+                     -3e-39])
+    pb = np.float32([1e-40, 0.0, 1.4e-38, -1.5e-38, -1e-40, 1e-40, -1.5e-38,
+                     3e-39])
+    pick = torch.from_numpy(xrng.integers(0, pa.size, 4096)).to(dev)
+    xa[plant] = torch.from_numpy(pa).to(dev)[pick]
+    xb[plant] = torch.from_numpy(pb).to(dev)[pick]
+    xla_err = 0.0
+    for sub in (False, True):
+        got = xla_add.xla_add_raw(xa, xb, subtract=sub)
+        want = xla_add.xla_add_plain(xa, xb, subtract=sub)
+        check(bitwise_equal(torch, got, want),
+              f"xla_add kernel differs from its plain version "
+              f"(subtract={sub})")
+        xla_err = max(xla_err, float((got - want).abs().max()))
+    xla_bytes = 12 * n_x
+    xla_bound = bound(xla_bytes, n_x)
+    report.append({
+        "name": "xla_add", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/xla_add.cu",
+        "replaces": "src/repro/core/topk.py:95",
+        "launches": launches["xla_add"],
+        "max_abs_err": xla_err,
+        "ms": cuda_ms(torch, lambda: xla_add.xla_add_raw(
+            xa, xb, subtract=True), 20),
+        "plain_ms": cuda_ms(torch, lambda: xla_add.xla_add_plain(
+            xa, xb, subtract=True), 5),
+        "bound_ms": xla_bound[0], "bound_by": xla_bound[1],
+        # a yardstick only: torch.sub keeps subnormals
+        "library_ms": cuda_ms(torch, lambda: torch.sub(xa, xb), 20),
+        "library": "torch.sub", "bytes": xla_bytes,
+        "elements": n_x, "planted_subnormal_slots": 4096,
+    })
+    del xa, xb, plant, pick
 
     for r in report:
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")

@@ -12,8 +12,10 @@ Two selectors:
   (``kernels/csrc/topk_block.cu``), on the CPU its plain version.
 
 Error feedback: the untransmitted residual is carried into the next step
-so compression error doesn't bias the descent direction. Every function
-follows its input's device and returns the reference's bits.
+so compression error doesn't bias the descent direction; its f32 add and
+subtraction go through the ``xla_add`` kernel on the card
+(``kernels/csrc/xla_add.cu``, XLA's subnormal rule in one pass). Every
+function follows its input's device and returns the reference's bits.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import torch
 
 from repro_torch.core.sparse import top_k_abs
 from repro_torch.kernels import ops as _ops
+from repro_torch.kernels import xla_float
+from repro_torch.kernels import xla_add as _xla_add
 
 
 class SparseUpdate(NamedTuple):
@@ -75,14 +79,15 @@ def per_shard_k(n: int, k_fraction: float, n_shards: int) -> int:
 def densify(u: SparseUpdate) -> torch.Tensor:
     """The dense ``(size,)`` tensor of ``u``: each value **added** into a
     zero, as the reference's ``.at[].add`` does (``0.0 + -0.0`` is
-    ``+0.0``), with padding dropped.
+    ``+0.0``, a subnormal value gives a zero of its sign), with padding
+    dropped.
 
     Precondition (held by both selectors): indices below ``size`` are
     unique, so a gather, an add and a scatter give the in-order add's bits
     with no atomics; only padding repeats, at slot ``size``, with +0.0."""
     out = torch.zeros(u.size + 1, dtype=u.val.dtype, device=u.val.device)
     i = torch.clamp(u.idx, 0, u.size).long()
-    out[i] = out[i] + u.val
+    out[i] = xla_float.add_as(out[i], u.val)
     return out[: u.size]
 
 
@@ -90,13 +95,26 @@ def sparsify_with_feedback(grad: torch.Tensor, residual: torch.Tensor, k: int,
                            selector: str = "global",
                            block: int = 4096) -> Tuple[SparseUpdate,
                                                        torch.Tensor]:
-    """EF: compress (grad + residual); return update + new residual."""
-    corrected = grad.reshape(-1) + residual
+    """EF: compress (grad + residual); return update + new residual.
+
+    Both the add and the subtraction follow XLA's float rules: a subnormal
+    input or result is a zero of its sign, as in the reference."""
+    dt = torch.result_type(grad, residual)
+    corrected = _xla_op(grad.reshape(-1).to(dt), residual.to(dt))
     if selector == "global":
         u = topk_global(corrected, k)
     elif selector == "block":
         u = topk_block(corrected, k, block=block)
     else:
         raise ValueError(f"unknown selector {selector!r}")
-    new_residual = corrected - densify(u)
+    new_residual = _xla_op(corrected, densify(u), subtract=True)
     return u, new_residual
+
+
+def _xla_op(a: torch.Tensor, b: torch.Tensor, *,
+            subtract: bool = False) -> torch.Tensor:
+    """f32 through :func:`~repro_torch.kernels.xla_add.xla_add_raw`;
+    other types through ``xla_float``'s plain arithmetic."""
+    if a.dtype == torch.float32:
+        return _xla_add.xla_add_raw(a, b, subtract=subtract)
+    return xla_float.sub_as(a, b) if subtract else xla_float.add_as(a, b)

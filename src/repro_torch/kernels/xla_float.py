@@ -42,6 +42,12 @@ def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return flush(flush(a) + flush(b))
 
 
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a - b`` as XLA subtracts f32: subnormal inputs and result flushed
+    (the bits of ``add(a, -b)``)."""
+    return flush(flush(a) - flush(b))
+
+
 def add_scalar(a: np.float32, b: np.float32) -> np.float32:
     """:func:`add` of two numpy f32 scalars, for the plain versions' loops
     over one element at a time (a tensor op per element is far slower)."""
@@ -71,3 +77,13 @@ def add_as(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.float32:
         return add(a, b.to(torch.float32))
     return a + b.to(a.dtype)
+
+
+def sub_as(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a - b`` in ``a``'s type as XLA subtracts: :func:`add_as`'s rules
+    with :func:`sub`."""
+    if a.dtype == torch.bfloat16:
+        return round_bf16(sub(a.float(), b.float()))
+    if a.dtype == torch.float32:
+        return sub(a, b.to(torch.float32))
+    return a - b.to(a.dtype)

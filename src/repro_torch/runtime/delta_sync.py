@@ -61,6 +61,7 @@ from repro_torch.core.engine import spkadd_batched_ragged
 from repro_torch.core.sparse import PaddedCOO, make_empty, resolve_device
 from repro_torch.core.topk import global_k, sparsify_with_feedback
 from repro_torch.kernels import xla_float
+from repro_torch.kernels import xla_add as _xla_add
 from repro_torch.runtime.faults import backoff_delay
 from repro_torch.train.step import init_ef_state
 
@@ -319,7 +320,8 @@ class PublishStats(NamedTuple):
 class DeltaPublisher:
     """Top-k + error-feedback delta publisher over a pluggable transport.
 
-    Per :meth:`publish`: for each leaf, EF-compress ``cur - prev`` with
+    Per :meth:`publish`: for each leaf, EF-compress ``cur - prev`` (XLA's
+    f32 subtraction, ``kernels/xla_add``) with
     :func:`sparsify_with_feedback` (``selector`` ``"global"`` or
     ``"block"``, blocks of 4,096), emit one checksummed frame per leaf,
     advance the shadow by the same scatter subscribers apply, and keep the
@@ -401,7 +403,8 @@ class DeltaPublisher:
                       k_fraction=self.k_fraction):
             for i, leaf in enumerate(leaves):
                 cur = _flat_f32(leaf, self.device)
-                delta = cur - self._prev[i]
+                delta = _xla_add.xla_add_raw(cur, self._prev[i],
+                                              subtract=True)
                 u, self._residual[i] = sparsify_with_feedback(
                     delta, self._residual[i], self._k[i],
                     selector=self.selector)

@@ -1,6 +1,6 @@
 """Deterministic fault injection and the shared retry policy.
 
-The port of the delta-sync half of ``src/repro/runtime/faults.py``:
+The port of ``src/repro/runtime/faults.py``:
 
 - :class:`FailureInjector` — step-level crashes for the
   :class:`~repro_torch.runtime.supervisor.Supervisor` (raise at given
@@ -10,13 +10,18 @@ The port of the delta-sync half of ``src/repro/runtime/faults.py``:
   stall, every draw from one ``numpy`` generator seeded by
   :class:`FaultSpec`, in the reference's order, so a chaos run replays the
   reference's run from the same seed.
+- :class:`ServiceFaultInjector` — durability-level chaos for the
+  multi-tenant stream service (``core/stream_service.py``): journal torn
+  writes (a record file left truncated, as a crash mid-``write`` would),
+  planned mid-flush crashes (:class:`InjectedCrash` raised after the engine
+  call, before any state or journal commit), and the slow-tenant stall /
+  burst-arrival plan the ``launch/stream_serve.py`` load generator reads.
+  Its draws come from one ``numpy`` generator seeded by
+  :class:`ServiceFaultSpec`, in the reference's order, so a torn-write run
+  cuts the reference's records at the same bytes.
 - :func:`backoff_delay` — the capped-exponential-backoff-with-jitter
-  schedule shared by the supervisor's restarts and the subscriber's resend
-  retries.
-
-The stream service's fault classes (``ServiceFaultSpec``,
-``ServiceFaultInjector``, ``InjectedCrash``) come with the port of the
-streaming service.
+  schedule shared by the supervisor's restarts, the subscriber's resend
+  retries and the stream service's retry-after hints.
 """
 from __future__ import annotations
 
@@ -177,3 +182,82 @@ class FaultyTransport:
             self._released.add(epoch)
             for buf in self._stalled.pop(epoch):
                 self.inner.send(buf)
+
+
+# ---------------------------------------------------------------------------
+# stream-service chaos (core/stream_service.py)
+# ---------------------------------------------------------------------------
+
+class InjectedCrash(RuntimeError):
+    """A planned crash from a :class:`ServiceFaultSpec` — the process is
+    considered dead at the raise site; recovery goes through the journal."""
+
+
+class ServiceFaultSpec(NamedTuple):
+    """Seeded fault plan for the multi-tenant stream service.
+
+    ``torn_write_p`` — per-record probability that the journal file lands
+    truncated (the bytes a crash mid-``write`` would leave; checksums must
+    catch it at recovery). ``crash_at_flush`` — 1-based flush ordinals that
+    raise :class:`InjectedCrash` mid-flush: after the engine computed the
+    co-flush, before any in-memory or journal commit — the point where an
+    unjournaled service would lose the window. ``stall_tenants`` emit no
+    arrivals in ``(stall_from, stall_until)`` (a slow tenant going cold —
+    the load generator reads this); ``burst_at`` are times the generator
+    compresses ``burst_factor`` windows of arrivals into one instant.
+    """
+    torn_write_p: float = 0.0
+    crash_at_flush: Tuple[int, ...] = ()
+    stall_tenants: Tuple[str, ...] = ()
+    stall_from: float = 0.0
+    stall_until: float = 0.0
+    burst_at: Tuple[float, ...] = ()
+    burst_factor: int = 1
+    seed: int = 0
+
+    def validate(self) -> "ServiceFaultSpec":
+        if not 0.0 <= self.torn_write_p <= 1.0:
+            raise ValueError(
+                f"ServiceFaultSpec.torn_write_p must be in [0, 1], got "
+                f"{self.torn_write_p}")
+        if any(o < 1 for o in self.crash_at_flush):
+            raise ValueError("crash_at_flush ordinals are 1-based (>= 1)")
+        if self.burst_factor < 1:
+            raise ValueError("ServiceFaultSpec.burst_factor must be >= 1")
+        if self.stall_until < self.stall_from:
+            raise ValueError("stall_until must be >= stall_from")
+        return self
+
+
+class ServiceFaultInjector:
+    """Injection hooks the stream service calls at its durability points.
+
+    ``self.injected`` counts every fault applied (``torn_write`` /
+    ``crash``) for assertions and chaos reports; the generator-side plan
+    (stalls, bursts) is read straight off ``spec`` by the load generator.
+    """
+
+    def __init__(self, spec: ServiceFaultSpec):
+        self.spec = spec.validate()
+        self._rng = np.random.default_rng(spec.seed)
+        self._flushes = 0
+        self.injected: "collections.Counter[str]" = collections.Counter()
+
+    def mangle_record(self, buf: bytes) -> bytes:
+        """Journal-write hook: with ``torn_write_p``, return a truncated
+        record (cut somewhere past the magic so the damage is a checksum /
+        length violation, not a missing file)."""
+        if len(buf) > 8 and self._rng.random() < self.spec.torn_write_p:
+            cut = int(self._rng.integers(8, len(buf)))
+            self.injected["torn_write"] += 1
+            return buf[:cut]
+        return buf
+
+    def maybe_crash_flush(self) -> None:
+        """Flush hook: called once per co-flush, after the engine call and
+        before any commit; raises on planned ordinals."""
+        self._flushes += 1
+        if self._flushes in self.spec.crash_at_flush:
+            self.injected["crash"] += 1
+            raise InjectedCrash(
+                f"injected mid-flush crash at flush #{self._flushes}")

@@ -19,6 +19,7 @@ from repro_torch.core import spkadd as A
 from repro_torch.kernels import hash_accum, hash_slide, ops as kops
 from repro_torch.core import topk as T
 from repro_torch.kernels import partition, segment, spa_accum, topk_block
+from repro_torch.kernels import xla_add
 from repro_torch.kernels.hash_accum import hash_table_size
 from repro_torch.runtime import delta_sync as D
 
@@ -985,3 +986,164 @@ def test_delta_sync_on_card_equals_cpu(cuda):
                                       bits(sub_c.params[k]))
         np.testing.assert_array_equal(bits(sub_c.params[k]),
                                       bits(pub_c.shadow_params()[k]))
+
+
+SUBNORMAL_PAIRS = np.float32([
+    [1e-40, 1e-40], [-1e-40, 0.0], [1.5e-38, 1.4e-38], [-1.4e-38, -1.5e-38],
+    [-0.0, -1e-40], [2.0, 1e-40], [1.4e-38, -1.5e-38], [-3e-39, 3e-39],
+    [np.inf, 1.0], [-0.0, 0.0]])
+
+
+@pytest.mark.parametrize("n,offset", [(1, 0), (7, 0), (4099, 0), (4099, 1),
+                                      (1 << 20, 0)])
+@pytest.mark.parametrize("subtract", [False, True])
+def test_xla_add_kernel_bitwise_vs_plain(cuda, n, offset, subtract):
+    """Subnormal inputs and results flushed to a zero of their sign, on the
+    float4 path, the scalar tail and a misaligned view (offset 1)."""
+    rng = np.random.default_rng(n + offset)
+    ab = rng.standard_normal((2, n + offset)).astype(np.float32)
+    pick = rng.integers(0, len(SUBNORMAL_PAIRS), n + offset)
+    plant = rng.random(n + offset) < 0.3
+    ab[:, plant] = SUBNORMAL_PAIRS[pick[plant]].T
+    a = torch.as_tensor(ab[0])[offset:]
+    b = torch.as_tensor(ab[1])[offset:]
+    want = xla_add.xla_add_plain(a, b, subtract=subtract)
+    before = xla_add.xla_add_raw.launches
+    got = xla_add.xla_add_raw(a.to(cuda), b.to(cuda), subtract=subtract)
+    torch.cuda.synchronize()
+    assert xla_add.xla_add_raw.launches == before + 1
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+def test_subnormal_publish_on_card_equals_cpu(cuda):
+    """A publish whose deltas are subnormal: frames, residuals and shadow
+    on the card equal the CPU's bits (the CPU's are the reference's,
+    ``tests/test_torch_faults.py``)."""
+    zeros = {"a": torch.zeros(2), "b": torch.zeros(4)}
+    moved = {"a": torch.tensor([1e-40, 2.0]),
+             "b": torch.tensor([1e-40, 2.0, 0.0, 0.0])}
+    sides = []
+    for dev in ("cpu", cuda):
+        wire = D.InProcTransport()
+        pub = D.DeltaPublisher({k: v.to(dev) for k, v in zeros.items()},
+                               wire, k_fraction=0.5, device=dev)
+        pub.publish({k: v.to(dev) for k, v in moved.items()})
+        sides.append((pub, wire.poll()))
+    (pub_c, frames_c), (pub_g, frames_g) = sides
+    assert frames_g == frames_c
+    for a, b in zip(pub_g._residual, pub_c._residual):
+        np.testing.assert_array_equal(bits(a), bits(b))
+    for k in zeros:
+        np.testing.assert_array_equal(bits(pub_g.shadow_params()[k]),
+                                      bits(pub_c.shadow_params()[k]))
+
+
+# ---------------------------------------------------------------------------
+# the stream service (core/streaming, core/stream_service)
+# ---------------------------------------------------------------------------
+
+def test_truncate_by_magnitude_on_card_equals_cpu(cuda):
+    """NaN (both signs), ties of equal magnitude, +-0 and sentinel slots
+    picked by a cap past the valid entries, in one batched input."""
+    from repro_torch.core.streaming import truncate_by_magnitude
+
+    sent = 64
+    rng = np.random.default_rng(51)
+    keys = np.stack([rng.permutation(64)[:40] for _ in range(3)])
+    keys[:, 30:] = sent
+    vals = rng.choice(np.float32([1, -1, 2, -2, 0.5, -0.0, 0.0, np.nan,
+                                  -np.nan]), keys.shape)
+    vals[keys == sent] = 0.0
+    a = S.PaddedCOO(torch.as_tensor(keys.astype(np.int32)),
+                    torch.as_tensor(vals), torch.full((3,), 30,
+                                                      dtype=torch.int32),
+                    (8, 8))
+    for cap in (5, 20, 35):
+        want = truncate_by_magnitude(a, cap)
+        got = truncate_by_magnitude(
+            S.PaddedCOO(a.keys.to(cuda), a.vals.to(cuda), a.nnz.to(cuda),
+                        a.shape), cap)
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(bits(g), bits(w))
+
+
+def _service_drive(dev, root):
+    """crash_replay's cell at 32 x 8 with capacity 64 (sums truncate):
+    crash at flush 3, recovery over the journal, resume, drain."""
+    from repro_torch.core.stream_service import StreamService
+    from repro_torch.launch import stream_serve as SV
+    from repro_torch.runtime.faults import (ServiceFaultInjector,
+                                            ServiceFaultSpec)
+
+    names = [SV.tenant_name(i) for i in range(4)]
+    events = SV.build_workload(n_tenants=4, duration=4.0, rate=3.0,
+                               tick_every=0.25, seed=52)
+
+    def svc(fault_injector=None):
+        s = StreamService(flush_deadline=0.5, journal_root=str(root),
+                          fault_injector=fault_injector, device=dev)
+        replayed = sum(s.register_tenant(n, (32, 8), cap_budget=64,
+                                         batch_k=3) for n in names)
+        return s, replayed
+
+    def mk(a):
+        return SV.make_matrix((32, 8), 16, a.mat_seed, device=dev)
+
+    crash, _ = svc(ServiceFaultInjector(ServiceFaultSpec(
+        crash_at_flush=(3,))))
+    res = SV.drive(crash, events, make_mat=mk)
+    assert not res.completed
+    rec, replayed = svc()
+    assert replayed > 0
+    SV.drive(rec, events, make_mat=mk, start_index=res.next_index)
+    rec.drain(4.0)
+    return {n: tuple(bits(t) for t in rec.value(n)[:3]) for n in names}, \
+        rec.stats()
+
+
+def test_stream_service_drive_on_card_equals_cpu(cuda, tmp_path):
+    before = segment.segment_fold.launches
+    want, want_stats = _service_drive("cpu", tmp_path / "cpu")
+    got, got_stats = _service_drive(cuda, tmp_path / "cuda")
+    torch.cuda.synchronize()
+    assert segment.segment_fold.launches > before  # the co-flushes' spa
+    assert got_stats == want_stats
+    for name in want:
+        for g, w in zip(got[name], want[name]):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_coflush_at_full_width_launches_bucketed_hash_slide(cuda):
+    """Four tenants of 65,536 x 256 with a 16,384-entry budget and one
+    15-push window each: one co-flush, dispatched to ``hash``, whose
+    sliding-hash launch buckets each row by part; equal to a ``sorted``
+    service's co-flush bitwise."""
+    from repro_torch import obs
+    from repro_torch.core.stream_service import StreamService
+    from repro_torch.launch import stream_serve as SV
+
+    shape, names = (65536, 256), [SV.tenant_name(i) for i in range(4)]
+    outs = {}
+    for alg in ("auto", "sorted"):
+        svc = StreamService(flush_deadline=0.5, algorithm=alg, device=cuda)
+        for n in names:
+            svc.register_tenant(n, shape, cap_budget=16384, batch_k=15)
+        for i, n in enumerate(names):
+            for j in range(15):
+                svc.push(n, SV.make_matrix(shape, 512, 1000 * i + j,
+                                           device=cuda), now=0.01 * j)
+        before = hash_slide.hash_slide_raw.launches
+        reports = svc.tick(now=1.0)
+        torch.cuda.synchronize()
+        assert len(reports) == 1 and reports[0].tenants == 4
+        launched = hash_slide.hash_slide_raw.launches - before
+        if alg == "auto":
+            assert launched == 1
+            assert obs.gauge("kernels.hash_slide.parts").value > 1
+        else:
+            assert launched == 0
+        outs[alg] = {n: tuple(bits(t) for t in svc.value(n)[:3])
+                     for n in names}
+    for n in names:
+        for g, w in zip(outs["auto"][n], outs["sorted"][n]):
+            np.testing.assert_array_equal(g, w)

@@ -10,6 +10,9 @@ C. ``interop.padded_coo_from_numpy`` takes a reference PaddedCOO with bf16
    values, bit for bit.
 D. ``interop.params_from_numpy`` takes a reference params tree of
    ``jax.Array`` leaves.
+E. The delta publisher's arithmetic (``sparsify_with_feedback``'s add and
+   subtraction, ``densify``'s add, the publisher's ``cur - prev``) flushes
+   subnormals as XLA does.
 """
 import numpy as np
 import jax
@@ -19,6 +22,7 @@ import torch
 
 from repro.core import engine as JE
 from repro.core import sparse as JS
+from repro.core import topk as JT
 from repro.core.spkadd import spkadd as ref_spkadd
 from repro.kernels import ref as JR
 from repro.runtime import delta_sync as JD
@@ -27,8 +31,9 @@ from repro_torch import tree as port_tree
 from repro_torch.core import engine as TE
 from repro_torch.core import sparse as TS
 from repro_torch.core import spkadd as TA
+from repro_torch.core import topk as TT
 from repro_torch.kernels import hash_accum, hash_slide, partition, segment
-from repro_torch.kernels import spa_accum, xla_float
+from repro_torch.kernels import spa_accum, xla_add, xla_float
 from repro_torch.runtime import delta_sync as TD
 
 from _torch_parity import np_of, to_port
@@ -268,3 +273,85 @@ def test_params_from_numpy_takes_a_reference_params_tree():
         gb = g.view(torch.int16).numpy() if g.dtype == torch.bfloat16 \
             else g.numpy()
         assert gb.tobytes() == w.tobytes()
+
+
+# ---------------------------------------------------------------------------
+# E. the delta publisher's arithmetic
+# ---------------------------------------------------------------------------
+
+def test_every_adding_source_builds_with_ftz():
+    """XLA's subnormal rule on the card is the build flag ``-ftz=true``:
+    every library but the top-k selection (which only orders values)
+    carries it."""
+    from repro_torch.kernels import _build
+
+    assert set(_build.FTZ_SOURCES) == set(_build.SOURCES) - {"topk_block"}
+    assert _build.NVCC_FTZ in _build.flags("xla_add")
+
+
+@pytest.mark.parametrize("a,b", ADD_CASES + [(1.4e-38, 1.5e-38)])
+@pytest.mark.parametrize("subtract", [False, True])
+def test_xla_add_raw_flushes_like_the_reference(a, b, subtract):
+    x, y = np.float32([a]), np.float32([b])
+    jx, jy = jnp.asarray(x), jnp.asarray(y)
+    want = np.asarray(jx - jy if subtract else jx + jy)
+    got = xla_add.xla_add_raw(torch.from_numpy(x), torch.from_numpy(y),
+                              subtract=subtract)
+    assert np_of(got).tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("selector", ["global", "block"])
+def test_sparsify_with_feedback_flushes_like_the_reference(selector):
+    """1e-40 is not selected (k = 1 takes 2.0); the reference's residual
+    holds +0.0 where the unflushed add kept 1e-40."""
+    grad, residual = np.float32([1e-40, 2.0]), np.float32([0.0, 0.0])
+    ju, jres = JT.sparsify_with_feedback(jnp.asarray(grad),
+                                         jnp.asarray(residual), 1,
+                                         selector=selector, block=1)
+    tu, tres = TT.sparsify_with_feedback(torch.from_numpy(grad),
+                                         torch.from_numpy(residual), 1,
+                                         selector=selector, block=1)
+    np.testing.assert_array_equal(np_of(tu.idx), np.asarray(ju.idx))
+    np.testing.assert_array_equal(bits(tu.val), bits(ju.val))
+    np.testing.assert_array_equal(bits(tres), bits(jres))
+    assert bits(tres).tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("val", [1e-40, -1e-40])
+def test_densify_flushes_a_subnormal_like_the_reference(val):
+    idx, v = np.int32([1, 3]), np.float32([val, 0.0])
+    want = JT.densify(JT.SparseUpdate(jnp.asarray(idx), jnp.asarray(v), 3))
+    got = TT.densify(TT.SparseUpdate(torch.from_numpy(idx),
+                                     torch.from_numpy(v), 3))
+    np.testing.assert_array_equal(bits(got), bits(want))
+    assert bits(got).tolist() == [0, 0, 0]
+
+
+def subnormal_publish(pkg, to_pkg, device_kw):
+    """One publish of deltas with a subnormal difference: leaf ``a`` (k = 1
+    takes 2.0 and leaves 1e-40 to the residual), leaf ``b`` (k = 2, whose
+    second pick is the flushed 1e-40: a zero, not shipped)."""
+    zeros = {"a": np.zeros(2, np.float32), "b": np.zeros(4, np.float32)}
+    moved = {"a": np.float32([1e-40, 2.0]),
+             "b": np.float32([1e-40, 2.0, 0.0, 0.0])}
+    wire = pkg.InProcTransport()
+    pub = pkg.DeltaPublisher(to_pkg(zeros), wire, k_fraction=0.5,
+                             **device_kw)
+    pub.publish(to_pkg(moved))
+    return pub, wire.poll()
+
+
+def test_delta_publisher_flushes_a_subnormal_delta_like_the_reference():
+    jpub, jframes = subnormal_publish(
+        JD, lambda t: {k: jnp.asarray(v) for k, v in t.items()}, {})
+    tpub, tframes = subnormal_publish(
+        TD, lambda t: {k: torch.from_numpy(v) for k, v in t.items()},
+        {"device": CPU})
+    assert tframes == jframes
+    assert len(TD.decode_frame(tframes[1]).idx) == 1
+    for jr, tr in zip(jpub._residual, tpub._residual):
+        np.testing.assert_array_equal(bits(tr), bits(np.asarray(jr)))
+    for js, ts in zip(jax.tree_util.tree_leaves(jpub.shadow_params()),
+                      port_tree.leaves(tpub.shadow_params())):
+        np.testing.assert_array_equal(bits(ts), bits(np.asarray(js)))
+    assert all(bits(r).tolist() == [0] * r.numel() for r in tpub._residual)

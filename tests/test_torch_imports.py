@@ -36,7 +36,9 @@ def test_scan_covers_the_port():
     for module in ("tree.py", "core/topk.py", "kernels/topk_block.py",
                    "checkpoint/checkpoint.py", "train/step.py",
                    "runtime/faults.py", "runtime/delta_sync.py",
-                   "runtime/supervisor.py"):
+                   "runtime/supervisor.py", "core/streaming.py",
+                   "core/stream_service.py", "launch/__init__.py",
+                   "launch/stream_serve.py", "kernels/xla_add.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert "chip_smoke.py" in names
 
@@ -54,7 +56,8 @@ def test_kernel_sources_stand_alone():
     csrc = os.path.join(REPO, "src", "repro_torch", "kernels", "csrc")
     sources = sorted(os.listdir(csrc))
     assert {"partition.cu", "hash_slide.cu", "segment_fold.cu",
-            "spa_accum.cu", "hash_accum.cu", "topk_block.cu"} <= set(sources)
+            "spa_accum.cu", "hash_accum.cu", "topk_block.cu",
+            "xla_add.cu"} <= set(sources)
     for name in sources:
         with open(os.path.join(csrc, name)) as f:
             text = f.read()
