@@ -243,10 +243,13 @@ def host_stall_probe(torch, fn, reps: int = 10, top: int = 4) -> dict:
             "runtime": {name: list(r) for name, r in ranked}}
 
 
-def device_profile(torch, fn, wall_ms: float, top: int = 6) -> dict:
+def device_profile(torch, fn, wall_ms: float, top: int = 6,
+                   watch: tuple = ()) -> dict:
     """One call of ``fn`` under ``torch.profiler``: device time summed by
-    kernel name (the ``top`` largest) and the device's busy share of
-    ``wall_ms``, the call's unprofiled median host time."""
+    kernel name (the ``top`` largest, and under ``"watch"`` the ms and
+    launches of the kernels whose names hold each string of ``watch``) and
+    the device's busy share of ``wall_ms``, the call's unprofiled median
+    host time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -255,24 +258,33 @@ def device_profile(torch, fn, wall_ms: float, top: int = 6) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return device_times(torch, prof, wall_ms, top)
+    return device_times(torch, prof, wall_ms, top, watch)
 
 
-def device_times(torch, prof, wall_ms: float, top: int = 6) -> dict:
+def device_times(torch, prof, wall_ms: float, top: int = 6,
+                 watch: tuple = ()) -> dict:
     """A finished profile's device time summed by kernel name (the ``top``
-    largest) and the device's busy share of ``wall_ms``."""
-    rows = []
+    largest; ``watch`` as in :func:`device_profile`) and the device's busy
+    share of ``wall_ms``."""
+    rows, watched = [], {name: [0.0, 0] for name in watch}
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total", 0) or 0
         if us > 0:
             rows.append((ev.key[:90], us / 1e3, ev.count))
+            for name in watch:
+                if name in ev.key:
+                    watched[name][0] += us / 1e3
+                    watched[name][1] += ev.count
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    return {"device_ms": device_ms, "wall_ms": wall_ms,
-            "busy_share": device_ms / wall_ms if wall_ms else None,
-            "top": [list(r) for r in rows[:top]]}
+    out = {"device_ms": device_ms, "wall_ms": wall_ms,
+           "busy_share": device_ms / wall_ms if wall_ms else None,
+           "top": [list(r) for r in rows[:top]]}
+    if watch:
+        out["watch"] = watched
+    return out
 
 
 def bitwise_equal(torch, a, b) -> bool:
@@ -1280,6 +1292,7 @@ def run(args, torch) -> int:
     from repro_torch.kernels import _build, hash_accum, hash_slide, ops as kops
     from repro_torch.kernels import partition, segment, spa_accum, topk_block
     from repro_torch.kernels import xla_add
+    from repro_torch.launch import fold_timing
 
     dev = torch.device("cuda")
     card = nvidia_smi_line()
@@ -1605,7 +1618,7 @@ def run(args, torch) -> int:
                                phases["hash"]["ms"]),
         "family_tree": device_profile(
             torch, lambda: A.spkadd(mats, algorithm="tree"),
-            family["tree"]["ms"]),
+            family["tree"]["ms"], watch=("segment_fold",)),
         "family_blocked_spa": device_profile(
             torch, lambda: A.spkadd(mats, algorithm="blocked_spa"),
             family["blocked_spa"]["ms"]),
@@ -1623,7 +1636,12 @@ def run(args, torch) -> int:
     }
     for name, prof in profiles.items():
         log(f"profile {name}: device {prof['device_ms']:.3f} ms of "
-            f"{prof['wall_ms']:.3f} ms wall; top {prof['top'][:3]}")
+            f"{prof['wall_ms']:.3f} ms wall; top {prof['top'][:3]}"
+            + (f"; {prof['watch']}" if "watch" in prof else ""))
+    tree_fold = profiles["family_tree"]["watch"]["segment_fold"]
+    check(tree_fold[1] == family["tree"]["launches"].get("segment_fold"),
+          f"profile family_tree: {tree_fold[1]} segment-fold kernels, the "
+          f"tree call launched {family['tree']['launches']}")
     # the two family members whose host time has jumped far above their
     # device time in some runs, ten calls each (after the delta-sync
     # phase, whose peak memory and profiler start-up it would change)
@@ -1746,22 +1764,58 @@ def run(args, torch) -> int:
     gid_long = gid.long()
     seg_bytes = 4 * (v_s.numel() + gid.numel() + got.numel())
     seg_bound = bound(seg_bytes, v_s.numel())
+    seg_ms = cuda_ms(torch, lambda: segment.segment_fold(v_s, gid, cat1.cap),
+                     20)
+    seg_lib_ms = cuda_ms(torch, lambda: seg_acc.index_add_(0, gid_long, v_s),
+                         20)
+    # the wrapper's zero fill of the output, inside its time (index_add_
+    # adds into an output allocated beforehand)
+    seg_fill_ms = cuda_ms(torch, lambda: torch.zeros(
+        cat1.cap, dtype=v_s.dtype, device=dev), 20)
+    seg_split = fold_timing.device_split(
+        lambda: segment.segment_fold(v_s, gid, cat1.cap))
+    log(f"segment_fold yardstick: kernel call {seg_ms:.4f} ms, of which "
+        f"zero fill {seg_fill_ms:.4f} ms; index_add_ {seg_lib_ms:.4f} ms "
+        f"(no fill); on the device a call takes {seg_split}")
+    # one run of 2^24: a chain of dependent adds; checked bitwise against
+    # the plain fold at 2^16 (which loops once per element of a run)
+    lrun_v, lrun_g = fold_timing.long_run(1 << 24, args.seed, dev)
+    lrun_ms = cuda_ms(torch, lambda: segment.segment_fold(lrun_v, lrun_g, 1),
+                      3)
+    lrun_got = segment.segment_fold(lrun_v, lrun_g, 1)
+    check(bool(torch.isfinite(lrun_got).all()),
+          "segment_fold: the 2^24 run's total is not finite")
+    short_v, short_g = lrun_v[:1 << 16], lrun_g[:1 << 16]
+    short_got = segment.segment_fold(short_v, short_g, 1)
+    short_want = segment.segment_fold_plain(short_v, short_g, 1)
+    check(bitwise_equal(torch, short_got, short_want),
+          "segment_fold kernel differs from its plain version on one run "
+          "of 2^16")
     report.append({
         "name": "segment_fold", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/segment_fold.cu",
         "replaces": "src/repro/core/sparse.py:325",
         "launches": launches["segment_fold"],
-        "max_abs_err": float((got - want).abs().max()),
-        "ms": cuda_ms(torch, lambda: segment.segment_fold(v_s, gid, cat1.cap),
-                      20),
+        "max_abs_err": max(float((got - want).abs().max()),
+                           float((short_got - short_want).abs().max())),
+        "ms": seg_ms,
         "plain_ms": cuda_ms(torch, lambda: segment.segment_fold_plain(
             v_s, gid, cat1.cap), 3),
         "bound_ms": seg_bound[0],
         "bound_by": seg_bound[1],
-        "library_ms": cuda_ms(torch, lambda: seg_acc.index_add_(
-            0, gid_long, v_s), 20),
+        "library_ms": seg_lib_ms,
+        "library": "index_add_",
+        "zero_fill_ms": seg_fill_ms,
+        "device_split": seg_split,
         "bytes": seg_bytes,
+        "geometry": segment.fold_geometry(1, v_s.numel())._asdict(),
+        "long_run": {
+            "elements": lrun_v.numel(), "ms": lrun_ms,
+            "chain_bound_ms": fold_timing.chain_bound_ms(lrun_v.numel()),
+            "checked_elements": short_v.numel(),
+            "max_abs_err": float((short_got - short_want).abs().max())},
     })
+    del lrun_v, lrun_g, lrun_got, short_got, short_want
 
     # spa_accum, on the family's concatenated stream as given (the
     # blocked_spa path) and stable-sorted (the vec path)

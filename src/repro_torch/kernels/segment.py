@@ -14,6 +14,7 @@ the CUDA kernel for a tensor on the card, and has no other path.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +26,30 @@ _ARGTYPES = [_P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, _P]
 #: Value types the kernel folds, by the code its C entry point takes.
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: The kernel's block: 256 threads of 8 elements (``csrc/segment_fold.cu``
+#: ``SF_THREADS``, ``SF_ITEMS``); a row's tiles start at its first
+#: 8-element boundary, so 16-byte loads read whole chunks.
+THREADS, ITEMS = 256, 8
+TILE = THREADS * ITEMS
+#: Rows beyond this many share a grid row (the kernel strides over them).
+MAX_GRID_ROWS = 65535
+
+
+class FoldGeometry(NamedTuple):
+    tile: int           # elements a block folds
+    tiles_per_row: int  # grid x
+    grid_rows: int      # grid y
+    blocks: int
+
+
+def fold_geometry(rows: int, length: int) -> FoldGeometry:
+    """The kernel's launch for ``rows`` streams of ``length``: the grid the
+    C entry point computes. A row's first tile starts up to 7 elements
+    before it (at ``8 * floor(row * length / 8)``)."""
+    tiles = -(-(length + ITEMS - 1) // TILE)
+    grid_rows = min(rows, MAX_GRID_ROWS)
+    return FoldGeometry(TILE, tiles, grid_rows, tiles * grid_rows)
 
 
 def _as_rows(x: torch.Tensor) -> torch.Tensor:
@@ -53,10 +78,9 @@ def segment_fold(vals: torch.Tensor, gid: torch.Tensor,
     rounds after every add, as PyTorch's bf16 add does.
 
     The reference's ``jax.ops.segment_sum`` over a sorted stream, bitwise.
-    A run is folded by one thread on the card, so callers give sentinel
-    padding the id ``num_segments`` (dropped): a fold from ``+0.0`` is
-    unchanged by zero-valued padding, and a long padding run would be walked
-    serially.
+    On the card a run is one chain of adds in stream order, however long.
+    Callers give sentinel padding the id ``num_segments``: the kernel reads
+    the keys of a dropped run and not its values.
     """
     if vals.shape != gid.shape or vals.dim() not in (1, 2):
         raise ValueError(f"vals/gid must be matching 1-D or 2-D streams, got "

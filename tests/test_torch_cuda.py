@@ -237,17 +237,159 @@ def test_hash_slide_kernel_collision_chain(cuda):
     np.testing.assert_array_equal(bits(gv), bits(wv))
 
 
-@pytest.mark.parametrize("rows,length,segs", [(1, 1000, 1000), (3, 257, 40),
-                                              (2, 64, 1)])
-def test_segment_fold_kernel_bitwise_vs_plain(cuda, rows, length, segs):
-    rng = np.random.default_rng(rows * length)
-    gid = np.sort(rng.integers(-1, segs + 1, size=(rows, length)), axis=1)
-    vals = rng.standard_normal((rows, length)).astype(np.float32)
-    vals[:, ::7] = -0.0
-    g = torch.as_tensor(gid.astype(np.int32))
-    v = torch.as_tensor(vals)
-    want = segment.segment_fold(v, g, segs)
-    got = segment.segment_fold(v.to(cuda), g.to(cuda), segs)
+# Edge cases of the ordered segment fold, by name. ``tile`` is the
+# kernel's tile (``segment.TILE``: strips of 8 elements a lane, slices of
+# 256 a warp inside it); the CPU tests build the same cases at a smaller
+# tile against ``jax.ops.segment_sum``.
+_RUN_LENGTHS = ("1", "7", "8", "9", "31", "32", "33", "tile-1", "tile",
+                "tile+1", "3*tile+5")
+_RUN_OFFSETS = ("0", "255", "256", "tile-1")
+SEGMENT_FOLD_CASES = (
+    [f"random:{r}:{n}:{s}" for r, n, s in ((1, 1000, 1000), (3, 257, 40),
+                                           (2, 64, 1))]
+    + [f"runs:{n}:{o}" for n in _RUN_LENGTHS for o in _RUN_OFFSETS]
+    + ["one-run", "all-dropped", "negative-start", "segs1", "ragged",
+       "neg-zero", "subnormal", "bf16-ties", "bf16-nan"])
+
+
+def _runs_row(rng, lengths, length):
+    """Ids of a row of ``length``: runs of the given lengths in turn (the
+    last one cycling), ids rising by 1-3 so some segments stay empty."""
+    out, gid, i = [], 0, 0
+    while len(out) < length:
+        n = lengths[min(i, len(lengths) - 1)]
+        out.extend([gid] * n)
+        gid += int(rng.integers(1, 4))
+        i += 1
+    return np.asarray(out[:length], np.int64)
+
+
+def segment_fold_case(case, tile):
+    """``(vals, gid, num_segments, bf16)`` of one named case: ``gid`` int32
+    ``(B, L)``, non-decreasing along each row; ``vals`` f32, or bf16 as
+    their uint16 bits when ``bf16``. Values span many magnitudes, so a
+    fold in any other order shows in the bits."""
+    name, *arg = case.split(":")
+    rng = np.random.default_rng(sum(map(ord, case)))
+
+    def size(expr):
+        return int(eval(expr, {"tile": tile}))  # the case table's own terms
+
+    def normal(shape):
+        return (rng.standard_normal(shape)
+                * 10.0 ** rng.integers(-3, 6, size=shape)).astype(np.float32)
+
+    bf16 = False
+    if name == "random":
+        rows, length, segs = map(int, arg)
+        gid = np.sort(rng.integers(-1, segs + 1, size=(rows, length)), axis=1)
+        vals = rng.standard_normal((rows, length)).astype(np.float32)
+        vals[:, ::7] = -0.0
+    elif name == "runs":
+        # row b: off + 3b runs of 1, then runs of n; rows of odd length,
+        # so row 1 starts off the 8-element boundaries
+        n, off = size(arg[0]), size(arg[1])
+        length = off + 3 * n + 2 * tile + 5
+        gid = np.stack([_runs_row(rng, [1] * (off + 3 * b) + [n], length)
+                        for b in range(2)])
+        segs = int(gid.max()) + 3
+        vals = normal(gid.shape)
+    elif name == "one-run":
+        gid = np.repeat(np.arange(2)[:, None], 3 * tile + 5, axis=1)
+        segs, vals = 2, normal(gid.shape)
+    elif name == "all-dropped":
+        segs = 5
+        gid = np.stack([np.full(3000, segs), np.full(3000, -1)])
+        vals = normal(gid.shape)
+    elif name == "negative-start":
+        length = 3 * tile + 301
+        gid = np.stack([np.concatenate([np.sort(rng.integers(-3, 0, lead)),
+                                        _runs_row(rng, [2, 9, 1, 40],
+                                                  length - lead)])
+                        for lead in (300, tile + 1)])
+        segs, vals = int(gid.max()) + 1, normal(gid.shape)
+    elif name == "segs1":
+        row = np.concatenate([np.full(100, -1), np.zeros(tile + 77, int),
+                              np.ones(400, int)])
+        gid, segs, vals = row[None], 1, normal((1, row.size))
+    elif name == "ragged":
+        cap, segs = 2 * tile + 300, 600
+        gid = np.full((5, cap), segs)
+        for b, nnz in enumerate((0, 1, tile - 1, tile + 1, cap)):
+            gid[b, :nnz] = np.sort(rng.integers(0, segs, nnz))
+        vals = normal(gid.shape)
+        vals[gid == segs] = 0.0
+    elif name == "neg-zero":
+        gid = _runs_row(rng, [1, 3, 8, 33, 300], 3 * tile)[None]
+        segs = int(gid.max()) + 1
+        vals = rng.choice(np.float32([-0.0, 0.0, -0.0, 1.5, -2.25]),
+                          gid.shape).astype(np.float32)
+    elif name == "subnormal":
+        gid = _runs_row(rng, [1, 2, 9, 33, 260], 3 * tile)[None]
+        segs = int(gid.max()) + 1
+        vals = subnormal_vals(rng, gid.shape)
+    elif name in ("bf16-ties", "bf16-nan"):
+        # ties: 1.0 + 2^-8 is half a bf16 ulp, rounded to even after every
+        # add; nan: NaNs of both signs and payloads, infinities of both
+        pool = ([0x3F80, 0x3B80, 0x3B80, 0x3C00, 0xBB80, 0x3F81]
+                if name == "bf16-ties" else
+                [0x7FC0, 0xFFC0, 0xFFC1, 0x7F80, 0xFF80, 0x3F80, 0x4000,
+                 0x3F80, 0x4000])
+        gid = np.stack([_runs_row(rng, [1, 5, 8, 40, 300], 2 * tile + 9)
+                        for _ in range(2)])
+        segs, bf16 = int(gid.max()) + 1, True
+        vals = rng.choice(np.uint16(pool), gid.shape).astype(np.uint16)
+    else:
+        raise ValueError(case)
+    return vals, gid.astype(np.int32), segs, bf16
+
+
+def fold_inputs(vals, gid, bf16):
+    v = torch.from_numpy(vals.view(np.int16)).view(torch.bfloat16) \
+        if bf16 else torch.from_numpy(vals)
+    return v, torch.from_numpy(gid)
+
+
+@pytest.mark.parametrize("case", SEGMENT_FOLD_CASES)
+def test_segment_fold_kernel_bitwise_vs_plain(cuda, case):
+    """The kernel against the plain fold run on the card (the card's own
+    NaN rules apply to both), at the kernel's tile: runs that start and
+    end on strip, warp-slice and tile boundaries, runs longer than a tile,
+    dropped ids, ragged rows, -0.0, subnormals under -ftz, bf16 ties and
+    NaNs."""
+    vals, gid, segs, bf16 = segment_fold_case(case, segment.TILE)
+    v, g = fold_inputs(vals, gid, bf16)
+    v, g = v.to(cuda), g.to(cuda)
+    want = segment.segment_fold_plain(v, g, segs)
+    before = segment.segment_fold.launches
+    got = segment.segment_fold(v, g, segs)
+    torch.cuda.synchronize()
+    assert segment.segment_fold.launches == before + 1
+    np.testing.assert_array_equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("case", ["unaligned", "many-rows"])
+def test_segment_fold_kernel_grid_edges_bitwise_vs_plain(cuda, case):
+    """Inputs one element into their storage (no 16-byte loads anywhere,
+    a run streamed past its tile included), and more rows than the grid
+    has (the blocks stride over rows)."""
+    rng = np.random.default_rng(41)
+    if case == "unaligned":
+        gid = np.concatenate([[0], _runs_row(rng, [3, 1, 3 * segment.TILE + 5,
+                                                   9, 40], 5 * segment.TILE)])
+        v = torch.as_tensor(rng.standard_normal(gid.size).astype(np.float32))
+        g = torch.as_tensor(gid.astype(np.int32))
+        v, g = v.to(cuda)[1:], g.to(cuda)[1:]
+        assert v.data_ptr() % 16 and g.data_ptr() % 16
+    else:
+        gid = np.sort(rng.integers(-1, 12, size=(70000, 9)), axis=1)
+        v = torch.as_tensor(rng.standard_normal(gid.shape).astype(
+            np.float32)).to(cuda)
+        g = torch.as_tensor(gid.astype(np.int32)).to(cuda)
+    segs = int(g.max()) + 1
+    want = segment.segment_fold_plain(v, g, segs)
+    got = segment.segment_fold(v, g, segs)
+    torch.cuda.synchronize()
     np.testing.assert_array_equal(bits(got), bits(want))
 
 

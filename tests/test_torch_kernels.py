@@ -34,6 +34,7 @@ from repro_torch.kernels import vec_accum as T_vec
 
 from _torch_parity import (assert_bytes_equal, jax_partition_steps,
                            jax_plan_and_partition, np_of)
+from test_torch_cuda import SEGMENT_FOLD_CASES, fold_inputs, segment_fold_case
 
 
 # ---------------------------------------------------------------------------
@@ -315,19 +316,52 @@ def test_hash_helpers_match():
 # segment fold vs jax.ops.segment_sum
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("length,segs,seed", [(50, 50, 0), (200, 13, 1),
-                                              (64, 1, 2), (7, 30, 3)])
-def test_segment_fold_matches_segment_sum(length, segs, seed):
-    rng = np.random.default_rng(seed)
-    gid = np.sort(rng.integers(0, segs, size=length)).astype(np.int32)
-    vals = (rng.standard_normal(length) * 10.0 ** rng.integers(
-        -3, 8, size=length)).astype(np.float32)
-    vals[::9] = -0.0
-    ref = jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(gid),
-                              num_segments=segs)
-    port = T_seg.segment_fold(torch.as_tensor(vals), torch.as_tensor(gid),
-                              segs)
-    assert_bytes_equal(ref, port)
+#: The card tests' edge cases at a tile of 64 (the kernel's is 2,048):
+#: run lengths around strips, warp slices and tiles, runs of 3 tiles and
+#: more, dropped ids, ragged rows, -0.0, subnormals, bf16 ties and NaNs.
+CPU_FOLD_TILE = 64
+
+
+@pytest.mark.parametrize("case", [f"seed:{n}:{s}:{seed}" for n, s, seed in (
+    (50, 50, 0), (200, 13, 1), (64, 1, 2), (7, 30, 3))] + SEGMENT_FOLD_CASES)
+def test_segment_fold_matches_segment_sum(case):
+    if case.startswith("seed:"):
+        length, segs, seed = map(int, case.split(":")[1:])
+        rng = np.random.default_rng(seed)
+        gid = np.sort(rng.integers(0, segs, size=length)).astype(np.int32)
+        vals = (rng.standard_normal(length) * 10.0 ** rng.integers(
+            -3, 8, size=length)).astype(np.float32)
+        vals[::9] = -0.0
+        bf16 = False  # one (L,) stream
+    else:
+        vals, gid, segs, bf16 = segment_fold_case(case, CPU_FOLD_TILE)
+    port = T_seg.segment_fold(*fold_inputs(vals, gid, bf16), segs)
+    port = np.atleast_2d(np_of(port.view(torch.int16) if bf16 else port))
+    jvals = jnp.asarray(np.atleast_2d(vals))
+    jvals = jvals.view(jnp.bfloat16) if bf16 else jvals
+    for b, row in enumerate(np.atleast_2d(gid)):
+        ref = np.asarray(jax.ops.segment_sum(jvals[b], jnp.asarray(row),
+                                             num_segments=segs))
+        assert_bytes_equal(ref.view(np.int16) if bf16 else ref, port[b],
+                           case)
+
+
+def test_segment_fold_geometry_covers_every_row():
+    """The kernel's grid: every element of every row lies in one of its
+    row's tiles, which start at the 8-element boundary at or before the
+    row, and the grid has no tile more than a row 7 elements past that
+    boundary needs (the kernel skips a tile past its row's end)."""
+    for rows, length in ((1, 1), (3, 7), (5, 2041), (2, 2048), (3, 2049),
+                         (70000, 9), (1, 1 << 24)):
+        geo = T_seg.fold_geometry(rows, length)
+        assert geo.tile == T_seg.TILE == 2048
+        assert geo.grid_rows == min(rows, 65535)
+        assert geo.blocks == geo.tiles_per_row * geo.grid_rows
+        for r in {0, 1, rows - 1} & set(range(rows)):
+            r0 = r * length
+            a0 = r0 - r0 % T_seg.ITEMS
+            assert a0 + geo.tiles_per_row * geo.tile >= r0 + length
+        assert (geo.tiles_per_row - 1) * geo.tile < length + T_seg.ITEMS - 1
 
 
 def test_segment_fold_batched_and_out_of_range_ids_drop():
