@@ -64,7 +64,28 @@ result, when no CUDA card is present or the package is missing.
    sums equal a ``sorted`` drive bitwise and float64 sums to 1e-5, and a
    drive that crashes at flush 2 recovers every tenant bitwise; one
    co-flush after recovery is profiled.
-8. One profiled call of each phase (device time by kernel, busy share),
+8. ``allreduce`` (:func:`run_allreduce`), over ``torch.distributed``
+   with one NCCL rank: one compressed data-parallel step of SmolLM-135M's
+   gradient tree (k_fraction 0.01, block selector), less the model. (a)
+   World size 1: ``compressed_gradient_mean`` for each schedule equals
+   ``densify(u)`` bitwise, mean + new residual equals gradient + residual,
+   the vec accumulator equals the scatter, the 2-D mean on a (1, 1) mesh
+   equals the 1-D one. (b) P = 8 workers on the card: each schedule's
+   local fold of the eight workers' streams in rank 5's ``stream_order``
+   (vec and scatter bitwise equal, each equal to a float64 numpy sum to
+   1e-5, the 2-way schedules to ``gather_kway`` to 1e-6; the vec fold's
+   largest SPA launch replayed through the plain version). (c) One
+   ``adamw_update`` with (b)'s mean. The top-k, ``xla_add``, segment-fold
+   and SPA kernels must launch.
+9. ``spgemm`` (:func:`run_spgemm`): ``spgemm_summa`` on a 1 x 1 mesh at
+   4,096^2, then worker (0, 0) of a 16 x 16 grid on 65,536^2 matrices
+   (its two 1 GiB stripes, 16 stages, Fig. 6's cap) through every
+   reduction algorithm: C tiles equal the stripes' product at rtol 1e-4 /
+   atol 1e-5 and (but ``tree``) ``sorted`` bitwise; ``auto``'s partition
+   launch and ``hash``'s accumulate replayed through the plain versions;
+   the segment-fold, SPA, hash-accumulate and partition kernels must
+   launch.
+10. One profiled call of each phase (device time by kernel, busy share),
    ten profiled calls each of the family's ``vec`` and ``blocked_spa``
    (each call's host time and the CUDA runtime calls that took the most
    host time: where a slow call waits), then each of the eight kernels against its plain PyTorch version on the
@@ -81,8 +102,11 @@ result, when no CUDA card is present or the package is missing.
    delta-sync catch-up's largest launch (its inputs rebuilt after the
    phase by a replay of that launch's engine call); the top-k row its
    radix passes and its time at each leaf shape of a publish beside
-   ``torch.topk``. Then JSON lines of the phases'
-   end-to-end times, the profiles and the kernel numbers (median ms by
+   ``torch.topk``. Each row also counts its launches in phases 8 and 9
+   (``launches_allreduce``, ``launches_spgemm``), and the SPA, partition
+   and hash-accumulate rows fold the replays of those phases' launches
+   (``replay_allreduce``, ``replay_spgemm``) into their ``max_abs_err``. Then JSON lines of the
+   phases' end-to-end times, the profiles and the kernel numbers (median ms by
    CUDA events, bound, plain and library times), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -304,12 +328,11 @@ def same_coo(torch, a, b) -> bool:
 GRID = 2.0 ** -10  # benchmarks/delta_sync.py's update quantum
 
 
-def grid_tree(torch, seq, shapes, lo, hi, dev, pool):
-    """``shapes`` (a nested dict) filled with multiples of 2^-10 drawn in
-    ``[lo, hi)`` with numpy, as f32 tensors on ``dev``: the delta-sync
-    benchmark's dyadic grid, on which every f32 sum of a few such trees is
-    exact in any order. Each leaf draws from its own generator, spawned in
-    order from the ``SeedSequence`` ``seq``, on the threads of ``pool``."""
+def seeded_tree(seq, shapes, draw, pool, to_tensor) -> dict:
+    """``shapes`` (a nested dict) filled by ``draw(generator, shape)``
+    (numpy), each leaf from its own generator spawned in order from the
+    ``SeedSequence`` ``seq``, on the threads of ``pool``; each array goes
+    through ``to_tensor``."""
     paths = []
 
     def walk(node, prefix):
@@ -321,15 +344,24 @@ def grid_tree(torch, seq, shapes, lo, hi, dev, pool):
 
     walk(shapes, ())
     gens = [np.random.default_rng(s) for s in seq.spawn(len(paths))]
-    ints = pool.map(lambda g, p: g.integers(lo, hi, p[1], dtype=np.int16),
-                    gens, paths)
+    arrays = pool.map(lambda g, p: draw(g, p[1]), gens, paths)
     out: dict = {}
-    for (path, _), a in zip(paths, ints):
+    for (path, _), a in zip(paths, arrays):
         node = out
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = torch.from_numpy(a).to(dev).to(torch.float32) * GRID
+        node[path[-1]] = to_tensor(a)
     return out
+
+
+def grid_tree(torch, seq, shapes, lo, hi, dev, pool):
+    """:func:`seeded_tree` of multiples of 2^-10 drawn in ``[lo, hi)``, as
+    f32 tensors on ``dev``: the delta-sync benchmark's dyadic grid, on
+    which every f32 sum of a few such trees is exact in any order."""
+    return seeded_tree(
+        seq, shapes, lambda g, shape: g.integers(lo, hi, shape,
+                                                 dtype=np.int16), pool,
+        lambda a: torch.from_numpy(a).to(dev).to(torch.float32) * GRID)
 
 
 def tree_add(a, b):
@@ -1044,6 +1076,557 @@ def run_stream_service(torch, seed: int, dev, kernels: dict):
     return out, largest
 
 
+def count_launches(torch, kernels: dict, launches: dict, fn):
+    """``(fn(), {kernel: launches})``: every launch count is set to 0 just
+    before ``fn`` runs and read just after; the counts of the kernels named
+    in ``launches`` are added to it."""
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    for name in launches:
+        launches[name] += kernels[name].launches
+    return out, {k: f.launches for k, f in kernels.items() if f.launches}
+
+
+def keeping_largest(module, name: str, fn):
+    """``(fn(), (args, kwargs))``: ``fn`` run with ``module.name`` wrapped
+    to keep the inputs of its launch whose first argument has the most
+    elements (the path's largest launch, replayed by
+    :func:`replay_through_plain`). The kernel's own wrapper is put back
+    while it runs (it counts its launches on its module's name), so launch
+    counts are unchanged."""
+    kernel, kept = getattr(module, name), []
+
+    def keeping(*a, **kw):
+        if not kept or a[0].numel() > kept[0][0][0].numel():
+            kept[:] = [(a, kw)]
+        setattr(module, name, kernel)
+        try:
+            return kernel(*a, **kw)
+        finally:
+            setattr(module, name, keeping)
+
+    setattr(module, name, keeping)
+    try:
+        out = fn()
+    finally:
+        setattr(module, name, kernel)
+    check(bool(kept), f"{name} did not launch on the path")
+    return out, kept[0]
+
+
+def replay_through_plain(torch, raw, plain, call, what: str) -> dict:
+    """One kept launch ``call`` (:func:`keeping_largest`) made again through
+    the kernel and through its plain version on the same card inputs
+    (outside any launch count): fails unless they agree bitwise, and
+    returns the shapes and the max |kernel - plain|."""
+    args, kw = call
+    got, want = raw(*args, **kw), plain(*args, **kw)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    check(len(got) == len(want) and all(
+        bitwise_equal(torch, g, w) for g, w in zip(got, want)),
+        f"{what}: the kernel differs from its plain version")
+    err = max((float((g.double() - w.double()).abs().max())
+               for g, w in zip(got, want) if g.numel()), default=0.0)
+    return {"what": what, "shapes": [list(a.shape) for a in args
+                                     if hasattr(a, "shape")],
+            "kwargs": {k: v for k, v in kw.items()
+                       if isinstance(v, (int, float, str))},
+            "max_abs_err": err}
+
+
+def normal_tree(torch, seq, shapes, scale, dev, pool, flat=False):
+    """:func:`seeded_tree` of f32 standard normals times ``scale``, on
+    ``dev``, each leaf flat when ``flat``."""
+    def to_tensor(a):
+        t = torch.from_numpy(a).to(dev)
+        return t.reshape(-1) if flat else t
+
+    return seeded_tree(
+        seq, shapes, lambda g, shape: g.standard_normal(
+            shape, dtype=np.float32) * np.float32(scale), pool, to_tensor)
+
+
+#: Data-parallel workers of the allreduce phase's P-worker folds, and its
+#: compression (``chip_smoke``'s SmolLM-135M tree; ``final_ln``, 576
+#: elements, is under ``MIN_COMPRESS_ELEMS`` and takes the dense mean).
+ALLREDUCE_WORKERS, ALLREDUCE_K = 8, 0.01
+#: The rank whose streams (b) folds: at rank 5 the three schedules' stream
+#: orders all differ (at rank 0 ``tree_2way``'s is ``gather_kway``'s, at
+#: rank 3 ``ring_2way``'s is ``tree_2way``'s).
+ALLREDUCE_FOLD_RANK = 5
+#: ``TrainHParams``' schedule (``src/repro/train/step.py``): AdamW's step
+#: runs at the end of the warmup.
+ADAMW_SCHEDULE = dict(peak_lr=3e-4, warmup=100, total=10_000)
+ADAMW_STEP = 100
+
+
+def run_allreduce(torch, seed: int, dev, kernels: dict, mesh):
+    """Phase ``allreduce``: one compressed data-parallel step of
+    SmolLM-135M's gradient tree, less the model.
+
+    (a) World size 1 over NCCL: ``compressed_gradient_mean`` for each
+    schedule (k 0.01, the block selector) and ``sparse_allreduce(...,
+    accumulator="vec")`` of each compressed leaf; each mean equals
+    ``densify(u)`` bitwise, mean + new residual equals gradient + residual
+    under XLA's rules, ``final_ln`` takes the dense mean, and
+    ``compressed_gradient_mean_2d`` on the (1, 1) ``mesh`` equals the 1-D
+    mean. (b) P = 8 workers on the card: eight seeded gradient trees (a
+    shared part plus each worker's own), each with its own residual tree,
+    through ``sparsify_with_feedback``; each schedule's local fold of the
+    streams in rank 5's ``stream_order`` (where the three orders differ;
+    the vec fold's largest SPA launch is replayed through the plain
+    version): ``scatter`` and ``vec`` bitwise
+    equal, every schedule equal to a float64 numpy sum to 1e-5 and the
+    2-way schedules to ``gather_kway`` to 1e-6. (c) One ``adamw_update``
+    of seeded parameters with (b)'s mean; finite, and two leaves updated
+    alone on the card equal the same update on the CPU to the tolerance of
+    ``tests/test_torch_optim.py``. Returns the phase's numbers and the
+    kernels' launches on its path."""
+    from repro_torch import tree as TR
+    from repro_torch.core import allreduce as AR
+    from repro_torch.core import topk as T
+    from repro_torch.kernels import spa_accum, xla_float
+    from repro_torch.optim import adamw as OPT
+
+    path_kernels = ("topk_block", "xla_add", "segment_fold", "spa_accum")
+    seq = np.random.SeedSequence([seed, 19])
+    s_grad, s_res, s_base, s_workers, s_params = seq.spawn(5)
+    pool = ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches = dict.fromkeys(path_kernels, 0)
+
+    def counted(fn):
+        return count_launches(torch, kernels, launches, fn)
+
+    # ---- (a) world size 1 ------------------------------------------------
+    grads = normal_tree(torch, s_grad, SMOLLM_135M_SHAPES, 1.0, dev, pool)
+    res = normal_tree(torch, s_res, SMOLLM_135M_SHAPES, 0.1, dev, pool,
+                      flat=True)
+    names = TR.flatten_with_names(grads)[1]
+    g_leaves, r_leaves = TR.leaves(grads), TR.leaves(res)
+    compressed = [i for i, g in enumerate(g_leaves)
+                  if g.numel() >= AR.MIN_COMPRESS_ELEMS]
+    check(len(compressed) == len(g_leaves) - 1, "phase allreduce: expected "
+          "one leaf under MIN_COMPRESS_ELEMS")
+    # each compressed leaf's update and residual, made once
+    ups = {}
+    for i in compressed:
+        n = g_leaves[i].numel()
+        ups[i] = T.sparsify_with_feedback(
+            g_leaves[i].reshape(-1), r_leaves[i], T.global_k(n, ALLREDUCE_K),
+            selector="block")
+    kw = dict(k_fraction=ALLREDUCE_K, selector="block")
+    world = {}
+    for sched in AR.SCHEDULES:
+        (mean, new_r), used = counted(lambda: AR.compressed_gradient_mean(
+            grads, res, None, schedule=sched, **kw))
+        m_leaves, nr_leaves = TR.leaves(mean), TR.leaves(new_r)
+        for i, (g, r, m, nr) in enumerate(zip(g_leaves, r_leaves, m_leaves,
+                                              nr_leaves)):
+            if i not in compressed:
+                check(bitwise_equal(torch, m, g) and nr is r,
+                      f"phase allreduce: {sched}: the dense leaf "
+                      f"{names[i]} is not its own mean at P = 1")
+                continue
+            u, want_r = ups[i]
+            check(bitwise_equal(torch, m.reshape(-1), T.densify(u)),
+                  f"phase allreduce: {sched}: {names[i]}'s mean is not "
+                  f"densify(u) bitwise")
+            check(bitwise_equal(torch, nr, want_r), f"phase allreduce: "
+                  f"{sched}: {names[i]}'s new residual differs")
+            check(torch.equal(xla_float.add(m.reshape(-1), nr),
+                              xla_float.add(g.reshape(-1), r)),
+                  f"phase allreduce: {sched}: mean + new residual differs "
+                  f"from grad + residual at {names[i]}")
+        del mean, new_r, m_leaves, nr_leaves
+        world[sched] = {
+            "launches": used,
+            "ms": cuda_ms(torch, lambda: AR.compressed_gradient_mean(
+                grads, res, None, schedule=sched, **kw), 3)}
+        log(f"phase allreduce (a) {sched}: {world[sched]['ms']:.2f} ms, "
+            f"launches {used}; mean == densify(u) bitwise")
+    vecs, vec_used = counted(lambda: [AR.sparse_allreduce(
+        ups[i][0], None, "gather_kway", accumulator="vec")
+        for i in compressed])
+    for i, vec in zip(compressed, vecs):
+        check(bitwise_equal(torch, vec, T.densify(ups[i][0])),
+              f"phase allreduce: the vec accumulator differs at {names[i]}")
+    del vecs
+    check(vec_used.get("spa_accum", 0) > 0, "phase allreduce: the vec "
+          "accumulator did not launch the SPA kernel")
+    world["gather_kway_vec"] = {"launches": vec_used, "ms": cuda_ms(
+        torch, lambda: [AR.sparse_allreduce(ups[i][0], None, "gather_kway",
+                                            accumulator="vec")
+                        for i in compressed], 3)}
+    (mean1, res1), _ = counted(lambda: AR.compressed_gradient_mean(
+        grads, res, None, **kw))
+    (mean2, res2), used_2d = counted(lambda: AR.compressed_gradient_mean_2d(
+        grads, res, mesh.get_group("data"), mesh.get_group("model"), **kw))
+    world["2d_mesh_1x1"] = {"launches": used_2d}
+    check(all(bitwise_equal(torch, a, b) for a, b in zip(
+        TR.leaves(mean1) + TR.leaves(res1), TR.leaves(mean2)
+        + TR.leaves(res2))), "phase allreduce: the (1, 1) mesh's 2-D mean "
+          "differs from the 1-D mean")
+    prof_a = device_profile(torch, lambda: AR.compressed_gradient_mean(
+        grads, res, None, **kw), world["gather_kway"]["ms"])
+    del grads, res, g_leaves, r_leaves, ups, mean1, res1, mean2, res2
+    log(f"phase allreduce (a): vec == scatter == densify(u); the (1, 1) "
+        f"mesh equals the 1-D mean; launches so far {launches}")
+
+    # ---- (b) P = 8 workers on the card -----------------------------------
+    p = ALLREDUCE_WORKERS
+    base = normal_tree(torch, s_base, SMOLLM_135M_SHAPES, 1.0, dev, pool)
+    b_leaves = TR.leaves(base)
+    streams = {i: [] for i in compressed}
+    final_ln = []
+    draw_s = 0.0
+    for s_w in s_workers.spawn(p):
+        s_noise, s_r = s_w.spawn(2)
+        t0 = time.perf_counter()
+        noise = TR.leaves(normal_tree(torch, s_noise, SMOLLM_135M_SHAPES, 0.5,
+                                      dev, pool))
+        r_w = TR.leaves(normal_tree(torch, s_r, SMOLLM_135M_SHAPES, 0.1, dev,
+                                    pool, flat=True))
+        grads_w = [b + x for b, x in zip(b_leaves, noise)]
+        draw_s += time.perf_counter() - t0
+        del noise
+
+        def sparsify_worker():
+            return {i: T.sparsify_with_feedback(
+                grads_w[i].reshape(-1), r_w[i],
+                T.global_k(grads_w[i].numel(), ALLREDUCE_K),
+                selector="block")[0] for i in compressed}
+
+        us, sparsify_used = counted(sparsify_worker)
+        for i in compressed:
+            streams[i].append(us[i])
+        final_ln += [g for i, g in enumerate(grads_w) if i not in compressed]
+        del grads_w, r_w, us
+    sizes = {i: b_leaves[i].numel() for i in compressed}
+    del base, b_leaves
+    torch.cuda.synchronize()
+    peak_b = torch.cuda.max_memory_allocated(dev)
+
+    def fold(sched, acc="scatter"):
+        order = AR.stream_order(sched, p, ALLREDUCE_FOLD_RANK)
+        out = {}
+        for i in compressed:
+            us = [streams[i][w] for w in order]
+            out[i] = AR.local_fold(torch.stack([u.idx for u in us]),
+                                   torch.stack([u.val for u in us]),
+                                   sizes[i], acc)
+        return out
+
+    # the float64 reference: numpy's bincount of the eight streams
+    ref64 = {}
+    for i in compressed:
+        idx = torch.cat([u.idx for u in streams[i]]).cpu().numpy()
+        val = torch.cat([u.val for u in streams[i]]).cpu().numpy()
+        keep = idx < sizes[i]
+        ref64[i] = np.bincount(idx[keep], weights=val[keep].astype(
+            np.float64), minlength=sizes[i]) / p
+    variants = [(s, "scatter") for s in AR.SCHEDULES] + [("gather_kway",
+                                                          "vec")]
+    orders = {sch: AR.stream_order(sch, p, ALLREDUCE_FOLD_RANK)
+              for sch in AR.SCHEDULES}
+    check(len({tuple(o) for o in orders.values()}) == len(orders),
+          f"phase allreduce (b): the schedules' stream orders at rank "
+          f"{ALLREDUCE_FOLD_RANK} should all differ: {orders}")
+    folds, means, plain_replays = {}, {}, {}
+    for sched, acc in variants:
+        if acc == "vec":
+            # the SPA kernel's largest launch (the embed leaf's fold) is
+            # kept and replayed through its plain version below
+            (got, spa_call), used = counted(lambda: keeping_largest(
+                spa_accum, "spa_accumulate_raw", lambda: fold(sched, acc)))
+        else:
+            got, used = counted(lambda: fold(sched, acc))
+        for i in compressed:
+            host = got[i].cpu().numpy()
+            check(np.isfinite(host).all() and np.allclose(
+                host, ref64[i], rtol=1e-5, atol=1e-5),
+                f"phase allreduce (b): {sched}/{acc} differs from the "
+                f"float64 sum beyond 1e-5 at {names[i]}")
+        label = f"{sched}/{acc}"
+        means[label] = got
+        folds[label] = {"launches": used,
+                        "ms": cuda_ms(torch, lambda: fold(sched, acc), 5)}
+        log(f"phase allreduce (b) {label}: {folds[label]['ms']:.3f} ms, "
+            f"launches {used}; equal to the float64 sum to 1e-5")
+    kway = means["gather_kway/scatter"]
+    for i in compressed:
+        check(bitwise_equal(torch, kway[i], means["gather_kway/vec"][i]),
+              f"phase allreduce (b): vec differs from scatter bitwise at "
+              f"{names[i]}")
+        for sched in ("tree_2way", "ring_2way"):
+            check(torch.allclose(means[f"{sched}/scatter"][i], kway[i],
+                                 rtol=1e-6, atol=1e-6),
+                  f"phase allreduce (b): {sched} differs from gather_kway "
+                  f"beyond 1e-6 at {names[i]}")
+    plain_replays["spa_accum"] = replay_through_plain(
+        torch, spa_accum.spa_accumulate_raw, spa_accum.spa_accumulate_plain,
+        spa_call, "phase allreduce (b): the vec fold's largest SPA launch")
+    del spa_call
+    log(f"phase allreduce (b): {plain_replays['spa_accum']}")
+    stream_len = sum(streams[i][0].idx.numel() for i in compressed)
+    modeled = {s: sum(AR.modeled_schedule_bytes(
+        s, p, streams[i][0].idx.numel()) for i in compressed)
+        for s in AR.SCHEDULES}
+    log(f"phase allreduce (b): P = {p}, {stream_len} stream entries a "
+        f"worker; modeled bytes a worker {modeled}; vec == scatter bitwise, "
+        f"the 2-way schedules equal gather_kway to 1e-6")
+
+    # ---- (c) one AdamW step with (b)'s mean -------------------------------
+    params = normal_tree(torch, s_params, SMOLLM_135M_SHAPES, 0.02, dev, pool)
+    p_leaves, treedef = TR.flatten(params)
+    g_mean = [kway[i].reshape(p_leaves[i].shape) if i in compressed else
+              xla_float.flush(torch.stack(final_ln).sum(0) / p)
+              for i in range(len(p_leaves))]
+    del means, kway, streams, final_ln
+    grads_c = TR.unflatten(treedef, g_mean)
+    state = OPT.adamw_init(params)._replace(step=torch.tensor(
+        ADAMW_STEP, dtype=torch.int32, device=dev))
+
+    def adamw_step(p_tree, g_tree, st):
+        lr = OPT.cosine_schedule(st.step, **ADAMW_SCHEDULE)
+        return OPT.adamw_update(p_tree, g_tree, st, lr=lr)
+
+    new_p, new_s, gnorm = adamw_step(params, grads_c, state)
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(x).all()) for x in TR.leaves(new_p)
+              + TR.leaves(new_s.mu) + TR.leaves(new_s.nu))
+          and bool(torch.isfinite(gnorm)), "phase allreduce (c): AdamW "
+          "gave a non-finite value")
+    check(not all(torch.equal(a, b) for a, b in zip(TR.leaves(new_p),
+                                                    p_leaves)),
+          "phase allreduce (c): AdamW moved no parameter")
+    adamw_ms = cuda_ms(torch, lambda: adamw_step(params, grads_c, state), 3)
+    # two leaves (a 1-D one, undecayed, and a 3-D one) updated alone, on
+    # the card and on the CPU: the tolerance of tests/test_torch_optim.py
+    # (the sums' order and the last bit of pow and sqrt)
+    pick = {"final_ln": params["final_ln"], "wk": params["layers"]["wk"]}
+    pick_g = {"final_ln": grads_c["final_ln"],
+              "wk": grads_c["layers"]["wk"]}
+    sub_card = adamw_step(pick, pick_g, OPT.adamw_init(pick)._replace(
+        step=state.step))
+    cpu = torch.device("cpu")
+    pick_cpu = TR.tree_map(lambda x: x.to(cpu), pick)
+    sub_cpu = adamw_step(pick_cpu, TR.tree_map(lambda x: x.to(cpu), pick_g),
+                         OPT.adamw_init(pick_cpu)._replace(
+                             step=state.step.cpu()))
+    adamw_err = 0.0
+    for a, b in zip(TR.leaves(sub_card[0]) + TR.leaves(sub_card[1].mu)
+                    + TR.leaves(sub_card[1].nu),
+                    TR.leaves(sub_cpu[0]) + TR.leaves(sub_cpu[1].mu)
+                    + TR.leaves(sub_cpu[1].nu)):
+        scale = float(b.abs().max()) or 1.0
+        err = float((a.cpu() - b).abs().max()) / scale
+        adamw_err = max(adamw_err, err)
+    check(adamw_err <= 1e-6, f"phase allreduce (c): card and CPU AdamW "
+          f"differ by {adamw_err:.3g} of a leaf's scale (limit 1e-6)")
+    log(f"phase allreduce (c): adamw_update {adamw_ms:.2f} ms, global norm "
+        f"{float(gnorm):.4f}, card vs CPU on two leaves {adamw_err:.3g} of "
+        f"the leaf's scale")
+    del params, p_leaves, grads_c, new_p, new_s, state
+    pool.shutdown()
+    for name in path_kernels:
+        check(launches[name] > 0, f"phase allreduce: the {name} kernel did "
+              f"not launch")
+    phase = {
+        "model": "smollm-135m", "params": sum(sizes.values()) + 576,
+        "k_fraction": ALLREDUCE_K, "selector": "block",
+        "compressed_leaves": len(compressed),
+        "world_size_1": world, "workers": p, "folds": folds,
+        "sparsify_launches_per_worker": sparsify_used,
+        "worker_draw_s": draw_s,
+        "stream_entries_per_worker": stream_len,
+        "modeled_bytes_per_worker": modeled,
+        "adamw_ms": adamw_ms, "adamw_card_vs_cpu": adamw_err,
+        "gnorm": float(gnorm), "launches": launches,
+        "fold_rank": ALLREDUCE_FOLD_RANK, "stream_orders": orders,
+        "plain_replays": plain_replays,
+        "peak_mem_bytes": max(peak_b, torch.cuda.max_memory_allocated(dev))}
+    return phase, prof_a
+
+
+def er_stripe(rng, rows: int, cols: int, per_col: int, keep_rows: int):
+    """The entries of rows ``[0, keep_rows)`` of an ``rows × cols``
+    Erdős–Rényi matrix with ``per_col`` draws a column (rows with
+    replacement, standard normal values, column by column): ``(rows,
+    cols, vals)`` as numpy arrays."""
+    r = rng.integers(0, rows, size=(cols, per_col), dtype=np.int64)
+    v = rng.standard_normal((cols, per_col), dtype=np.float32)
+    c = np.repeat(np.arange(cols, dtype=np.int64), per_col).reshape(cols,
+                                                                    per_col)
+    keep = r < keep_rows
+    return r[keep], c[keep], v[keep]
+
+
+def dense_from(torch, shape, rows, cols, vals, dev):
+    """Dense f32 on ``dev`` with ``vals`` added at ``(rows, cols)``
+    (repeated draws add)."""
+    out = torch.zeros(shape, dtype=torch.float32, device=dev)
+    idx = (torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev))
+    return out.index_put_(idx, torch.from_numpy(vals).to(dev),
+                          accumulate=True)
+
+
+#: Phase ``spgemm``'s sizes: (a) the entry point at 4,096; (b) one worker
+#: of the 16 x 16 grid ``examples/distributed_spgemm.py`` names, on
+#: 65,536 x 65,536 matrices with 64 draws a column, Fig. 6's partial cap.
+SPGEMM_A_N, SPGEMM_B_N, SPGEMM_GRID, SPGEMM_PER_COL = 4096, 65536, 16, 64
+SPGEMM_ALGORITHMS = ("incremental", "tree", "sorted", "spa", "vec",
+                     "blocked_spa", "hash", "auto")
+
+
+def run_spgemm(torch, seed: int, dev, kernels: dict, mesh):
+    """Phase ``spgemm``: the sparse SUMMA (graph squaring, the step Fig. 6
+    speeds up).
+
+    (a) ``spgemm_summa`` on the 1 x 1 NCCL ``mesh``, M = K = N = 4,096 with
+    64 draws a column: C equal to ``torch.matmul`` (full f32) at the
+    reference's tolerance (rtol 1e-4, atol 1e-5). (b) Worker (0, 0) of a
+    16 x 16 grid: its A stripe (4,096 x 65,536) and B stripe (65,536 x
+    4,096) of 65,536 x 65,536 matrices; ``summa_block`` with 16 stages and
+    Fig. 6's cap (10 % of the 4,096 x 4,096 tile) for each algorithm: no
+    partial reaches its cap, each C tile equals the stripes' product at the
+    reference's tolerance, and every algorithm but ``tree`` (pairwise)
+    equals ``sorted`` bitwise; ``auto``'s largest partition launch and
+    ``hash``'s largest accumulate are replayed through their plain
+    versions. Returns the phase's numbers, the kernels' launches on its
+    path and one profiled reduction."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import spgemm as G
+    from repro_torch.kernels import hash_accum, partition
+
+    path_kernels = ("segment_fold", "spa_accum", "hash_accum", "partition")
+    launches = dict.fromkeys(path_kernels, 0)
+
+    def counted(fn):
+        return count_launches(torch, kernels, launches, fn)
+    rng_a, rng_b, rng_c, rng_d = (np.random.default_rng(s) for s in
+                                  np.random.SeedSequence([seed, 6]).spawn(4))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tol = dict(rtol=1e-4, atol=1e-5)
+
+    # ---- (a) the entry point on a 1 x 1 mesh ------------------------------
+    n = SPGEMM_A_N
+    a = dense_from(torch, (n, n), *er_stripe(rng_a, n, n, SPGEMM_PER_COL, n),
+                   dev)
+    b = dense_from(torch, (n, n), *er_stripe(rng_b, n, n, SPGEMM_PER_COL, n),
+                   dev)
+    c, used_a = counted(lambda: G.spgemm_summa(a, b, mesh, algorithm="auto"))
+    want = G.spgemm_reference(a, b)
+    check(bool(torch.isfinite(c).all()) and torch.allclose(c, want, **tol),
+          "phase spgemm (a): C differs from torch.matmul beyond rtol 1e-4, "
+          "atol 1e-5")
+    entry = {"n": n, "per_col": SPGEMM_PER_COL, "launches": used_a,
+             "c_nnz": int((c != 0).sum()),
+             "max_abs_err": float((c - want).abs().max()),
+             "ms": cuda_ms(torch, lambda: G.spgemm_summa(
+                 a, b, mesh, algorithm="auto"), 3),
+             "matmul_ms": cuda_ms(torch, lambda: G.spgemm_reference(a, b),
+                                  3)}
+    log(f"phase spgemm (a): spgemm_summa on a 1 x 1 mesh, {n}^2, "
+        f"{entry['ms']:.2f} ms, C nnz {entry['c_nnz']}, max|err| "
+        f"{entry['max_abs_err']:.3g}, launches {used_a}")
+    del a, b, c, want
+
+    # ---- (b) worker (0, 0) of a 16 x 16 grid ------------------------------
+    big, grid = SPGEMM_B_N, SPGEMM_GRID
+    tile = big // grid
+    cap = int(tile * tile * 0.1)  # Fig. 6's rule: 10 % of the tile
+    a_stripe = dense_from(torch, (tile, big), *er_stripe(
+        rng_c, big, big, SPGEMM_PER_COL, tile), dev)
+    # B's column stripe: the first ``tile`` columns, every row
+    rows, cols, vals = er_stripe(rng_d, big, tile, SPGEMM_PER_COL, big)
+    b_stripe = dense_from(torch, (big, tile), rows, cols, vals, dev)
+    del rows, cols, vals
+    want = G.spgemm_reference(a_stripe, b_stripe)
+    partials = G.summa_partials(a_stripe, b_stripe, grid, cap)
+    part_nnz = [int(p.nnz) for p in partials]
+    check(max(part_nnz) < cap, f"phase spgemm (b): a partial reached its "
+          f"cap {cap} ({max(part_nnz)} nonzeros)")
+    sig, dispatch = E.explain_dispatch(partials)
+    partials_ms = cuda_ms(torch, lambda: G.summa_partials(
+        a_stripe, b_stripe, grid, cap), 3)
+    # the launches kept for a replay through the plain version: auto's
+    # partition launch and hash's accumulate
+    keep = {"auto": (partition, "partitioned_accumulate_raw"),
+            "hash": (hash_accum, "hash_accumulate_raw")}
+    kept = {}
+    algs, tiles = {}, {}
+    for alg in SPGEMM_ALGORITHMS:
+        def body():
+            return G.summa_block(a_stripe, b_stripe, grid, algorithm=alg,
+                                 partial_cap_per_stage=cap)
+
+        t0 = time.perf_counter()
+        if alg in keep:
+            (c, kept[alg]), used = counted(lambda: keeping_largest(
+                *keep[alg], body))
+        else:
+            c, used = counted(body)
+        body_ms = (time.perf_counter() - t0) * 1e3
+        check(bool(torch.isfinite(c).all()) and torch.allclose(c, want,
+                                                              **tol),
+              f"phase spgemm (b): {alg}'s C tile differs from the stripes' "
+              f"product beyond rtol 1e-4, atol 1e-5")
+        if alg != "tree":
+            tiles[alg] = c
+        reduce_ms = cuda_ms(torch, lambda: E.spkadd_run(
+            partials, algorithm=alg).to_dense(), 3)
+        algs[alg] = {"launches": used, "checked_body_ms": body_ms,
+                     "reduce_ms": reduce_ms,
+                     "reduce_share": reduce_ms / (reduce_ms + partials_ms),
+                     "max_abs_err": float((c - want).abs().max())}
+        log(f"phase spgemm (b) {alg}: reduction {reduce_ms:.2f} ms "
+            f"({algs[alg]['reduce_share']:.0%} of the worker), launches "
+            f"{used}")
+        del c
+    for alg, c in tiles.items():
+        check(bitwise_equal(torch, c, tiles["sorted"]), f"phase spgemm (b): "
+              f"{alg}'s C tile differs bitwise from sorted's")
+    check(launches["spa_accum"] > 0 and launches["hash_accum"] > 0
+          and launches["partition"] > 0 and launches["segment_fold"] > 0,
+          f"phase spgemm: a kernel of its path did not launch: {launches}")
+    plain_replays = {
+        "partition": replay_through_plain(
+            torch, partition.partitioned_accumulate_raw,
+            partition.partitioned_accumulate_plain, kept.pop("auto"),
+            "phase spgemm (b): auto's partition launch"),
+        "hash_accum": replay_through_plain(
+            torch, hash_accum.hash_accumulate_raw,
+            hash_accum.hash_accumulate_plain, kept.pop("hash"),
+            "phase spgemm (b): hash's accumulate launch")}
+    log(f"phase spgemm (b): {plain_replays}")
+    prof = device_profile(torch, lambda: E.spkadd_run(
+        partials, algorithm="auto").to_dense(), algs["auto"]["reduce_ms"])
+    worker = {"grid": grid, "n": big, "tile": tile, "stages": grid,
+              "cap": cap, "a_stripe_nnz": int((a_stripe != 0).sum()),
+              "b_stripe_nnz": int((b_stripe != 0).sum()),
+              "partial_nnz": part_nnz, "dispatch": dispatch,
+              "signals": sig._asdict(), "partials_ms": partials_ms,
+              "matmul_ms": cuda_ms(torch, lambda: G.spgemm_reference(
+                  a_stripe, b_stripe), 3),
+              "algorithms": algs}
+    log(f"phase spgemm (b): worker (0, 0) of {grid} x {grid}, partial nnz "
+        f"{min(part_nnz)}-{max(part_nnz)} (cap {cap}), dispatch {dispatch}, "
+        f"partials {partials_ms:.2f} ms; every algorithm but tree == "
+        f"sorted bitwise")
+    del a_stripe, b_stripe, want, partials, tiles
+    phase = {"entry_point": entry, "worker": worker, "launches": launches,
+             "plain_replays": plain_replays,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    return phase, prof
+
+
 def catchup_frames(pub, size: int) -> list:
     """The frames of B's window-4 catch-up (epochs 1-4, ``pub``'s ring) of
     the leaves of ``size`` parameters, one collection per leaf."""
@@ -1607,6 +2190,25 @@ def run(args, torch) -> int:
         torch, args.seed, dev, kernels)
     phases["stream_service"]["phase_s"] = took()
 
+    # ---- 8. allreduce, 9. spgemm: over torch.distributed, one NCCL rank --
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        phases["allreduce"], prof_allreduce = run_allreduce(
+            torch, args.seed, dev, kernels, mesh)
+        phases["allreduce"]["phase_s"] = took()
+        phases["spgemm"], prof_spgemm = run_spgemm(torch, args.seed, dev,
+                                                   kernels, mesh)
+        phases["spgemm"]["phase_s"] = took()
+    finally:
+        dist.destroy_process_group()
+
     # where the time of each phase's engine call goes, on the device
     profiles = {
         "vec": device_profile(torch, lambda: E.spkadd_auto(mats),
@@ -1633,6 +2235,8 @@ def run(args, torch) -> int:
             phases["hash_alg"]["symbolic_ms"]),
         "delta_sync_round": device_profile(
             torch, ds_round, phases["delta_sync"]["round_ms"]),
+        "allreduce_gather_kway": prof_allreduce,
+        "spgemm_reduce_auto": prof_spgemm,
     }
     for name, prof in profiles.items():
         log(f"profile {name}: device {prof['device_ms']:.3f} ms of "
@@ -2122,6 +2726,17 @@ def run(args, torch) -> int:
     del xa, xb, plant, pick
 
     for r in report:
+        # the later slices' paths, each counted from 0 around its run
+        r["launches_allreduce"] = phases["allreduce"]["launches"].get(
+            r["name"], 0)
+        r["launches_spgemm"] = phases["spgemm"]["launches"].get(r["name"], 0)
+        for ph in ("allreduce", "spgemm"):
+            # a launch of the later paths replayed through the plain version
+            replay = phases[ph]["plain_replays"].get(r["name"])
+            if replay is not None:
+                r[f"replay_{ph}"] = replay
+                r["max_abs_err"] = max(r["max_abs_err"],
+                                       replay["max_abs_err"])
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")
         check(r["max_abs_err"] == 0.0, f"{r['name']}: max_abs_err "
               f"{r['max_abs_err']}")

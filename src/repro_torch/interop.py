@@ -2,11 +2,13 @@
 
 The engine's state is ``PaddedCOO`` collections plus the cost-model table
 (a JSON file both packages read the same way); the delta-sync and
-checkpoint paths carry parameter trees. These helpers turn a PaddedCOO's
-leaves, or a parameter tree's, as numpy arrays (or anything ``np.asarray``
-takes — a reference PaddedCOO's leaves and a reference params tree
-included), into the port's tensors and back, without importing the
-reference. Trees keep their structure; leaves go in JAX's leaf order
+checkpoint paths carry parameter trees, and training carries AdamW's
+state (``step``, ``mu``, ``nu``) and the error-feedback residuals (a tree
+like the parameters, through :func:`params_from_numpy`). These helpers
+turn a PaddedCOO's leaves, or a parameter tree's, as numpy arrays (or
+anything ``np.asarray`` takes — a reference PaddedCOO's leaves and a
+reference params tree included), into the port's tensors and back,
+without importing the reference. Trees keep their structure; leaves go in JAX's leaf order
 (:mod:`repro_torch.tree`).
 """
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch import tree as _tree
 from repro_torch.core.sparse import PaddedCOO, resolve_device
+from repro_torch.optim.adamw import AdamWState
 
 #: ``(keys, vals, nnz, shape)`` as numpy arrays — the field order of both
 #: packages' PaddedCOO.
@@ -78,3 +81,22 @@ def params_from_numpy(tree, device=None):
 def params_to_numpy(tree):
     """A params tree of tensors -> the same tree of numpy arrays."""
     return _tree.tree_map(lambda leaf: leaf.detach().cpu().numpy(), tree)
+
+
+def adamw_state_from_numpy(state, device=None) -> AdamWState:
+    """An AdamW state as ``(step, mu, nu)`` of arrays and trees (a
+    reference ``AdamWState`` is one) -> the port's ``AdamWState`` on
+    ``device`` (``None`` = the CUDA card), bits and dtypes kept."""
+    step, mu, nu = state
+    dev = resolve_device(device)
+    return AdamWState(step=array_to_tensor(step, dev),
+                      mu=params_from_numpy(mu, dev),
+                      nu=params_from_numpy(nu, dev))
+
+
+def adamw_state_to_numpy(state: AdamWState) -> AdamWState:
+    """The port's ``AdamWState`` -> the same fields as numpy arrays;
+    ``repro.optim.AdamWState(*result)`` is the reference's."""
+    return AdamWState(step=state.step.detach().cpu().numpy(),
+                      mu=params_to_numpy(state.mu),
+                      nu=params_to_numpy(state.nu))

@@ -37,6 +37,19 @@ def flush(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < F32_TINY, x * 0.0, x)
 
 
+def reciprocal(c: float) -> float:
+    """The f32 reciprocal of a constant, as XLA folds it: a compiled step
+    divides by a constant as a product with this (the same bits as the
+    division only when ``c`` is a power of two)."""
+    return float(np.float32(1) / np.float32(c))
+
+
+def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a constant ``c`` as XLA computes it: ``x`` times
+    :func:`reciprocal` of ``c``, a subnormal result flushed."""
+    return flush(x * reciprocal(c))
+
+
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a + b`` as XLA adds f32: subnormal inputs and result flushed."""
     return flush(flush(a) + flush(b))

@@ -1289,3 +1289,135 @@ def test_coflush_at_full_width_launches_bucketed_hash_slide(cuda):
     for n in names:
         for g, w in zip(outs["auto"][n], outs["sorted"][n]):
             np.testing.assert_array_equal(g, w)
+
+
+# -- the sparse gradient allreduce, AdamW and SpGEMM on the card ------------
+
+def _worker_streams(seed, p, size, k, selector):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((p, size)).astype(np.float32)
+    pick = T.topk_global if selector == "global" else T.topk_block
+    return [pick(torch.from_numpy(g[w]), k) for w in range(p)]
+
+
+@pytest.mark.parametrize("sched,acc", [("gather_kway", "scatter"),
+                                       ("gather_kway", "vec"),
+                                       ("tree_2way", "scatter"),
+                                       ("ring_2way", "scatter")])
+@pytest.mark.parametrize("size,k,selector", [(1000, 50, "global"),
+                                             (70000, 3500, "block")])
+def test_allreduce_local_folds_on_card_equal_cpu(cuda, sched, acc, size, k,
+                                                 selector):
+    """Every rank's fold of P = 8 workers' streams (in its
+    ``stream_order``), on the card and on the CPU: the same bits."""
+    from repro_torch.core import allreduce as AR
+
+    p = 8
+    us = _worker_streams(5, p, size, k, selector)
+    for rank in (0, 3):
+        order = AR.stream_order(sched, p, rank)
+        idx = torch.stack([us[w].idx for w in order])
+        val = torch.stack([us[w].val for w in order])
+        want = AR.local_fold(idx, val, size, acc)
+        got = AR.local_fold(idx.to(cuda), val.to(cuda), size, acc)
+        assert np.array_equal(bits(got), bits(want)), (sched, acc, rank)
+
+
+def test_allreduce_scatter_equals_vec_on_card(cuda):
+    from repro_torch.core import allreduce as AR
+
+    us = _worker_streams(6, 8, 70000, 3500, "block")
+    idx = torch.stack([u.idx for u in us]).to(cuda)
+    val = torch.stack([u.val for u in us]).to(cuda)
+    before = spa_accum.spa_accumulate_raw.launches
+    vec = AR.local_fold(idx, val, 70000, "vec")
+    assert spa_accum.spa_accumulate_raw.launches == before + 1
+    assert np.array_equal(bits(vec), bits(AR.local_fold(idx, val, 70000)))
+
+
+def test_adamw_on_card_equals_cpu(cuda):
+    """The sums' order (the global norm) and the last bit of pow and sqrt
+    differ between the devices: each element within 1e-6 of its leaf's
+    largest magnitude, the tolerance of tests/test_torch_optim.py."""
+    from repro_torch import tree as TR
+    from repro_torch.optim import adamw as OPT
+
+    rng = np.random.default_rng(8)
+    shapes = {"w": (256, 384), "b": (384,), "emb": (3, 128, 96)}
+    params = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for k, s in shapes.items()}
+    grads = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for k, s in shapes.items()}
+
+    def two_steps(dev):
+        p = TR.tree_map(lambda x: x.to(dev), params)
+        g = TR.tree_map(lambda x: x.to(dev), grads)
+        st = OPT.adamw_init(p)
+        for _ in range(2):
+            lr = OPT.cosine_schedule(st.step, peak_lr=1e-3, warmup=1,
+                                     total=10)
+            p, st, gn = OPT.adamw_update(p, g, st, lr=lr)
+        return TR.leaves(p) + TR.leaves(st.mu) + TR.leaves(st.nu) + [gn]
+
+    for a, b in zip(two_steps(cuda), two_steps("cpu")):
+        scale = float(b.abs().max()) or 1.0
+        assert float((a.cpu() - b).abs().max()) <= 1e-6 * scale
+
+
+@pytest.fixture
+def nccl_world(cuda):
+    """One NCCL rank (world size 1) with a gloo group of the same rank for
+    CPU tensors; destroyed after the test."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield dist.new_group(backend="gloo")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_spgemm_summa_on_a_1x1_nccl_mesh(nccl_world):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import spgemm as G
+    from repro_torch.launch import spgemm_demo
+
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    a, b = spgemm_demo.sprand_pair(0, 512, 512, 256, 0.05)
+    want = G.summa_block(torch.from_numpy(a), torch.from_numpy(b), 1,
+                         algorithm="sorted")
+    for alg in ("sorted", "vec", "auto"):
+        c = G.spgemm_summa(torch.from_numpy(a).cuda(),
+                           torch.from_numpy(b).cuda(), mesh, algorithm=alg)
+        np.testing.assert_allclose(c.cpu().numpy(), a @ b, rtol=1e-4,
+                                   atol=1e-5)
+        # one stage: the product's sums are the library's, the reduction
+        # the port's; the card's product may differ from the CPU's by an
+        # ulp, so the tiles are compared at the reference's tolerance
+        np.testing.assert_allclose(c.cpu().numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("sched", ["gather_kway", "tree_2way", "ring_2way"])
+def test_compressed_gradient_mean_on_card_equals_cpu(nccl_world, sched):
+    """At world size 1 the NCCL group on the card and a gloo group on the
+    CPU give the same mean and residuals, bit for bit."""
+    from repro_torch.core import allreduce as AR
+
+    rng = np.random.default_rng(9)
+    grads = {"w": rng.standard_normal((70, 1000)).astype(np.float32),
+             "b": rng.standard_normal((300,)).astype(np.float32)}
+    res = {k: (0.1 * rng.standard_normal(v.size)).astype(np.float32)
+           for k, v in grads.items()}
+    out = {}
+    for dev, group in (("cuda", None), ("cpu", nccl_world)):
+        g = {k: torch.from_numpy(v).to(dev) for k, v in grads.items()}
+        r = {k: torch.from_numpy(v).to(dev) for k, v in res.items()}
+        out[dev] = AR.compressed_gradient_mean(g, r, group, 0.05,
+                                               schedule=sched)
+    for tree_c, tree_h in zip(out["cuda"], out["cpu"]):
+        for k in grads:
+            assert np.array_equal(bits(tree_c[k]), bits(tree_h[k])), k

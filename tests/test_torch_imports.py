@@ -38,7 +38,10 @@ def test_scan_covers_the_port():
                    "runtime/faults.py", "runtime/delta_sync.py",
                    "runtime/supervisor.py", "core/streaming.py",
                    "core/stream_service.py", "launch/__init__.py",
-                   "launch/stream_serve.py", "kernels/xla_add.py"):
+                   "launch/stream_serve.py", "kernels/xla_add.py",
+                   "core/allreduce.py", "core/spgemm.py", "optim/adamw.py",
+                   "optim/__init__.py", "launch/spgemm_demo.py",
+                   "launch/world.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert "chip_smoke.py" in names
 
