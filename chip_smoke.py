@@ -85,7 +85,19 @@ result, when no CUDA card is present or the package is missing.
    launch and ``hash``'s accumulate replayed through the plain versions;
    the segment-fold, SPA, hash-accumulate and partition kernels must
    launch.
-10. One profiled call of each phase (device time by kernel, busy share),
+10. ``workload`` (:func:`run_workload`): SmolLM-135M at full width and
+   depth (30 layers, d 576, bf16 compute, f32 parameters; training
+   batches of 8 x 2,048 tokens, ``train_4k``'s draws cut from 256 x
+   4,096) through the port's train and serve entry points on the NCCL
+   rank: three dense steps (the loss falls); four compressed steps, each
+   published as parameter deltas (each mean ``densify(u)`` bitwise); a
+   replica's window-4 catch-up, then 16 decoded tokens with a compressed
+   step, a publish and a sync before each (the replica equal to the
+   shadow after every sync); decode against prefill; the card's loss
+   against the CPU's; the largest launch of each kernel on the path
+   replayed through its plain version. The top-k, ``xla_add`` and
+   segment-fold kernels must launch, and the catch-up an engine kernel.
+11. One profiled call of each phase (device time by kernel, busy share),
    ten profiled calls each of the family's ``vec`` and ``blocked_spa``
    (each call's host time and the CUDA runtime calls that took the most
    host time: where a slow call waits), then each of the eight kernels against its plain PyTorch version on the
@@ -102,10 +114,11 @@ result, when no CUDA card is present or the package is missing.
    delta-sync catch-up's largest launch (its inputs rebuilt after the
    phase by a replay of that launch's engine call); the top-k row its
    radix passes and its time at each leaf shape of a publish beside
-   ``torch.topk``. Each row also counts its launches in phases 8 and 9
-   (``launches_allreduce``, ``launches_spgemm``), and the SPA, partition
-   and hash-accumulate rows fold the replays of those phases' launches
-   (``replay_allreduce``, ``replay_spgemm``) into their ``max_abs_err``. Then JSON lines of the
+   ``torch.topk``. Each row also counts its launches in phases 8-10
+   (``launches_allreduce``, ``launches_spgemm``, ``launches_workload``),
+   and the rows fold the replays of those phases' launches
+   (``replay_allreduce``, ``replay_spgemm``, ``replay_workload``) into
+   their ``max_abs_err``. Then JSON lines of the
    phases' end-to-end times, the profiles and the kernel numbers (median ms by
    CUDA events, bound, plain and library times), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -1094,27 +1107,44 @@ def keeping_largest(module, name: str, fn):
     """``(fn(), (args, kwargs))``: ``fn`` run with ``module.name`` wrapped
     to keep the inputs of its launch whose first argument has the most
     elements (the path's largest launch, replayed by
-    :func:`replay_through_plain`). The kernel's own wrapper is put back
-    while it runs (it counts its launches on its module's name), so launch
-    counts are unchanged."""
-    kernel, kept = getattr(module, name), []
+    :func:`replay_through_plain`); fails unless it launched."""
+    out, kept = keeping_largest_each({name: (module, name)}, fn,
+                                     required=(name,))
+    return out, kept[name]
 
-    def keeping(*a, **kw):
-        if not kept or a[0].numel() > kept[0][0][0].numel():
-            kept[:] = [(a, kw)]
-        setattr(module, name, kernel)
-        try:
-            return kernel(*a, **kw)
-        finally:
-            setattr(module, name, keeping)
 
-    setattr(module, name, keeping)
+def keeping_largest_each(targets: dict, fn, required=()):
+    """``(fn(), {label: (args, kwargs)})``: ``fn`` run with each
+    ``module.name`` of ``targets`` (``label: (module, name)``) wrapped to
+    keep the inputs of its launch whose first argument has the most
+    elements. A label whose function was not called has no entry; each
+    label of ``required`` must have one. Each kernel's own wrapper is put
+    back while it runs (it counts its launches on its module's name), so
+    launch counts are unchanged."""
+    kept = {}
+
+    def wrapping(label, module, name, kernel):
+        def keeping(*a, **kw):
+            if label not in kept or a[0].numel() > kept[label][0][0].numel():
+                kept[label] = (a, kw)
+            setattr(module, name, kernel)
+            try:
+                return kernel(*a, **kw)
+            finally:
+                setattr(module, name, keeping)
+        return keeping
+
+    originals = {label: getattr(m, n) for label, (m, n) in targets.items()}
+    for label, (m, n) in targets.items():
+        setattr(m, n, wrapping(label, m, n, originals[label]))
     try:
         out = fn()
     finally:
-        setattr(module, name, kernel)
-    check(bool(kept), f"{name} did not launch on the path")
-    return out, kept[0]
+        for label, (m, n) in targets.items():
+            setattr(m, n, originals[label])
+    for label in required:
+        check(label in kept, f"{label} did not launch on the path")
+    return out, kept
 
 
 def replay_through_plain(torch, raw, plain, call, what: str) -> dict:
@@ -1867,6 +1897,470 @@ def topk_design(torch, topk_block, x, k, block, leaves, dev, seed) -> dict:
                                         for r in per_leaf)}
 
 
+#: Phase ``workload``: SmolLM-135M (``src/repro_torch/configs/smollm_135m.py``,
+#: HF HuggingFaceTB/SmolLM-135M) at full width and depth on one NCCL rank.
+#: Training batches are ``train_4k``'s draws cut from 256 x 4,096 to one
+#: card's 8 x 2,048; the replica serves 8 prompts of 512 tokens.
+WL_ARCH = "smollm_135m"
+WL_TRAIN_BATCH = (8, 2048)
+WL_PROMPTS = (8, 512)
+WL_NEW_TOKENS = 16
+WL_K = 0.01
+WL_DENSE_STEPS, WL_COMPRESSED_STEPS = 3, 4
+WL_CONSISTENCY_TOKENS = 8
+WL_CPU_BATCH = (1, 256)
+#: Decode against prefill in bf16 compute: the last decode logits within
+#: this share of the prefill logits' largest magnitude. Each product
+#: rounds its output to bf16 (8 bits), and a one-token product sums its
+#: terms in another order than a 520-token one, so the 30 layers' residual
+#: stream drifts by a few bf16 ulps (1.9 % on the CPU, PyTorch 2.13, 2
+#: prompts of 64 tokens).
+WL_DECODE_TOL = 0.05
+#: The card's loss against the CPU's on the same parameters and tokens,
+#: bf16 compute: the CPU tests' bound for bf16 against the reference.
+WL_CPU_LOSS_RTOL = 2e-3
+#: A replica whose catch-up folded an index that two epochs of the window
+#: both carry rounds that sum once where the shadow rounded twice: then it
+#: is held to the shadow at this tolerance (a few f32 ulps of a
+#: parameter), and to the initial parameters plus the engine's ``sorted``
+#: fold of the same frames bitwise.
+WL_FOLD_RTOL, WL_FOLD_ATOL = 1e-6, 1e-7
+
+
+def run_workload(torch, seed: int, dev, kernels: dict):
+    """Phase ``workload``: the dense decoder trained with the paper's
+    compressed gradients and served with live parameter deltas, through
+    the port's entry points (``repro_torch.models``, ``data``, ``train``,
+    ``runtime``; the path of ``launch/train.py --compress --publish-deltas``
+    and ``launch/serve.py --sync-spool``), at SmolLM-135M's full width
+    and depth, on the default NCCL group of one rank.
+
+    (a) Three ``make_train_step`` steps on one repeated batch (peak lr
+    3e-3, no warmup or decay, as ``test_loss_decreases``): the loss falls.
+    Four ``make_compressed_train_step`` steps (k 0.01, the block selector,
+    ``gather_kway``), each followed by ``DeltaPublisher.publish`` (k 0.01,
+    block selector) into a spool directory: at P = 1 each compressed
+    leaf's mean is ``densify(u)`` bitwise and mean + new residual equals
+    gradient + residual. (b) A replica (``DeltaSubscriber`` on the spool)
+    built from the initial parameters prefills 8 prompts of 512 tokens;
+    its first sync is a window-4 catch-up (one ragged SpKAdd); then 16
+    tokens are decoded, the trainer taking a compressed step and
+    publishing, and the replica syncing that epoch, before each. After
+    every sync the replica equals the publisher's shadow bitwise, unless
+    the catch-up folded an index two epochs carried (then within
+    ``WL_FOLD_*``); the catch-up equals the initial parameters plus the
+    engine's ``sorted`` fold of its frames bitwise. (c) Greedy decode of 8
+    tokens against a prefill of the prompts plus those tokens
+    (``WL_DECODE_TOL``). (d) One loss on 1 x 256 tokens on the card and on
+    the CPU (``WL_CPU_LOSS_RTOL``). (e) The largest launch of the top-k,
+    ``xla_add`` and segment-fold kernels of (a) and of each engine kernel
+    of the catch-up, replayed through the plain versions. Returns the
+    phase's numbers (launches on its path, the replays) and two profiles
+    (one compressed step, one decode token)."""
+    import tempfile
+
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine as E
+    from repro_torch.core import sparse as S
+    from repro_torch.core import topk as T
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import hash_slide, ops as kops, partition
+    from repro_torch.kernels import segment, spa_accum, topk_block, xla_add
+    from repro_torch.kernels import xla_float
+    from repro_torch.models import build_model
+    from repro_torch.models.common import SHAPES
+    from repro_torch.models.layers import use_full_precision
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import (DeltaPublisher, DeltaSubscriber,
+                                     DirTransport, apply_delta_flat,
+                                     decode_frame, frame_to_coo)
+    from repro_torch.train import (TrainHParams, make_compressed_train_step,
+                                   make_decode_step, make_train_step,
+                                   rank_ef_state)
+    from repro_torch.train import step as ST
+
+    use_full_precision()
+    launches = dict.fromkeys(("topk_block", "xla_add", "segment_fold",
+                              "partition", "hash_slide", "spa_accum"), 0)
+
+    def counted(fn):
+        return count_launches(torch, kernels, launches, fn)
+
+    def sync_ms(t0: float) -> float:
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = get_config(WL_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params0 = model.init(seed, device=dev)
+    init_ms = sync_ms(t0)
+    check(TR.tree_map(lambda x: tuple(x.shape), params0)
+          == SMOLLM_135M_SHAPES, "phase workload: the port model's init "
+          "shapes differ from SMOLLM_135M_SHAPES")
+    n_params = sum(x.numel() for x in TR.leaves(params0))
+    names = TR.flatten_with_names(params0)[1]
+    B, S_len = WL_TRAIN_BATCH
+
+    def batch(step):
+        return make_batch(cfg, SHAPES["train_4k"], step, batch_override=B,
+                          seq_override=S_len, device=dev)
+
+    # ---- (a) train ------------------------------------------------------
+    dense = make_train_step(model, TrainHParams(
+        peak_lr=3e-3, warmup=0, total_steps=100, weight_decay=0.0))
+    b0 = batch(0)
+    dense_losses, dense_ms = [], []
+
+    def dense_steps():
+        p, o = params0, adamw_init(params0)
+        for _ in range(WL_DENSE_STEPS):
+            t = time.perf_counter()
+            p, o, met = dense(p, o, b0)
+            dense_losses.append(float(met["loss"]))
+            dense_ms.append(sync_ms(t))
+
+    _, dense_used = counted(dense_steps)
+    check(all(np.isfinite(dense_losses))
+          and dense_losses[-1] < dense_losses[0],
+          f"phase workload (a): the dense loss did not fall: {dense_losses}")
+    log(f"phase workload (a): dense steps {[round(t, 1) for t in dense_ms]} "
+        f"ms, loss {[round(x, 4) for x in dense_losses]}")
+
+    # the compressed mean, timed by CUDA events inside the step; during (a)
+    # its inputs and outputs are kept for the P = 1 checks
+    real_mean = ST.compressed_gradient_mean
+    mean_log = {"keep": True, "calls": [], "ms": []}
+
+    def timed_mean(grads, residuals, *a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_mean(grads, residuals, *a, **kw)
+        ev[1].record()
+        mean_log["ms"].append(ev)
+        if mean_log["keep"]:
+            mean_log["calls"].append((grads, residuals, out))
+        return out
+
+    comp = make_compressed_train_step(
+        model, None, TrainHParams(warmup=0, total_steps=100),
+        k_fraction=WL_K, selector="block", schedule="gather_kway")
+    spool_dir = tempfile.TemporaryDirectory(prefix="workload_spool_")
+    pub = DeltaPublisher(params0, DirTransport(spool_dir.name),
+                         k_fraction=WL_K, selector="block", device=dev)
+    state = {"p": params0, "o": adamw_init(params0),
+             "ef": rank_ef_state(params0), "step": 0}
+    comp_ms, comp_losses, publish_ms, wire = [], [], [], []
+
+    def train_and_publish():
+        b = batch(1 + state["step"])
+        t = time.perf_counter()
+        p, o, ef, met = comp(state["p"], state["o"], state["ef"], b)
+        comp_losses.append(float(met["loss"]))
+        comp_ms.append(sync_ms(t))
+        t = time.perf_counter()
+        stats = pub.publish(p)
+        publish_ms.append(sync_ms(t))
+        wire.append(stats.bytes)
+        state.update(p=p, o=o, ef=ef, step=state["step"] + 1)
+
+    ST.compressed_gradient_mean = timed_mean
+    try:
+        (_, kept_a), used_a = counted(lambda: keeping_largest_each(
+            {"topk_block": (topk_block, "topk_block_raw"),
+             "xla_add": (xla_add, "xla_add_raw"),
+             "segment_fold": (E, "segment_fold")},
+            lambda: [train_and_publish()
+                     for _ in range(WL_COMPRESSED_STEPS)],
+            required=("topk_block", "xla_add", "segment_fold")))
+        mean_log["keep"] = False
+        # at P = 1: mean == densify(u), mean + new residual == grad + res
+        n_dense_leaves = 0
+        for grads, res, (mean, new_r) in mean_log["calls"]:
+            for name, g, r, m, nr in zip(names, TR.leaves(grads),
+                                         TR.leaves(res), TR.leaves(mean),
+                                         TR.leaves(new_r)):
+                if g.numel() < ST.MIN_COMPRESS_ELEMS:
+                    n_dense_leaves += 1
+                    check(bitwise_equal(torch, m, g) and nr is r,
+                          f"phase workload (a): the dense leaf {name} is not "
+                          f"its own mean at P = 1")
+                    continue
+                u, want_r = T.sparsify_with_feedback(
+                    g.reshape(-1), r, T.global_k(g.numel(), WL_K),
+                    selector="block")
+                check(bitwise_equal(torch, m.reshape(-1), T.densify(u))
+                      and bitwise_equal(torch, nr, want_r),
+                      f"phase workload (a): {name}'s mean is not densify(u)")
+                check(torch.equal(xla_float.add(m.reshape(-1), nr),
+                                  xla_float.add(g.reshape(-1), r)),
+                      f"phase workload (a): mean + new residual differs "
+                      f"from grad + residual at {name}")
+        check(n_dense_leaves == WL_COMPRESSED_STEPS, "phase workload (a): "
+              "expected one leaf (final_ln) under MIN_COMPRESS_ELEMS")
+        del mean_log["calls"][:]
+        mean_ms = [a.elapsed_time(b) for a, b in mean_log["ms"]]
+        log(f"phase workload (a): compressed steps "
+            f"{[round(t, 1) for t in comp_ms]} ms (the mean "
+            f"{[round(t, 1) for t in mean_ms]}), publish "
+            f"{[round(t, 1) for t in publish_ms]} ms, loss "
+            f"{[round(x, 4) for x in comp_losses]}; launches {used_a}; "
+            f"mean == densify(u) bitwise")
+
+        # ---- (b) serve: prefill, catch-up, then a sync before each token
+        toks = torch.randint(0, cfg.vocab, WL_PROMPTS, generator=torch
+                             .Generator().manual_seed(seed + 1),
+                             dtype=torch.int32).to(dev)
+        P_B, P_S = WL_PROMPTS
+        sub = DeltaSubscriber(params0, DirTransport(spool_dir.name),
+                              max_staleness=4, device=dev)
+        t = time.perf_counter()
+        logits, caches = model.prefill(params0, toks,
+                                       max_len=P_S + WL_NEW_TOKENS,
+                                       attn_chunk=32)
+        prefill_ms = sync_ms(t)
+
+        def same_as_shadow():
+            shadow = TR.leaves(pub.shadow_params())
+            got = TR.leaves(sub.params)
+            bitwise = all(bitwise_equal(torch, a, b)
+                          for a, b in zip(got, shadow))
+            close = bitwise or all(torch.allclose(
+                a, b, rtol=WL_FOLD_RTOL, atol=WL_FOLD_ATOL)
+                for a, b in zip(got, shadow))
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(got, shadow))
+            return bitwise, close, err
+
+        def catch_up():
+            t = time.perf_counter()
+            report = sub.sync()
+            return report, sync_ms(t)
+
+        ((report, catchup_ms), caught), catchup_used = counted(
+            lambda: keeping_largest_each(
+                {"partition": (partition, "partitioned_accumulate_raw"),
+                 "hash_slide": (kops, "hash_slide_tables"),
+                 "spa_accum": (spa_accum, "spa_accumulate_raw"),
+                 "segment_fold": (E, "segment_fold"),
+                 "segment_fold/sparse": (S, "segment_fold")}, catch_up))
+        check(report.window == WL_COMPRESSED_STEPS
+              and sub.applied_epoch == WL_COMPRESSED_STEPS,
+              f"phase workload (b): the catch-up: {report}")
+        check(sum(catchup_used.get(k, 0) for k in
+                  ("partition", "hash_slide", "spa_accum")) > 0,
+              f"phase workload (b): the catch-up launched no engine kernel: "
+              f"{catchup_used}")
+        # the catch-up against the engine's sorted fold of its frames, and
+        # the count of indices that two epochs of the window both carry
+        frames = {e: {f.shard: f for f in map(decode_frame,
+                                              pub.frames_for(e))}
+                  for e in range(1, WL_COMPRESSED_STEPS + 1)}
+        repeats = 0
+        for name, leaf0, got in zip(names, TR.leaves(params0),
+                                    TR.leaves(sub.params)):
+            fs = [frames[e][name] for e in sorted(frames)]
+            idx = np.concatenate([f.idx for f in fs])
+            repeats += idx.size - np.unique(idx).size
+            s = E.spkadd_run([frame_to_coo(f, dev) for f in fs],
+                             algorithm="sorted")
+            check(bitwise_equal(torch, got.reshape(-1), apply_delta_flat(
+                leaf0.reshape(-1), s.keys, s.vals)), f"phase workload (b): "
+                f"the catch-up differs from the sorted fold at {name}")
+        del frames
+        bitwise, close, catchup_err = same_as_shadow()
+        check(bitwise if repeats == 0 else close, f"phase workload (b): the "
+              f"catch-up differs from the shadow by {catchup_err} with "
+              f"{repeats} repeated indices")
+        log(f"phase workload (b): prefill {P_B}x{P_S} {prefill_ms:.1f} ms; "
+            f"catch-up (window {report.window}) {catchup_ms:.1f} ms, "
+            f"launches {catchup_used}, {repeats} repeated indices, "
+            f"== shadow bitwise: {bitwise} (max |diff| {catchup_err})")
+
+        decode = make_decode_step(model, attn_chunk=128)
+        tok = torch.argmax(logits, -1)
+        token_ms, decode_ms, per_sync = [], [], []
+        serve = {"params": sub.params, "caches": caches, "tok": tok}
+
+        def serve_tokens():
+            for _ in range(WL_NEW_TOKENS):
+                train_and_publish()
+                t = time.perf_counter()
+                report = sub.sync()
+                check(report.window == 1 and sub.applied_epoch == pub.epoch,
+                      f"phase workload (b): a per-token sync: {report}")
+                serve["params"] = sub.params  # hot-swap between tokens
+                t_dec = time.perf_counter()
+                logits, serve["caches"] = decode(serve["params"],
+                                                 serve["caches"],
+                                                 serve["tok"])
+                serve["tok"] = torch.argmax(logits, -1)
+                decode_ms.append(sync_ms(t_dec))
+                token_ms.append(sync_ms(t))
+                per_sync.append(same_as_shadow())
+                check(per_sync[-1][0] if bitwise else per_sync[-1][1],
+                      f"phase workload (b): the replica differs from the "
+                      f"shadow at epoch {pub.epoch}")
+
+        _, serve_used = counted(serve_tokens)
+        log(f"phase workload (b): {WL_NEW_TOKENS} tokens, token ms (sync + "
+            f"decode) {[round(x, 1) for x in token_ms]}, decode ms "
+            f"{[round(x, 1) for x in decode_ms]}; launches {serve_used}")
+        mean_ms = [a.elapsed_time(b) for a, b in mean_log["ms"]]
+    finally:
+        ST.compressed_gradient_mean = real_mean
+        spool_dir.cleanup()
+    decode_med = statistics.median(decode_ms)
+    prof_decode = device_profile(torch, lambda: decode(
+        serve["params"], serve["caches"], serve["tok"]), decode_med)
+    step_b = batch(1 + state["step"])
+    prof_step = device_profile(torch, lambda: comp(
+        state["p"], state["o"], state["ef"], step_b),
+        statistics.median(comp_ms))
+    del step_b
+
+    # ---- (c) decode against prefill, no sync ------------------------------
+    params_c = sub.params
+    with torch.no_grad():
+        lg, cc = model.prefill(params_c, toks,
+                               max_len=P_S + WL_CONSISTENCY_TOKENS,
+                               attn_chunk=32)
+        tok, fed = torch.argmax(lg, -1), []
+        for _ in range(WL_CONSISTENCY_TOKENS):
+            fed.append(tok)
+            lg, cc = decode(params_c, cc, tok)
+            tok = torch.argmax(lg, -1)
+        full = torch.cat([toks, torch.stack(fed, 1).to(torch.int32)], 1)
+        lp, _ = model.prefill(params_c, full, attn_chunk=32)
+    gap = float((lp - lg).abs().max())
+    scale = float(lp.abs().max())
+    argmax_agree = float((lp.argmax(-1) == lg.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(lg).all()) and gap <= WL_DECODE_TOL * scale,
+          f"phase workload (c): decode differs from prefill by {gap} "
+          f"(largest logit {scale}, limit {WL_DECODE_TOL} of it)")
+    del cc, lg, lp, full
+
+    # ---- (d) the card against the CPU --------------------------------------
+    cpu = torch.device("cpu")
+    bc = make_batch(cfg, SHAPES["train_4k"], 0,
+                    batch_override=WL_CPU_BATCH[0],
+                    seq_override=WL_CPU_BATCH[1], device=cpu)
+    with torch.no_grad():
+        t = time.perf_counter()
+        loss_cpu = float(model.loss(TR.tree_map(lambda x: x.to(cpu),
+                                                params_c), bc, remat=False))
+        cpu_loss_s = time.perf_counter() - t
+        loss_card = float(model.loss(params_c, {k: v.to(dev) for k, v in
+                                                bc.items()}, remat=False))
+    check(np.isfinite(loss_card) and abs(loss_card - loss_cpu)
+          <= WL_CPU_LOSS_RTOL * abs(loss_cpu), f"phase workload (d): the "
+          f"card's loss {loss_card} against the CPU's {loss_cpu}")
+    log(f"phase workload (c): decode vs prefill max |diff| {gap:.4f} of "
+        f"{scale:.3f} (argmax agree {argmax_agree:.3f}); (d) loss card "
+        f"{loss_card:.6f}, CPU {loss_cpu:.6f} ({cpu_loss_s:.1f} s)")
+
+    # ---- (e) replays through the plain versions ---------------------------
+    plain_replays = {}
+
+    def replay(name, raw, plain, call, what):
+        r = replay_through_plain(torch, raw, plain, call, what)
+        if name in plain_replays:  # one kernel replayed twice
+            prev = plain_replays[name]
+            r = {"what": f"{prev['what']}; {r['what']}",
+                 "each": prev.get("each", [prev]) + [r],
+                 "max_abs_err": max(prev["max_abs_err"], r["max_abs_err"])}
+        plain_replays[name] = r
+
+    replay("topk_block", topk_block.topk_block_raw,
+           topk_block.topk_block_plain, kept_a.pop("topk_block"),
+           "phase workload (a): the largest top-k launch")
+    replay("xla_add", xla_add.xla_add_raw, xla_add.xla_add_plain,
+           kept_a.pop("xla_add"), "phase workload (a): the largest xla_add")
+    replay("segment_fold", segment.segment_fold, segment.segment_fold_plain,
+           kept_a.pop("segment_fold"),
+           "phase workload (a): the largest segment fold")
+    if "partition" in caught:
+        replay("partition", partition.partitioned_accumulate_raw,
+               partition.partitioned_accumulate_plain,
+               caught.pop("partition"),
+               "phase workload (b): the catch-up's largest partition launch")
+    if "spa_accum" in caught:
+        replay("spa_accum", spa_accum.spa_accumulate_raw,
+               spa_accum.spa_accumulate_plain, caught.pop("spa_accum"),
+               "phase workload (b): the catch-up's largest SPA launch")
+    folds = [caught.pop(k) for k in ("segment_fold", "segment_fold/sparse")
+             if k in caught]
+    if folds:
+        replay("segment_fold", segment.segment_fold,
+               segment.segment_fold_plain,
+               max(folds, key=lambda c: c[0][0].numel()),
+               "phase workload (b): the catch-up's largest segment fold")
+    if "hash_slide" in caught:
+        # the plain sliding hash takes seconds a bucket: a seeded sample of
+        # the largest launch's parts, each bitwise (slide_catchup)
+        sl = slide_catchup(torch, hash_slide,
+                           {"largest": caught.pop("hash_slide")}, seed,
+                           what="the workload catch-up's")
+        plain_replays["hash_slide"] = {
+            "what": "phase workload (b): the catch-up's largest sliding-hash "
+                    "launch, sampled parts", "sampled_parts":
+            sl["sampled_parts"], "shapes": [sl["B"], sl["cap"]],
+            "max_abs_err": 0.0}
+    log(f"phase workload (e): {plain_replays}")
+    for name in ("topk_block", "xla_add", "segment_fold"):
+        check(launches[name] > 0, f"phase workload: the {name} kernel did "
+              f"not launch")
+    step_med = statistics.median(comp_ms)
+    phase = {
+        "model": "smollm-135m", "params": n_params, "compute": "bfloat16",
+        "reduced": [f"train batch {B} x {S_len} tokens against train_4k's "
+                    f"256 x 4,096", "one chip (one NCCL rank, P = 1)",
+                    f"serving: {P_B} prompts of {P_S} tokens, "
+                    f"{WL_NEW_TOKENS} new tokens",
+                    "no shadow checkpoints (the CPU tests cover them)"],
+        "init_ms": init_ms,
+        "dense_step_ms": dense_ms, "dense_losses": dense_losses,
+        "dense_step_median_ms": statistics.median(dense_ms),
+        "compressed_step_ms": comp_ms, "compressed_losses": comp_losses,
+        "compressed_step_median_ms": step_med,
+        "train_tokens_per_s": B * S_len / (step_med / 1e3),
+        "dense_train_tokens_per_s":
+        B * S_len / (statistics.median(dense_ms) / 1e3),
+        "mean_ms": mean_ms, "mean_share_median": statistics.median(
+            m / s for m, s in zip(mean_ms, comp_ms)),
+        "publish_ms": publish_ms, "wire_bytes": wire,
+        "prefill_ms": prefill_ms, "catchup_ms": catchup_ms,
+        "catchup_window": WL_COMPRESSED_STEPS,
+        "catchup_launches": catchup_used, "catchup_repeats": repeats,
+        "catchup_bitwise_to_shadow": bitwise,
+        "catchup_max_abs_diff": catchup_err,
+        "token_ms": token_ms, "decode_ms": decode_ms,
+        "decode_median_ms": decode_med,
+        "decode_tokens_per_s": P_B / (decode_med / 1e3),
+        "worst_hot_swap_token_ms": max(token_ms),
+        "syncs_bitwise_to_shadow": sum(1 for s in per_sync if s[0]),
+        "syncs": len(per_sync),
+        "decode_vs_prefill_max_abs": gap, "decode_logit_scale": scale,
+        "decode_vs_prefill_argmax_agree": argmax_agree,
+        "loss_card": loss_card, "loss_cpu": loss_cpu,
+        "cpu_loss_s": cpu_loss_s,
+        "launches": launches, "launches_dense": dense_used,
+        "launches_train": used_a, "launches_serve": serve_used,
+        "plain_replays": plain_replays,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    log(f"phase workload: dense step {phase['dense_step_median_ms']:.1f} ms, "
+        f"compressed {step_med:.1f} ms ({phase['train_tokens_per_s']:.0f} "
+        f"tokens/s, mean {phase['mean_share_median']:.1%}), publish "
+        f"{statistics.median(publish_ms):.1f} ms, decode {decode_med:.2f} "
+        f"ms/token, worst hot-swap token {max(token_ms):.1f} ms, peak "
+        f"{phase['peak_mem_bytes'] / 2**30:.2f} GiB; launches {launches}")
+    return phase, {"workload_compressed_step": prof_step,
+                   "workload_decode_token": prof_decode}
+
+
 def run(args, torch) -> int:
     from repro_torch import obs
     from repro_torch.core import engine as E
@@ -2206,6 +2700,9 @@ def run(args, torch) -> int:
         phases["spgemm"], prof_spgemm = run_spgemm(torch, args.seed, dev,
                                                    kernels, mesh)
         phases["spgemm"]["phase_s"] = took()
+        phases["workload"], prof_workload = run_workload(
+            torch, args.seed, dev, kernels)
+        phases["workload"]["phase_s"] = took()
     finally:
         dist.destroy_process_group()
 
@@ -2237,6 +2734,7 @@ def run(args, torch) -> int:
             torch, ds_round, phases["delta_sync"]["round_ms"]),
         "allreduce_gather_kway": prof_allreduce,
         "spgemm_reduce_auto": prof_spgemm,
+        **prof_workload,
     }
     for name, prof in profiles.items():
         log(f"profile {name}: device {prof['device_ms']:.3f} ms of "
@@ -2730,7 +3228,9 @@ def run(args, torch) -> int:
         r["launches_allreduce"] = phases["allreduce"]["launches"].get(
             r["name"], 0)
         r["launches_spgemm"] = phases["spgemm"]["launches"].get(r["name"], 0)
-        for ph in ("allreduce", "spgemm"):
+        r["launches_workload"] = phases["workload"]["launches"].get(
+            r["name"], 0)
+        for ph in ("allreduce", "spgemm", "workload"):
             # a launch of the later paths replayed through the plain version
             replay = phases[ph]["plain_replays"].get(r["name"])
             if replay is not None:

@@ -10,9 +10,13 @@ world: the caller waits at most ``timeout`` seconds, then every process
 still running is killed and :class:`WorldError` names the ranks at fault.
 
 ``target`` must be importable by name (a module-level function).
+
+:func:`process_world` is a launcher's own world: the one ``torchrun``
+gives it, or a world of one rank.
 """
 from __future__ import annotations
 
+import contextlib
 import multiprocessing as mp
 import os
 import queue
@@ -103,3 +107,32 @@ def spawn_world(target: Callable[..., Any], world_size: int, *args,
             + (f"; ranks {silent} did not report within {timeout:.0f} s"
                if silent else "") + detail)
     return [got[r] for r in range(world_size)]
+
+
+@contextlib.contextmanager
+def process_world(device: str):
+    """The ``torch.distributed`` world a launcher runs in: under
+    ``torchrun`` (``RANK`` and ``WORLD_SIZE`` in the environment) the one
+    it is given, joined through ``env://``; otherwise a world of size 1
+    over an in-process ``HashStore``. NCCL when ``device`` is ``"cuda"``
+    (each rank on the card of its ``LOCAL_RANK``), gloo on the CPU. Yields
+    ``(rank, world_size, torch.device)``; the group is destroyed at exit."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.sparse import resolve_device
+
+    dev = resolve_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        yield dist.get_rank(), dist.get_world_size(), dev
+    finally:
+        dist.destroy_process_group()

@@ -1,16 +1,145 @@
-"""Training-step state the port needs so far: the error-feedback residuals.
+"""The steps: train, serve (prefill/decode), and the paper-technique
+path: compressed-gradient training (top-k + SpKAdd sparse allreduce over
+the data group).
 
-The port of ``init_ef_state`` and ``_shard_len`` from
-``src/repro/train/step.py``; the publisher of parameter deltas
-(``runtime/delta_sync.py``) keeps its residuals in this layout. The plain
-and compressed train steps come with the port of the gradient allreduce.
+The port of ``src/repro/train/step.py``. Every step is a plain function of
+parameter trees (``repro_torch.tree``) and a model from
+``repro_torch.models``:
+
+- :func:`make_train_step` casts the f32 parameters to the compute dtype
+  *outside* the gradient and differentiates with respect to that copy, as
+  the reference does (its gradients are rounded to the compute dtype, then
+  cast to f32), with optional microbatch accumulation; AdamW and the cosine
+  schedule are ``repro_torch.optim``'s.
+- :func:`make_compressed_train_step` is the reference's ``shard_map`` body
+  run on every rank of a ``torch.distributed`` world: each rank takes its
+  slice of the global batch (the reference's ``batch_spec``: the batch split
+  over the data group, or over the flattened data × model grid, data
+  major), differentiates the f32 parameters directly, and reduces its
+  gradients with :func:`~repro_torch.core.allreduce.compressed_gradient_mean`
+  (a 1-D data group) or
+  :func:`~repro_torch.core.allreduce.compressed_gradient_mean_2d` (a 2-D
+  ``("data", "model")`` ``DeviceMesh`` whose model dim is larger than 1).
+  Its error-feedback state is this rank's shard of :func:`init_ef_state`'s
+  layout, leading dims of 1 kept (:func:`rank_ef_state`), the view the
+  reference's ``shard_map`` gives a device.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as _tree
+from repro_torch.core.allreduce import (MIN_COMPRESS_ELEMS,
+                                        compressed_gradient_mean,
+                                        compressed_gradient_mean_2d)
+from repro_torch.kernels import xla_float
+from repro_torch.models.common import torch_dtype
+from repro_torch.optim import adamw_update, cosine_schedule
 
+
+@dataclasses.dataclass(frozen=True)
+class TrainHParams:
+    peak_lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    max_grad_norm: float = 1.0
+    remat: bool = True
+    ce_chunk: int = 512
+    attn_chunk: int = 1024
+    grad_accum: int = 1   # microbatches per step (activation memory / N)
+    accum_dtype: str = "float32"  # bfloat16 halves grad-reduce traffic
+
+
+def _loss_and_grads(model, hp: TrainHParams, params, batch):
+    """``(loss, grads)`` of ``model.loss`` at ``params`` (a tree of
+    tensors), the gradients a list in leaf order, each in its leaf's type."""
+    leaves, treedef = _tree.flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+    with torch.enable_grad():
+        loss = model.loss(_tree.unflatten(treedef, leaves), batch,
+                          remat=hp.remat, ce_chunk=hp.ce_chunk,
+                          attn_chunk=hp.attn_chunk)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, leaves)]
+    return loss.detach(), grads
+
+
+def _micro_batches(batch: dict, n: int):
+    """The batch split into ``n`` microbatches along its batch dim (a
+    ``(3, B, S)`` M-RoPE position leaf along its second)."""
+    def split(x):
+        if x.dim() >= 2 and x.shape[0] == 3:  # (3, B, S)
+            return list(x.chunk(n, dim=1))
+        return list(x.chunk(n, dim=0))
+
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def make_train_step(model, hp: TrainHParams = TrainHParams()) -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)`` with metrics ``loss``, ``grad_norm`` and ``lr``."""
+    compute_dtype = model.cfg.cdtype
+
+    def train_step(params, opt_state, batch):
+        # cast OUTSIDE the gradient and differentiate w.r.t. the compute
+        # copy; accumulation and the optimizer stay fp32
+        params_c = _tree.tree_map(
+            lambda x: x.to(compute_dtype) if x.dtype == torch.float32 else x,
+            params)
+        if hp.grad_accum > 1:
+            n = hp.grad_accum
+            adt = torch_dtype(hp.accum_dtype)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=_tree.leaves(params)[0].device)
+            acc = [torch.zeros(p.shape, dtype=adt, device=p.device)
+                   for p in _tree.leaves(params)]
+            for b in _micro_batches(batch, n):
+                loss_i, g = _loss_and_grads(model, hp, params_c, b)
+                acc = [a + x.to(adt) for a, x in zip(acc, g)]
+                loss = loss + loss_i
+            loss = xla_float.div_const(loss, n)
+            grads = [xla_float.div_const(g.to(torch.float32), n)
+                     for g in acc]
+        else:
+            loss, grads = _loss_and_grads(model, hp, params_c, batch)
+            grads = [g.to(torch.float32) for g in grads]
+        grads = _tree.unflatten(_tree.flatten(params)[1], grads)
+        lr = cosine_schedule(opt_state.step, peak_lr=hp.peak_lr,
+                             warmup=hp.warmup, total=hp.total_steps)
+        new_params, new_state, gnorm = adamw_update(
+            params, grads, opt_state, lr=lr,
+            weight_decay=hp.weight_decay, max_grad_norm=hp.max_grad_norm)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        return new_params, new_state, metrics
+
+    return train_step
+
+
+def make_prefill_step(model, attn_chunk: int = 1024) -> Callable:
+    def prefill_step(params, batch):
+        return model.prefill(params, batch["tokens"], attn_chunk=attn_chunk)
+
+    return prefill_step
+
+
+def make_decode_step(model, attn_chunk: int = 4096) -> Callable:
+    def decode_step(params, caches, tokens):
+        return model.decode_step(params, caches, tokens,
+                                 attn_chunk=attn_chunk)
+
+    return decode_step
+
+
+# ---------------------------------------------------------------------------
+# the paper's technique as a first-class training feature
+# ---------------------------------------------------------------------------
 
 def _shard_len(size: int, model_shards: int) -> int:
     return -(-size // model_shards)
@@ -32,3 +161,110 @@ def init_ef_state(params, n_workers: int, model_shards: int = 1):
         return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
     return _tree.tree_map(zeros, params)
+
+
+def rank_ef_state(params, model_shards: int = 1):
+    """This rank's shard of :func:`init_ef_state`'s layout, its leading
+    dims of 1 kept: ``(1, size)`` a leaf on a 1-D data group, ``(1, 1,
+    ceil(size / T))`` on a 2-D mesh with ``T`` model shards — what
+    :func:`make_compressed_train_step` takes and returns."""
+    if model_shards <= 1:
+        return init_ef_state(params, 1)
+
+    def zeros(p: torch.Tensor) -> torch.Tensor:
+        return torch.zeros((1, 1, _shard_len(p.numel(), model_shards)),
+                           dtype=torch.float32, device=p.device)
+
+    return _tree.tree_map(zeros, params)
+
+
+def _mesh_groups(mesh):
+    """``(data group, model group or None)`` of a ``DeviceMesh`` (``None``:
+    the default group as the data group)."""
+    if mesh is None:
+        return None, None
+    names = mesh.mesh_dim_names or ()
+    if "data" not in names:
+        raise ValueError(f"the mesh needs a 'data' dim, has {names}")
+    data = mesh.get_group("data")
+    if "model" in names and mesh.size(names.index("model")) > 1:
+        return data, mesh.get_group("model")
+    return data, None
+
+
+def _pmean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean of a 0-d f32 value over ``group`` (the reference's
+    ``pmean``)."""
+    total = x.detach().clone()
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return xla_float.div_const(total, dist.get_world_size(group))
+
+
+def make_compressed_train_step(model, mesh=None,
+                               hp: TrainHParams = TrainHParams(), *,
+                               k_fraction: float = 0.01,
+                               schedule: str = "gather_kway",
+                               selector: str = "block",
+                               model_reduce: str = "reduce_scatter",
+                               min_compress_elems: int = MIN_COMPRESS_ELEMS
+                               ) -> Callable:
+    """Training with top-k sparsified gradients reduced via SpKAdd.
+
+    ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` with a ``"data"``
+    dim (``None``: the default group is the data group); params and the
+    optimizer state are replicated on every rank. On a data-only mesh this
+    is the paper's sparse-allreduce setting. On a ``("data", "model")`` mesh
+    with a model dim T > 1 the step runs the DP×TP composition: the batch
+    splits over the flattened D×T grid, gradients combine densely over the
+    model group (``model_reduce``: "reduce_scatter" | "psum"), and each
+    model shard sparse-reduces its 1/T slice over the data group against
+    its own residual. Returns ``fn(params, opt_state, ef, batch) ->
+    (params, opt_state, ef, metrics)``: ``batch`` is the global batch (every
+    rank passes the same one), ``ef`` this rank's residuals
+    (:func:`rank_ef_state`), metrics ``loss`` (the mean over the grid) and
+    ``grad_norm``.
+    """
+    data_group, model_group = _mesh_groups(mesh)
+    use_2d = model_group is not None
+
+    def local_batch(batch):
+        d = dist.get_rank(data_group)
+        n = dist.get_world_size(data_group)
+        if use_2d:
+            t = dist.get_world_size(model_group)
+            d, n = d * t + dist.get_rank(model_group), n * t
+
+        def take(x):
+            axis = 1 if x.dim() >= 2 and x.shape[0] == 3 else 0
+            per = x.shape[axis] // n
+            return x.narrow(axis, d * per, per)
+
+        return {k: take(v) for k, v in batch.items()}
+
+    def step(params, opt_state, ef, batch):
+        loss, grads = _loss_and_grads(model, hp, params, local_batch(batch))
+        grads = _tree.unflatten(_tree.flatten(params)[1], grads)
+        kw = dict(schedule=schedule, selector=selector,
+                  min_compress_elems=min_compress_elems)
+        if use_2d:
+            residuals = _tree.tree_map(lambda r: r[0, 0], ef)
+            mean_grads, new_res = compressed_gradient_mean_2d(
+                grads, residuals, data_group, model_group, k_fraction,
+                model_reduce=model_reduce, **kw)
+            loss = _pmean(_pmean(loss, model_group), data_group)
+            new_ef = _tree.tree_map(lambda r: r[None, None], new_res)
+        else:
+            residuals = _tree.tree_map(lambda r: r[0], ef)
+            mean_grads, new_res = compressed_gradient_mean(
+                grads, residuals, data_group, k_fraction, **kw)
+            loss = _pmean(loss, data_group)
+            new_ef = _tree.tree_map(lambda r: r[None], new_res)
+        lr = cosine_schedule(opt_state.step, peak_lr=hp.peak_lr,
+                             warmup=hp.warmup, total=hp.total_steps)
+        new_params, new_state, gnorm = adamw_update(
+            params, mean_grads, opt_state, lr=lr,
+            weight_decay=hp.weight_decay, max_grad_norm=hp.max_grad_norm)
+        return new_params, new_state, new_ef, {"loss": loss,
+                                               "grad_norm": gnorm}
+
+    return step

@@ -152,3 +152,91 @@ def fail_on_rank_one(rank: int, world: int) -> None:
     if rank == 1:
         raise RuntimeError("rank 1 fails on purpose")
     dist.barrier()
+
+
+# ---------------------------------------------------------------------------
+# the compressed train step (tests/test_torch_train_step.py)
+# ---------------------------------------------------------------------------
+
+#: The world of the compressed train step: four ranks, laid out as each
+#: mesh the reference's ``make_compressed_train_step`` takes under four
+#: fake devices.
+TRAIN_WORLD = 4
+TRAIN_MESHES = {"dp4": (4,), "dp2xtp2": (2, 2)}
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH = (8, 32)   # global batch: two rows a rank
+TRAIN_STEPS = 2
+TRAIN_K = 0.05
+#: So that the smoke model's weight leaves compress (its largest has
+#: 6,144 elements) and its norms take the dense mean.
+TRAIN_MIN_COMPRESS = 1024
+TRAIN_HP = dict(ce_chunk=16, attn_chunk=16, remat=True, total_steps=10,
+                warmup=2)
+#: ``tests/test_distributed.py``'s lossless run: k 1.0, the global
+#: selector, three steps, no warmup.
+FULL_K_HP = dict(ce_chunk=16, attn_chunk=16, remat=False, total_steps=100,
+                 warmup=0)
+FULL_K_STEPS = 3
+
+
+def train_batch(step: int, vocab: int = 128) -> dict:
+    """The global batch of ``step`` as numpy ``tokens``/``labels``."""
+    B, S = TRAIN_BATCH
+    toks = np.random.default_rng(100 + step).integers(
+        0, vocab, (B, S + 1), dtype=np.int32)
+    return {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+
+
+def _train(step_fn, params, opt, ef, steps):
+    import torch
+
+    losses, gnorms = [], []
+    for s in range(steps):
+        batch = {k: torch.from_numpy(v) for k, v in train_batch(s).items()}
+        params, opt, ef, met = step_fn(params, opt, ef, batch)
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+    return params, opt, ef, losses, gnorms
+
+
+def compressed_train_rank(rank: int, world: int, params_np) -> dict:
+    """This rank's params, AdamW moments, residuals and metrics after
+    :data:`TRAIN_STEPS` compressed steps on each mesh of
+    :data:`TRAIN_MESHES`, and after the lossless run (``full_k``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import interop
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import (TrainHParams, make_compressed_train_step,
+                                   rank_ef_state)
+
+    model = build_model(get_smoke_config(TRAIN_ARCH))
+    out = {}
+    for name, shape in TRAIN_MESHES.items():
+        dims = ("data",) if len(shape) == 1 else ("data", "model")
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=dims)
+        params = interop.params_from_numpy(params_np, "cpu")
+        step = make_compressed_train_step(
+            model, mesh, TrainHParams(**TRAIN_HP), k_fraction=TRAIN_K,
+            selector="block", min_compress_elems=TRAIN_MIN_COMPRESS)
+        ef = rank_ef_state(params, model_shards=shape[-1]
+                           if len(shape) == 2 else 1)
+        p, o, e, losses, gnorms = _train(step, params, adamw_init(params),
+                                         ef, TRAIN_STEPS)
+        out[name] = {"coord": tuple(int(c) for c in mesh.get_coordinate()),
+                     "params": TR.leaves(interop.params_to_numpy(p)),
+                     "mu": TR.leaves(interop.params_to_numpy(o.mu)),
+                     "nu": TR.leaves(interop.params_to_numpy(o.nu)),
+                     "ef": TR.leaves(interop.params_to_numpy(e)),
+                     "loss": losses, "grad_norm": gnorms}
+    params = interop.params_from_numpy(params_np, "cpu")
+    step = make_compressed_train_step(model, None, TrainHParams(**FULL_K_HP),
+                                      k_fraction=1.0, selector="global")
+    p, _, _, losses, _ = _train(step, params, adamw_init(params),
+                                rank_ef_state(params), FULL_K_STEPS)
+    out["full_k"] = {"params": TR.leaves(interop.params_to_numpy(p)),
+                     "loss": losses}
+    return out

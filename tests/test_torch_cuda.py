@@ -1421,3 +1421,116 @@ def test_compressed_gradient_mean_on_card_equals_cpu(nccl_world, sched):
     for tree_c, tree_h in zip(out["cuda"], out["cpu"]):
         for k in grads:
             assert np.array_equal(bits(tree_c[k]), bits(tree_h[k])), k
+
+
+# ---------------------------------------------------------------------------
+# the dense decoder workload (models, train steps) on the card
+# ---------------------------------------------------------------------------
+
+def _model_outputs(arch, dev, compute_dtype="float32"):
+    import dataclasses
+
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import use_full_precision
+
+    use_full_precision()
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              compute_dtype=compute_dtype)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 33),
+                                             dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+    leaves, treedef = TR.flatten(params)
+    leaves = [x.requires_grad_() for x in leaves]
+    loss = model.loss(TR.unflatten(treedef, leaves), batch, ce_chunk=16,
+                      attn_chunk=8)
+    grads = torch.autograd.grad(loss, leaves)
+    params = TR.unflatten(treedef, [x.detach() for x in leaves])
+    logits, caches = model.prefill(params, batch["tokens"], max_len=41,
+                                   attn_chunk=8)
+    decoded = []
+    tok = logits.argmax(-1)
+    for _ in range(8):
+        logits, caches = model.decode_step(params, caches, tok, attn_chunk=8)
+        decoded.append(logits)
+        tok = logits.argmax(-1)
+    return ([loss.detach()] + list(grads) + decoded), tok
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "internlm2-1.8b",
+                                  "stablelm-3b"])
+def test_model_on_card_equals_cpu(cuda, arch):
+    """Loss, grads and eight decode steps of the f32 smoke configs: the
+    card against the CPU at the CPU parity tests' tolerance (each value
+    within 1e-5 of its scale, grads 1e-4)."""
+    card, card_tok = _model_outputs(arch, cuda)
+    cpu, cpu_tok = _model_outputs(arch, "cpu")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        scale = float(b.abs().max()) or 1.0
+        tol = 1e-4 if 0 < i <= 12 else 1e-5
+        assert float((a.cpu() - b).abs().max()) <= tol * scale, i
+    assert torch.equal(card_tok.cpu(), cpu_tok)
+
+
+def test_bf16_model_on_card_equals_cpu(cuda):
+    card, _ = _model_outputs("smollm-135m", cuda, "bfloat16")
+    cpu, _ = _model_outputs("smollm-135m", "cpu", "bfloat16")
+    assert abs(float(card[0]) - float(cpu[0])) <= 2e-3 * float(cpu[0])
+    for a, b in zip(card[13:], cpu[13:]):  # decode logits
+        assert float((a.cpu() - b).abs().max()) <= 0.1
+
+
+def test_model_refuses_tf32(cuda):
+    from repro_torch.models import layers as L
+
+    q = torch.zeros(1, 2, 2, 8, device=cuda)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            L.blockwise_attention(q, q, q)
+    finally:
+        L.use_full_precision()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        with pytest.raises(RuntimeError, match="reduce in f32"):
+            L.blockwise_attention(q, q, q)
+    finally:
+        L.use_full_precision()
+
+
+def test_lossless_compressed_step_on_card_tracks_dense(nccl_world):
+    """k 1.0 on one NCCL rank: the compressed step tracks the dense step
+    on the card within the reference's own bound (rtol 2e-4, atol 2e-5,
+    three steps)."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import use_full_precision
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import (TrainHParams, make_compressed_train_step,
+                                   make_train_step, rank_ef_state)
+
+    use_full_precision()
+    model = build_model(get_smoke_config("smollm-135m"))
+    hp = TrainHParams(ce_chunk=16, attn_chunk=16, remat=False,
+                      total_steps=100, warmup=0)
+    dense = make_train_step(model, hp)
+    comp = make_compressed_train_step(model, None, hp, k_fraction=1.0,
+                                      selector="global")
+    pd = pc = model.init(0, device="cuda")
+    od = oc = adamw_init(pd)
+    ef = rank_ef_state(pc)
+    rng = np.random.default_rng(5)
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, 128, (8, 33),
+                                             dtype=np.int32)).cuda()
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        pd, od, md = dense(pd, od, batch)
+        pc, oc, ef, mc = comp(pc, oc, ef, batch)
+        assert abs(float(md["loss"]) - float(mc["loss"])) < 1e-4
+    for a, b in zip(TR.leaves(pd), TR.leaves(pc)):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-5)

@@ -41,7 +41,18 @@ def test_scan_covers_the_port():
                    "launch/stream_serve.py", "kernels/xla_add.py",
                    "core/allreduce.py", "core/spgemm.py", "optim/adamw.py",
                    "optim/__init__.py", "launch/spgemm_demo.py",
-                   "launch/world.py"):
+                   "launch/world.py", "models/__init__.py",
+                   "models/common.py", "models/layers.py",
+                   "models/transformer.py", "configs/__init__.py",
+                   "configs/smollm_135m.py", "configs/internlm2_1_8b.py",
+                   "configs/stablelm_3b.py", "configs/gemma3_27b.py",
+                   "configs/qwen2_vl_72b.py", "configs/whisper_medium.py",
+                   "configs/zamba2_2_7b.py", "configs/mamba2_370m.py",
+                   "configs/moonshot_v1_16b_a3b.py",
+                   "configs/llama4_scout_17b_a16e.py", "data/__init__.py",
+                   "data/synthetic.py", "train/__init__.py",
+                   "launch/train.py", "launch/serve.py",
+                   "launch/train_100m.py", "launch/quickstart.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert "chip_smoke.py" in names
 
