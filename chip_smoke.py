@@ -97,7 +97,21 @@ result, when no CUDA card is present or the package is missing.
    against the CPU's; the largest launch of each kernel on the path
    replayed through its plain version. The top-k, ``xla_add`` and
    segment-fold kernels must launch, and the catch-up an engine kernel.
-11. One profiled call of each phase (device time by kernel, busy share),
+11. ``families`` (:func:`run_families`): the MoE, gemma3 local:global
+   and VLM decoders at full width, depth cut to fit the card
+   (:data:`FAMILIES`; parameters drawn on the card, each family once):
+   Moonshot-16B-A3B serves at depth 2 and takes one compressed step of
+   8 x 2,048 tokens at depth 1 (each mean ``densify(u)`` bitwise at
+   P = 1); Llama4-Scout at depth 1, gemma3-27B at depth 6 and
+   Qwen2-VL-72B at depth 2 (M-RoPE on ``make_batch``'s embeddings) a loss
+   and gradient on 1 x 4,096, all finite; each prefills its prompts through ``make_prefill_step`` (gemma3
+   at depth 7, 2 x 1,536 tokens, past its window) and decodes 8 tokens,
+   held to a prefill of prompts plus tokens (``WL_DECODE_TOL``; the VLM's
+   decode only finite); the step's largest top-k, ``xla_add`` and
+   segment-fold launches (the MoE combine's too) are replayed through the
+   plain versions, and the first layer's combine is held bitwise to the
+   plain ordered fold and timed beside ``index_add_``.
+12. One profiled call of each phase (device time by kernel, busy share),
    ten profiled calls each of the family's ``vec`` and ``blocked_spa``
    (each call's host time and the CUDA runtime calls that took the most
    host time: where a slow call waits), then each of the eight kernels against its plain PyTorch version on the
@@ -114,11 +128,12 @@ result, when no CUDA card is present or the package is missing.
    delta-sync catch-up's largest launch (its inputs rebuilt after the
    phase by a replay of that launch's engine call); the top-k row its
    radix passes and its time at each leaf shape of a publish beside
-   ``torch.topk``. Each row also counts its launches in phases 8-10
-   (``launches_allreduce``, ``launches_spgemm``, ``launches_workload``),
-   and the rows fold the replays of those phases' launches
-   (``replay_allreduce``, ``replay_spgemm``, ``replay_workload``) into
-   their ``max_abs_err``. Then JSON lines of the
+   ``torch.topk``. Each row also counts its launches in phases 8-11
+   (``launches_allreduce``, ``launches_spgemm``, ``launches_workload``,
+   ``launches_families``), and the rows fold the replays of those phases'
+   launches (``replay_allreduce``, ``replay_spgemm``, ``replay_workload``,
+   ``replay_families``) into their ``max_abs_err``; the segment-fold row
+   carries the MoE combine's times (``moe_combine``). Then JSON lines of the
    phases' end-to-end times, the profiles and the kernel numbers (median ms by
    CUDA events, bound, plain and library times), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -329,6 +344,8 @@ def bitwise_equal(torch, a, b) -> bool:
         return False
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
     return torch.equal(a, b)
 
 
@@ -1101,6 +1118,22 @@ def count_launches(torch, kernels: dict, launches: dict, fn):
     for name in launches:
         launches[name] += kernels[name].launches
     return out, {k: f.launches for k, f in kernels.items() if f.launches}
+
+
+class launches_uncounted:
+    """A block whose kernel launches (a check or a replay inside a counted
+    path) leave every launch count as it was."""
+
+    def __init__(self, kernels: dict):
+        self.kernels = kernels
+
+    def __enter__(self):
+        self.saved = {k: f.launches for k, f in self.kernels.items()}
+
+    def __exit__(self, *exc):
+        for k, f in self.kernels.items():
+            f.launches = self.saved[k]
+        return False
 
 
 def keeping_largest(module, name: str, fn):
@@ -1927,6 +1960,43 @@ WL_CPU_LOSS_RTOL = 2e-3
 WL_FOLD_RTOL, WL_FOLD_ATOL = 1e-6, 1e-7
 
 
+def check_means_at_p1(torch, names, calls, k_fraction: float,
+                      what: str) -> int:
+    """A compressed step's means at P = 1, each call ``(grads, residuals,
+    (mean, new residuals))`` as the step made it: each compressed leaf's
+    mean is ``densify(u)`` of its EF sparsify bitwise, and mean + new
+    residual equals gradient + residual; a leaf under
+    ``MIN_COMPRESS_ELEMS`` is its own mean. Returns how many such dense
+    leaves there were."""
+    from repro_torch import tree as TR
+    from repro_torch.core import topk as T
+    from repro_torch.kernels import xla_float
+    from repro_torch.train import step as ST
+
+    n_dense_leaves = 0
+    for grads, res, (mean, new_r) in calls:
+        for name, g, r, m, nr in zip(names, TR.leaves(grads),
+                                     TR.leaves(res), TR.leaves(mean),
+                                     TR.leaves(new_r)):
+            if g.numel() < ST.MIN_COMPRESS_ELEMS:
+                n_dense_leaves += 1
+                check(bitwise_equal(torch, m, g) and nr is r,
+                      f"{what}: the dense leaf {name} is not its own mean "
+                      f"at P = 1")
+                continue
+            u, want_r = T.sparsify_with_feedback(
+                g.reshape(-1), r, T.global_k(g.numel(), k_fraction),
+                selector="block")
+            check(bitwise_equal(torch, m.reshape(-1), T.densify(u))
+                  and bitwise_equal(torch, nr, want_r),
+                  f"{what}: {name}'s mean is not densify(u)")
+            check(torch.equal(xla_float.add(m.reshape(-1), nr),
+                              xla_float.add(g.reshape(-1), r)),
+                  f"{what}: mean + new residual differs from grad + "
+                  f"residual at {name}")
+    return n_dense_leaves
+
+
 def run_workload(torch, seed: int, dev, kernels: dict):
     """Phase ``workload``: the dense decoder trained with the paper's
     compressed gradients and served with live parameter deltas, through
@@ -1963,11 +2033,9 @@ def run_workload(torch, seed: int, dev, kernels: dict):
     from repro_torch.configs import get_config
     from repro_torch.core import engine as E
     from repro_torch.core import sparse as S
-    from repro_torch.core import topk as T
     from repro_torch.data import make_batch
     from repro_torch.kernels import hash_slide, ops as kops, partition
     from repro_torch.kernels import segment, spa_accum, topk_block, xla_add
-    from repro_torch.kernels import xla_float
     from repro_torch.models import build_model
     from repro_torch.models.common import SHAPES
     from repro_torch.models.layers import use_full_precision
@@ -2077,28 +2145,8 @@ def run_workload(torch, seed: int, dev, kernels: dict):
                      for _ in range(WL_COMPRESSED_STEPS)],
             required=("topk_block", "xla_add", "segment_fold")))
         mean_log["keep"] = False
-        # at P = 1: mean == densify(u), mean + new residual == grad + res
-        n_dense_leaves = 0
-        for grads, res, (mean, new_r) in mean_log["calls"]:
-            for name, g, r, m, nr in zip(names, TR.leaves(grads),
-                                         TR.leaves(res), TR.leaves(mean),
-                                         TR.leaves(new_r)):
-                if g.numel() < ST.MIN_COMPRESS_ELEMS:
-                    n_dense_leaves += 1
-                    check(bitwise_equal(torch, m, g) and nr is r,
-                          f"phase workload (a): the dense leaf {name} is not "
-                          f"its own mean at P = 1")
-                    continue
-                u, want_r = T.sparsify_with_feedback(
-                    g.reshape(-1), r, T.global_k(g.numel(), WL_K),
-                    selector="block")
-                check(bitwise_equal(torch, m.reshape(-1), T.densify(u))
-                      and bitwise_equal(torch, nr, want_r),
-                      f"phase workload (a): {name}'s mean is not densify(u)")
-                check(torch.equal(xla_float.add(m.reshape(-1), nr),
-                                  xla_float.add(g.reshape(-1), r)),
-                      f"phase workload (a): mean + new residual differs "
-                      f"from grad + residual at {name}")
+        n_dense_leaves = check_means_at_p1(torch, names, mean_log["calls"],
+                                           WL_K, "phase workload (a)")
         check(n_dense_leaves == WL_COMPRESSED_STEPS, "phase workload (a): "
               "expected one leaf (final_ln) under MIN_COMPRESS_ELEMS")
         del mean_log["calls"][:]
@@ -2359,6 +2407,489 @@ def run_workload(torch, seed: int, dev, kernels: dict):
         f"{phase['peak_mem_bytes'] / 2**30:.2f} GiB; launches {launches}")
     return phase, {"workload_compressed_step": prof_step,
                    "workload_decode_token": prof_decode}
+
+
+#: Phase ``families``: the other decoder families of the port at full
+#: width (``src/repro_torch/configs/``), depth cut to fit one card by
+#: ``ModelConfig.param_count`` (16 B a parameter for f32 weights,
+#: gradients and AdamW moments, 20 B with the compressed step's residual,
+#: 8 B for a loss and gradient). Each family's parameters are drawn once,
+#: on the card (``init(on_device=True)``); a shallower tree is cut from
+#: the deeper one (gemma3's depth-6 training tree is its depth-7 serving
+#: tree without ``extra_local``; Moonshot's depth-1 training tree is the
+#: first layer of its depth-2 serving tree). ``step``: ``"compressed"`` one
+#: ``make_compressed_train_step`` step, ``"grad"`` a loss and gradient
+#: (the compressed step of those would not fit). Moonshot's step trains
+#: at depth 1: at depth 2, AdamW holding the old and new parameters,
+#: moments and residuals at once with the mean reckons 65 GB (1.24 G
+#: parameters at depth 1: 45 GB) before its temporaries and the earlier
+#: phases' tensors, too close to the card's 79.2 GiB.
+FAMILIES = {
+    "moonshot_v1_16b_a3b": dict(train_depth=1, train=(8, 2048),
+                                serve_depth=2, prompts=(4, 512),
+                                step="compressed"),
+    "llama4_scout_17b_a16e": dict(train_depth=1, train=(1, 4096),
+                                  serve_depth=1, prompts=(4, 512),
+                                  step="grad"),
+    "gemma3_27b": dict(train_depth=6, train=(1, 4096), serve_depth=7,
+                       prompts=(2, 1536), step="grad"),
+    "qwen2_vl_72b": dict(train_depth=2, train=(1, 4096), serve_depth=2,
+                         prompts=(4, 512), step="grad"),
+}
+FAM_NEW_TOKENS = 8
+FAM_K = 0.01
+
+
+def family_decode(torch, model, params, batch, counted=None):
+    """Prefill ``batch``'s prompts (``make_prefill_step``, chunks of 32,
+    caches of prompt + :data:`FAM_NEW_TOKENS`) and decode that many greedy
+    tokens (``make_decode_step``, chunks of 128). Returns ``(prefill ms,
+    decode ms each, the fed tokens, the last logits, the caches, the decode
+    step, launches)``; launches are counted when ``counted`` is given."""
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    P_S = batch["embeds" if "embeds" in batch else "tokens"].shape[1]
+    prefill = make_prefill_step(model, attn_chunk=32,
+                                max_len=P_S + FAM_NEW_TOKENS)
+    decode = make_decode_step(model, attn_chunk=128)
+    counted = counted or (lambda fn: (fn(), {}))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (lg, caches), used = counted(lambda: prefill(params, batch))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    tok, fed, decode_ms, used = torch.argmax(lg, -1), [], [], dict(used)
+    for _ in range(FAM_NEW_TOKENS):
+        fed.append(tok)
+        t = time.perf_counter()
+        (lg, caches), more = counted(lambda: decode(params, caches, tok))
+        torch.cuda.synchronize()
+        decode_ms.append((time.perf_counter() - t) * 1e3)
+        tok = torch.argmax(lg, -1)
+        for k, n in more.items():
+            used[k] = used.get(k, 0) + n
+    return prefill_ms, decode_ms, fed, lg, caches, decode, used
+
+
+def decode_vs_prefill(torch, model, params, prompts, fed, lg) -> dict:
+    """The last decode logits ``lg`` against ``model``'s prefill of the
+    prompts plus the ``fed`` tokens: max |diff|, the largest logit, the
+    share of sequences whose argmax agrees and, for a MoE model, the
+    assignments each layer of that prefill dropped."""
+    from repro_torch.models import moe as MOE
+
+    drops = []
+    real_dispatch = MOE.dispatch
+
+    def counting(expert, n_experts, capacity):
+        d = real_dispatch(expert, n_experts, capacity)
+        drops.append(int((~d.keep).sum()))
+        return d
+
+    full = torch.cat([prompts, torch.stack(fed, 1).to(torch.int32)], 1)
+    MOE.dispatch = counting
+    try:
+        lp, _ = model.prefill(params, full, attn_chunk=32)
+    finally:
+        MOE.dispatch = real_dispatch
+    return {"max_abs": float((lp - lg).abs().max()),
+            "logit_scale": float(lp.abs().max()),
+            "argmax_agree": float((lp.argmax(-1) == lg.argmax(-1)).float()
+                                  .mean()),
+            "dropped_assignments": drops}
+
+
+def family_serve(torch, model, params, spec, dev, counted):
+    """Prefill the family's prompts and decode :data:`FAM_NEW_TOKENS`
+    greedy tokens (:func:`family_decode`), timed, and profile one more
+    token. (b) But for the VLM, whose prompts are embeddings and whose
+    decode is only held finite, the last decode logits are held to a
+    prefill of the prompts plus those tokens within ``WL_DECODE_TOL``. A
+    MoE model at its capacity factor drops assignments in a prefill of
+    thousands of tokens that a decode of a few keeps, and in bf16 the two
+    paths' rounding flips a token's near-tied experts (a jump, not a
+    drift), so its gap there is only reported; it is held on the same
+    weights in f32 compute at a capacity factor of ``n_experts /
+    moe_topk``, where no expert can overflow. Returns the numbers and the
+    decode profile."""
+    import dataclasses
+
+    from repro_torch.data import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import SHAPES
+
+    cfg = model.cfg
+    what = f"phase families (b) {cfg.arch_id}"
+    P_B, P_S = spec["prompts"]
+    batch = make_batch(cfg, SHAPES["prefill_32k"], 0, batch_override=P_B,
+                       seq_override=P_S, device=dev)
+    batch.pop("labels")
+    prefill_ms, decode_ms, fed, lg, caches, decode, used = family_decode(
+        torch, model, params, batch, counted)
+    check(bool(torch.isfinite(lg).all()), f"{what}: decode logits are not "
+          f"finite")
+    decode_med = statistics.median(decode_ms)
+    tok = torch.argmax(lg, -1)
+    prof = device_profile(torch, lambda: decode(params, caches, tok),
+                          decode_med)
+    del caches
+    out = {"prompts": [P_B, P_S], "prefill_ms": prefill_ms,
+           "decode_ms": decode_ms, "decode_median_ms": decode_med,
+           "decode_tokens_per_s": P_B / (decode_med / 1e3),
+           "decode_idle_share": 1.0 - prof["busy_share"],
+           "launches_serve": used,
+           "ring": (min(cfg.sliding_window, P_S + FAM_NEW_TOKENS)
+                    if model.n_groups else None)}
+    idle = f"{1 - prof['busy_share']:.0%} idle"
+    if cfg.family == "vlm":
+        log(f"{what}: prefill {P_B}x{P_S} (embeddings) {prefill_ms:.1f} "
+            f"ms, decode {decode_med:.2f} ms a token ({idle}), finite "
+            f"logits (no prefill to hold decode to: the prompts are "
+            f"embeddings)")
+        return out, prof
+    held = decode_vs_prefill(torch, model, params, batch["tokens"], fed, lg)
+    if cfg.family == "moe":
+        out["decode_vs_prefill_at_config"] = held
+        cf = cfg.n_experts / cfg.moe_topk
+        exact = build_model(dataclasses.replace(
+            cfg, capacity_factor=cf, compute_dtype="float32"))
+        _, _, fed, lg, caches, _, _ = family_decode(torch, exact, params,
+                                                    batch)
+        del caches
+        held = decode_vs_prefill(torch, exact, params, batch["tokens"], fed,
+                                 lg)
+        held.update(capacity_factor=cf, compute_dtype="float32")
+        check(not any(held["dropped_assignments"]), f"{what}: the lossless "
+              f"capacity dropped {held['dropped_assignments']}")
+    out["decode_vs_prefill"] = held
+    at_cfg = out.get("decode_vs_prefill_at_config")
+    log(f"{what}: prefill {P_B}x{P_S} {prefill_ms:.1f} ms, decode "
+        f"{decode_med:.2f} ms a token ({idle}); decode vs prefill {held}"
+        + (f" (at the config's capacity factor: {at_cfg})" if at_cfg
+           else ""))
+    check(np.isfinite(held["max_abs"])
+          and held["max_abs"] <= WL_DECODE_TOL * held["logit_scale"],
+          f"{what}: decode differs from prefill by {held['max_abs']} "
+          f"(largest logit {held['logit_scale']}, limit {WL_DECODE_TOL} of "
+          f"it)")
+    return out, prof
+
+
+def family_grad(torch, model, params, spec, dev, counted):
+    """A loss and gradient of ``model.loss`` (remat, the train step's
+    chunks) on ``train_4k``'s draws cut to ``spec["train"]``: all finite."""
+    from repro_torch import tree as TR
+    from repro_torch.data import make_batch
+    from repro_torch.models.common import SHAPES
+    from repro_torch.train import TrainHParams
+
+    hp = TrainHParams()
+    B, S_len = spec["train"]
+    batch = make_batch(model.cfg, SHAPES["train_4k"], 0, batch_override=B,
+                       seq_override=S_len, device=dev)
+    leaves, treedef = TR.flatten(params)
+    leaves = [x.detach().requires_grad_() for x in leaves]
+
+    def loss_and_grads():
+        with torch.enable_grad():
+            loss = model.loss(TR.unflatten(treedef, leaves), batch,
+                              remat=hp.remat, ce_chunk=hp.ce_chunk,
+                              attn_chunk=hp.attn_chunk)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), grads
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    (loss, grads), used = counted(loss_and_grads)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    finite = all(g is None or bool(torch.isfinite(g).all()) for g in grads)
+    check(bool(torch.isfinite(loss)) and finite,
+          f"phase families (a) {model.cfg.arch_id}: loss {float(loss)} or a "
+          f"gradient is not finite")
+    return {"train": [B, S_len], "loss": float(loss), "loss_grad_ms": ms,
+            "train_tokens_per_s": B * S_len / (ms / 1e3),
+            "launches_train": used,
+            "unused_leaves": sum(g is None for g in grads)}
+
+
+def shallower_tree(TR, model, cut, params) -> dict:
+    """``params`` of ``model`` cut to ``cut``'s depth, sharing storage: the
+    first layers of an all-global stack, or a grouped tree without its
+    extra local layers (one whole group kept)."""
+    if model.n_groups == 0:
+        n = cut.cfg.n_layers
+        return {**params, "layers": TR.tree_map(lambda x: x[:n],
+                                                params["layers"])}
+    check(cut.n_extra_local == 0 and cut.n_groups == model.n_groups,
+          f"phase families: {model.cfg.arch_id}'s depth cut is not its "
+          f"extra local layers")
+    return {k: v for k, v in params.items() if k != "extra_local"}
+
+
+def run_families(torch, seed: int, dev, kernels: dict):
+    """Phase ``families``: the MoE, gemma3 local:global and VLM decoders at
+    full width (:data:`FAMILIES`, depths cut to fit the card), through the
+    port's entry points (``build_model``, ``make_batch``,
+    ``make_prefill_step``, ``make_decode_step``,
+    ``make_compressed_train_step``) on the default NCCL group of one rank.
+
+    (a) Each family's loss and gradient are finite; Moonshot (its first
+    layer) takes one compressed step (k 0.01, block selector, ``gather_kway``), whose means
+    at P = 1 are ``densify(u)`` bitwise with mean + new residual equal to
+    gradient + residual (:func:`check_means_at_p1`). (b) Greedy decode of
+    8 tokens against a prefill of the prompts plus those tokens
+    (``WL_DECODE_TOL``), but for the VLM, whose decode is only held
+    finite; gemma3's prompts are longer than its window, so the rings are
+    rolled and every decoded token wraps them. (c) The step's largest
+    launch of the top-k, ``xla_add`` and segment-fold kernels (the
+    engine's and the MoE combine's) replayed through the plain versions.
+    (d) The combine of the step's first MoE layer held bitwise to the
+    plain ordered fold (``moe.combine_plain``) and timed beside
+    ``index_add_`` on the same contributions. Returns the phase's numbers
+    and one decode token's profile a family."""
+    import dataclasses
+    import gc
+
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import use_full_precision
+
+    use_full_precision()
+    launches = dict.fromkeys(("topk_block", "xla_add", "segment_fold"), 0)
+
+    def counted(fn):
+        return count_launches(torch, kernels, launches, fn)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fams, profiles, plain_replays, combine = {}, {}, {}, {}
+    for arch, spec in FAMILIES.items():
+        t_fam = time.monotonic()
+        torch.cuda.reset_peak_memory_stats(dev)
+        full = get_config(arch)
+        depth = max(spec["train_depth"], spec["serve_depth"])
+        model = build_model(dataclasses.replace(full, n_layers=depth))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params = model.init(seed, device=dev, on_device=True)
+        torch.cuda.synchronize()
+        res = {"depth_serve": spec["serve_depth"],
+               "depth_train": spec["train_depth"],
+               "layers_full": full.n_layers, "params": sum(
+                   x.numel() for x in TR.leaves(params)),
+               "init_ms": (time.perf_counter() - t) * 1e3,
+               "compute": full.compute_dtype}
+        check(res["params"] == model.cfg.param_count(), f"phase families: "
+              f"{arch}'s tree holds {res['params']} parameters, its config "
+              f"{model.cfg.param_count()}")
+        smodel, sparams = model, params
+        if spec["serve_depth"] != depth:
+            smodel = build_model(dataclasses.replace(
+                full, n_layers=spec["serve_depth"]))
+            sparams = shallower_tree(TR, model, smodel, params)
+        serve, profiles[f"families_{arch}_decode_token"] = family_serve(
+            torch, smodel, sparams, spec, dev, counted)
+        res.update(serve)
+        tmodel, tparams = model, params
+        if spec["train_depth"] != depth:
+            tmodel = build_model(dataclasses.replace(
+                full, n_layers=spec["train_depth"]))
+            tparams = shallower_tree(TR, model, tmodel, params)
+        res["train_params"] = sum(x.numel() for x in TR.leaves(tparams))
+        del smodel, sparams
+        if spec["step"] == "grad":
+            res.update(family_grad(torch, tmodel, tparams, spec, dev,
+                                   counted))
+            log(f"phase families (a) {arch}: depth {spec['train_depth']}, "
+                f"loss {res['loss']:.4f}, loss and gradient on "
+                f"{spec['train']} in {res['loss_grad_ms']:.1f} ms; "
+                f"launches {res['launches_train']}")
+        else:
+            res.update(moe_step(torch, tmodel, tparams, spec, dev, kernels,
+                                counted, plain_replays, combine))
+        del tmodel, tparams, params, model
+        free()
+        res["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+        res["wall_s"] = time.monotonic() - t_fam
+        fams[arch] = res
+        log(f"phase families {arch}: {res['wall_s']:.1f} s, peak "
+            f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
+    for name in ("topk_block", "xla_add", "segment_fold"):
+        check(launches[name] > 0, f"phase families: the {name} kernel did "
+              f"not launch")
+    phase = {
+        "families": fams, "launches": launches,
+        "plain_replays": plain_replays, "moe_combine": combine,
+        "resident_before_bytes": resident,
+        "peak_mem_bytes": max(f["peak_mem_bytes"] for f in fams.values()),
+        "reduced": [f"{a}: depth {s['train_depth']} (train) and "
+                    f"{s['serve_depth']} (serve) of "
+                    f"{fams[a]['layers_full']}; train batch "
+                    f"{s['train'][0]} x {s['train'][1]} of train_4k's "
+                    f"256 x 4,096; {s['prompts'][0]} prompts of "
+                    f"{s['prompts'][1]}, {FAM_NEW_TOKENS} new tokens"
+                    for a, s in FAMILIES.items()]
+        + ["parameters drawn on the card (other values than the CPU draw)",
+           "one chip (one NCCL rank, P = 1)",
+           "llama4, gemma3, qwen2-vl: a loss and gradient, no optimizer "
+           "step (their compressed step needs 67-106 GB)"]}
+    log(f"phase families: launches {launches}; replays {plain_replays}")
+    return phase, profiles
+
+
+def moe_step(torch, model, params, spec, dev, kernels, counted,
+             plain_replays, combine):
+    """Phase ``families`` (a), (c), (d) for the Moonshot tree: one
+    compressed step. Its mean at P = 1 is checked, and its largest top-k,
+    ``xla_add`` and segment-fold launches replayed through the plain
+    versions, inside the mean's call, before AdamW builds the new state
+    (kept until the step's end, the gradients and those inputs would not
+    fit beside the old and new state); that aside is not counted in
+    launches and is taken off the step's time. The combine's largest
+    segment fold is replayed after the step, and its first layer's combine
+    held to the plain fold. Fills ``plain_replays`` and ``combine``;
+    returns the step's numbers."""
+    from repro_torch import tree as TR
+    from repro_torch.core import engine as E
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import segment, topk_block, xla_add
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.common import SHAPES
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import (TrainHParams, make_compressed_train_step,
+                                   rank_ef_state)
+    from repro_torch.train import step as ST
+
+    what = f"phase families {model.cfg.arch_id}"
+    B, S_len = spec["train"]
+    batch = make_batch(model.cfg, SHAPES["train_4k"], 0, batch_override=B,
+                       seq_override=S_len, device=dev)
+    comp = make_compressed_train_step(
+        model, None, TrainHParams(warmup=0, total_steps=100),
+        k_fraction=FAM_K, selector="block", schedule="gather_kway")
+    names = TR.flatten_with_names(params)[1]
+    real_mean, real_combine = ST.compressed_gradient_mean, MOE.combine
+    log_ = {"ev": [], "contrib": None, "aside_s": 0.0, "dense": 0}
+
+    def replay(name, raw, plain, call, what_):
+        r = replay_through_plain(torch, raw, plain, call, what_)
+        if name in plain_replays:  # one kernel replayed twice
+            prev = plain_replays[name]
+            r = {"what": f"{prev['what']}; {r['what']}",
+                 "each": prev.get("each", [prev]) + [r],
+                 "max_abs_err": max(prev["max_abs_err"], r["max_abs_err"])}
+        plain_replays[name] = r
+
+    def timed_mean(grads, residuals, *a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out, kept = keeping_largest_each(
+            {"topk_block": (topk_block, "topk_block_raw"),
+             "xla_add": (xla_add, "xla_add_raw"),
+             "segment_fold": (E, "segment_fold")},
+            lambda: real_mean(grads, residuals, *a, **kw),
+            required=("topk_block", "xla_add", "segment_fold"))
+        ev[1].record()
+        log_["ev"].append(ev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with launches_uncounted(kernels):
+            log_["dense"] += check_means_at_p1(
+                torch, names, [(grads, residuals, out)], FAM_K,
+                f"{what} (a)")
+            replay("topk_block", topk_block.topk_block_raw,
+                   topk_block.topk_block_plain, kept.pop("topk_block"),
+                   f"{what} (c): the step's largest top-k launch")
+            replay("xla_add", xla_add.xla_add_raw, xla_add.xla_add_plain,
+                   kept.pop("xla_add"),
+                   f"{what} (c): the step's largest xla_add")
+            replay("segment_fold", segment.segment_fold,
+                   segment.segment_fold_plain, kept.pop("segment_fold"),
+                   f"{what} (c): the mean's largest segment fold")
+            del kept
+            torch.cuda.synchronize()
+        log_["aside_s"] += time.perf_counter() - t
+        return out
+
+    def first_combine(contrib):
+        if log_["contrib"] is None:
+            log_["contrib"] = contrib.detach()
+        return real_combine(contrib)
+
+    state = {"p": params, "o": adamw_init(params),
+             "ef": rank_ef_state(params)}
+    del params
+
+    def one_step():
+        p, o, ef = state.pop("p"), state.pop("o"), state.pop("ef")
+        return comp(p, o, ef, batch)
+
+    ST.compressed_gradient_mean, MOE.combine = timed_mean, first_combine
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        (out, kept), used = counted(lambda: keeping_largest_each(
+            {"segment_fold/moe": (MOE, "segment_fold")}, one_step,
+            required=("segment_fold/moe",)))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t - log_["aside_s"]) * 1e3
+    finally:
+        ST.compressed_gradient_mean, MOE.combine = real_mean, real_combine
+    metrics = out[3]
+    loss = float(metrics["loss"])
+    del out, state
+    check(np.isfinite(loss) and bool(torch.isfinite(metrics["grad_norm"])),
+          f"{what} (a): loss {loss}, grad norm {metrics['grad_norm']}")
+    mean_ms = log_["ev"][0][0].elapsed_time(log_["ev"][0][1])
+    res = {"train": [B, S_len], "loss": loss,
+           "grad_norm": float(metrics["grad_norm"]),
+           "compressed_step_ms": step_ms,
+           "train_tokens_per_s": B * S_len / (step_ms / 1e3),
+           "mean_ms": mean_ms, "mean_share": mean_ms / step_ms,
+           "checks_in_step_s": log_["aside_s"],
+           "dense_leaves": log_["dense"], "launches_train": used}
+    log(f"{what} (a): compressed step {step_ms:.1f} ms "
+        f"({res['train_tokens_per_s']:.0f} tokens/s; the mean "
+        f"{mean_ms:.1f} ms, {res['mean_share']:.2%}), loss {loss:.4f}; "
+        f"means == densify(u) bitwise ({log_['dense']} dense leaves); "
+        f"launches {used}")
+    replay("segment_fold", segment.segment_fold, segment.segment_fold_plain,
+           kept.pop("segment_fold/moe"),
+           f"{what} (c): the MoE combine's segment fold")
+    del kept
+
+    # ---- (d) the first layer's combine against the plain ordered fold ----
+    contrib = log_["contrib"]
+    T, K, d = contrib.shape
+    got = MOE.combine(contrib)
+    want = MOE.combine_plain(contrib)
+    check(bitwise_equal(torch, got, want), f"{what} (d): the combine "
+          f"differs from the plain ordered fold")
+    flat = contrib.reshape(T * K, d)
+    tok = torch.arange(T, device=dev).repeat_interleave(K)
+    nbytes = contrib.element_size() * (T * K * d + T * d)
+    b_ms, b_by = bound(nbytes, T * K * d)
+    combine.update({
+        "shape": [T, K, d], "dtype": str(contrib.dtype).split(".")[-1],
+        "bitwise_to_plain": True,
+        "ms": cuda_ms(torch, lambda: MOE.combine(contrib), 10),
+        "plain_ms": cuda_ms(torch, lambda: MOE.combine_plain(contrib), 5),
+        "index_add_ms": cuda_ms(torch, lambda: torch.zeros(
+            (T, d), dtype=contrib.dtype, device=dev).index_add_(
+                0, tok, flat), 10),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes})
+    log(f"{what} (d): combine {combine['ms']:.3f} ms (plain "
+        f"{combine['plain_ms']:.3f}, index_add_ {combine['index_add_ms']:.3f}"
+        f", bound {b_ms:.3f}) on {T} x {K} x {d} {combine['dtype']}, "
+        f"bitwise to the plain fold")
+    return res
 
 
 def run(args, torch) -> int:
@@ -2703,6 +3234,9 @@ def run(args, torch) -> int:
         phases["workload"], prof_workload = run_workload(
             torch, args.seed, dev, kernels)
         phases["workload"]["phase_s"] = took()
+        phases["families"], prof_families = run_families(
+            torch, args.seed, dev, kernels)
+        phases["families"]["phase_s"] = took()
     finally:
         dist.destroy_process_group()
 
@@ -2735,6 +3269,7 @@ def run(args, torch) -> int:
         "allreduce_gather_kway": prof_allreduce,
         "spgemm_reduce_auto": prof_spgemm,
         **prof_workload,
+        **prof_families,
     }
     for name, prof in profiles.items():
         log(f"profile {name}: device {prof['device_ms']:.3f} ms of "
@@ -3230,7 +3765,11 @@ def run(args, torch) -> int:
         r["launches_spgemm"] = phases["spgemm"]["launches"].get(r["name"], 0)
         r["launches_workload"] = phases["workload"]["launches"].get(
             r["name"], 0)
-        for ph in ("allreduce", "spgemm", "workload"):
+        r["launches_families"] = phases["families"]["launches"].get(
+            r["name"], 0)
+        if r["name"] == "segment_fold":  # the MoE combine's fold
+            r["moe_combine"] = phases["families"]["moe_combine"]
+        for ph in ("allreduce", "spgemm", "workload", "families"):
             # a launch of the later paths replayed through the plain version
             replay = phases[ph]["plain_replays"].get(r["name"])
             if replay is not None:

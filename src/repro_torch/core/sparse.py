@@ -19,6 +19,7 @@ the CUDA card, and raise when no card is present unless the caller passes
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple, Tuple
 
@@ -56,6 +57,8 @@ def resolve_device(device=None) -> torch.device:
 #: compaction), and tests assert the delta across a call.
 SORT_COUNTER_NAME = "sparse.stable_argsort.calls"
 _SORT_COUNTER = _metrics.counter(SORT_COUNTER_NAME)
+#: Depth of :func:`uncounted_sorts` blocks open (sorts count at 0).
+_UNCOUNTED = [0]
 
 
 def sort_calls() -> int:
@@ -63,17 +66,35 @@ def sort_calls() -> int:
     return _SORT_COUNTER.value
 
 
+@contextlib.contextmanager
+def uncounted_sorts():
+    """Sorts issued inside the block are not counted: a forward recomputed
+    in backward (``torch.utils.checkpoint``) repeats sorts its first run
+    counted, where the reference, which counts at trace time, counts
+    once."""
+    _UNCOUNTED[0] += 1
+    try:
+        yield
+    finally:
+        _UNCOUNTED[0] -= 1
+
+
+def _count_sort() -> None:
+    if not _UNCOUNTED[0]:
+        _SORT_COUNTER.inc()
+
+
 def stable_argsort(keys: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """The *one* stable key sort every canonical path goes through
     (counted; see :func:`sort_calls`). Returns int64 indices."""
-    _SORT_COUNTER.inc()
+    _count_sort()
     return torch.argsort(keys, dim=dim, stable=True)
 
 
 def stable_sort(keys: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Counted stable *value* sort — :func:`stable_argsort`'s twin for the
     key-only consumers (symbolic phase, oracles)."""
-    _SORT_COUNTER.inc()
+    _count_sort()
     return torch.sort(keys, dim=dim, stable=True).values
 
 

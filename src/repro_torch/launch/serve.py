@@ -16,7 +16,7 @@ hot-swaps them before the next token.
 
 The parameters are the model's seed-0 init (the trainer's initial
 parameters), the prompts uniform tokens from a ``torch.Generator`` seeded
-with 1.
+with 1 (the VLM's prompts zero patch embeddings, as the reference's).
 """
 from __future__ import annotations
 
@@ -75,10 +75,15 @@ def run(args) -> dict:
     toks = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                          dtype=torch.int32).to(dev)
 
+    # the VLM prefills on its stub frontend's (zero) patch embeddings
+    prompt = ({"embeds": torch.zeros((B, S, cfg.d_model), dtype=cfg.cdtype,
+                                     device=dev)}
+              if cfg.family == "vlm" else {"tokens": toks})
+
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = model.prefill(params, toks, max_len=S + args.tokens,
-                                   attn_chunk=32)
+    logits, caches = model.prefill(params, **prompt,
+                                   max_len=S + args.tokens, attn_chunk=32)
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     print(f"prefill {B}x{S}: {prefill_ms:.1f} ms", flush=True)

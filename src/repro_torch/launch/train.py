@@ -18,7 +18,7 @@ on the card, gloo on the CPU; :func:`repro_torch.launch.world.process_world`).
 ``--mesh auto`` puts every rank on the data dim; ``DxM`` makes a
 ``("data", "model")`` ``DeviceMesh``. Params and optimizer state are
 replicated on every rank: the dense step runs on a world of one rank (its
-sharded form needs the port of ``sharding/``, ROADMAP slice 6b), and
+sharded form needs the port of ``sharding/``, ROADMAP slice 6d), and
 ``--compress`` on any world. Every rank trains on the reference's global
 batch, which rank 0 draws and broadcasts (a batch's seed is Python's
 per-process ``hash``); only rank 0 prints and publishes deltas, and each
@@ -135,7 +135,7 @@ def run(args) -> int:
         if not args.compress and world > 1:
             raise NotImplementedError(
                 "the dense step over more than one rank needs the port of "
-                "sharding/ (ROADMAP slice 6b); use --compress")
+                "sharding/ (ROADMAP slice 6d); use --compress")
         params = model.init(0, device=dev)
         opt = tuple(adamw_init(params))
         if args.compress:

@@ -90,7 +90,7 @@ def main(argv=None) -> int:
             if world > 1:
                 raise NotImplementedError(
                     "the dense step over more than one rank needs the port "
-                    "of sharding/ (ROADMAP slice 6b); use --compress")
+                    "of sharding/ (ROADMAP slice 6d); use --compress")
             step_impl = make_train_step(model, hp)
             state0 = (params, opt)
 

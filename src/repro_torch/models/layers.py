@@ -1,12 +1,14 @@
-"""Shared neural layers: RMSNorm, RoPE, GQA attention, MLPs.
+"""Shared neural layers: RMSNorm, RoPE (+M-RoPE), GQA attention, MLPs.
 
-The port of ``src/repro/models/layers.py`` for the dense decoder family
-(M-RoPE and the banded local-window attention come with the gemma3 and VLM
-families). Each function keeps the reference's arithmetic order and types:
+The port of ``src/repro/models/layers.py``. Each function keeps the
+reference's arithmetic order and types:
 
 - ``rms_norm`` computes in f32 with ``(1 + scale)`` and casts back;
 - ``apply_rope`` rotates the two split halves of each head (not
-  interleaved pairs), in f32;
+  interleaved pairs), in f32; ``apply_mrope`` does the same with each
+  frequency bin's angle taken from the position stream that owns it (the
+  reference's one-hot product over the three streams has exactly one
+  nonzero term, so a selection by owner gives its bits);
 - ``blockwise_attention`` is the flash-style online softmax over KV chunks
   of the reference, with its guards (``m_safe``, ``corr``) and the padded
   last chunk: scores in f32, and the PV product on ``p`` and ``v`` rounded
@@ -14,6 +16,9 @@ families). Each function keeps the reference's arithmetic order and types:
   ``preferred_element_type=f32``; a product of two bf16 values is exact in
   f32). Under autograd each chunk's body is recomputed in backward
   (``torch.utils.checkpoint``), as the reference checkpoints its scan body.
+- ``local_window_attention`` is the banded sliding-window form of gemma3's
+  local layers: blocks of ``window`` queries, each against (previous, own)
+  block, f32 einsums and a full softmax over the ``2 * window`` keys.
 - ``gelu_mlp`` uses the tanh approximation, ``jax.nn.gelu``'s default.
 
 Every f32 product here must be a full f32 product: on a CUDA card TF32 and
@@ -92,6 +97,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, sections,
+                theta: float) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, D); positions: (3, B, S) for
+    the (t, h, w) streams; ``sections`` = per-stream frequency counts
+    summing to D/2, bins owned in order (the first ``t`` bins by stream 0,
+    the next ``h`` by stream 1, the last ``w`` by stream 2)."""
+    d = x.shape[-1]
+    t_n, h_n, w_n = sections
+    if t_n + h_n + w_n != d // 2:
+        raise ValueError("mrope sections must sum to head_dim/2")
+    freqs = rope_freqs(d, theta, x.device)                      # (D/2,)
+    ang_all = positions[..., None].to(torch.float32) * freqs    # (3, B, S, D/2)
+    ang = torch.cat([ang_all[0, ..., :t_n], ang_all[1, ..., t_n:t_n + h_n],
+                     ang_all[2, ..., t_n + h_n:]], dim=-1)      # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # blockwise attention (flash-style online softmax over KV chunks)
 # ---------------------------------------------------------------------------
@@ -112,6 +138,49 @@ def _as_int32(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int32)
     return int(x)
+
+
+def local_window_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, window: int) -> torch.Tensor:
+    """Sliding-window causal attention in O(S·2w) instead of O(S²).
+
+    Tiles the sequence into blocks of w = window (the tail padded with
+    zeros); each query block attends only (previous block, its own block),
+    exactly the support of a causal w-window. Block 0 has no predecessor;
+    the padded query rows are cut off at the end.
+    """
+    require_full_precision(q)
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    w = window
+    nb = (S + w - 1) // w
+    pad = nb * w - S
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qb = q.reshape(B, nb, w, Hkv, G, D).to(torch.float32) * (D ** -0.5)
+    kb = k.reshape(B, nb, w, Hkv, D).to(torch.float32)
+    vb = v.reshape(B, nb, w, Hkv, D).to(torch.float32)
+    k_prev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    v_prev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    k2 = torch.cat([k_prev, kb], dim=2)             # (B, nb, 2w, Hkv, D)
+    v2 = torch.cat([v_prev, vb], dim=2)
+    s = torch.einsum("bnqhgd,bnchd->bnhgqc", qb, k2)  # (B, nb, Hkv, G, w, 2w)
+    dev = q.device
+    qpos = torch.arange(w, device=dev)[:, None] + w   # within the 2w axis
+    kpos = torch.arange(2 * w, device=dev)[None, :]
+    ok = (kpos <= qpos) & (kpos > qpos - w)
+    first_block_ok = kpos >= w                      # block 0 has no predecessor
+    blk = torch.arange(nb, device=dev)
+    mask = torch.where(blk[:, None, None] == 0, (ok & first_block_ok)[None],
+                       ok[None])                    # (nb, w, 2w)
+    s = torch.where(mask[None, :, None, None, :, :], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bnhgqc,bnchd->bnqhgd", p, v2)
+    o = o.reshape(B, nb * w, Hq, D)[:, :S]
+    return o.to(q.dtype)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

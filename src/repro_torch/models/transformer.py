@@ -1,27 +1,41 @@
-"""Decoder-only transformer LM: the dense GQA family.
+"""Decoder-only transformer LM: dense / MoE / gemma3-pattern / VLM backbone.
 
-The port of ``src/repro/models/transformer.py`` for ``family == "dense"``
-with all-global attention (SmolLM, InternLM2, StableLM share this path).
-The gemma3 local:global pattern, MoE and the VLM backbone are ROADMAP
-slice 6b.
+The port of ``src/repro/models/transformer.py``. One class covers four
+families:
+
+- dense GQA (SmolLM, InternLM2, StableLM);
+- the MoE FFN (Moonshot 64 experts top-6, Llama4-Scout 16 experts top-1)
+  through ``models/moe.py``, whose load-balance term enters the loss as
+  ``0.01 * aux``;
+- gemma3's 5:1 local:global pattern: groups of ``local_per_global`` local
+  layers at ``sliding_window`` and one global layer, then any extra local
+  layers; local layers keep ring KV caches of the window's size;
+- the Qwen2-VL backbone: patch embeddings in (``embeds``), M-RoPE on the
+  three position streams where ``mrope_positions`` is given, text decode
+  out.
 
 The parameters are the reference's tree, leaf for leaf: ``embed`` (vocab,
-d), ``head`` (d, vocab), ``final_ln`` (d,) and ``layers``, whose leaves are
-stacked along a leading layer dimension (``wq`` (L, d, q_dim), ``wk``,
-``wv``, ``wo``, ``w1``, ``w3``, ``w2``, ``ln1``, ``ln2``), each weight
-applied as ``x @ W``. Every method takes that tree explicitly, as the
-reference's do, so the optimizer, the gradient allreduce, delta sync and
-checkpoints (all of which work on trees) see the same leaves in both
-packages. The module can also hold a tree as its own parameters
-(:meth:`TransformerLM.load_params`); ``forward`` is the loss on them.
+d), ``head`` (d, vocab), ``final_ln`` (d,), and either ``layers`` (leaves
+stacked along a leading layer dimension: ``wq`` (L, d, q_dim), ``wk``,
+``wv``, ``wo``, ``ln1``, ``ln2`` and ``w1``/``w3``/``w2`` or ``moe``
+{``router``, ``we1``, ``we3``, ``we2``}) or, for the grouped pattern,
+``groups`` {``local`` (G, lpg, ...), ``global`` (G, ...)} and
+``extra_local`` (n_extra, ...). Each weight is applied as ``x @ W``. Every
+method takes that tree explicitly, as the reference's do, so the
+optimizer, the gradient allreduce, delta sync and checkpoints (all of
+which work on trees) see the same leaves in both packages. The module can
+also hold a tree as its own parameters (:meth:`TransformerLM.load_params`);
+``forward`` is the loss on them.
 
 Training runs the layers one after another, each recomputed in backward
 when ``remat`` (``torch.utils.checkpoint``, the reference's
-``jax.checkpoint`` of its scanned body). Cross-entropy is computed in
+``jax.checkpoint`` of its scanned body); sorts a recomputation repeats are
+not counted (``core.sparse.uncounted_sorts``). Cross-entropy is computed in
 sequence chunks so the (B, S, V) logits tensor never materializes.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -29,42 +43,83 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as _tree
-from repro_torch.core.sparse import resolve_device
+from repro_torch.core.sparse import resolve_device, uncounted_sorts
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, dense_init, stacked
+from repro_torch.models.moe import init_moe_params, moe_ffn
+
+#: Families this module builds; ``models.build_model`` sends the others
+#: here only to be refused.
+FAMILIES = ("dense", "moe", "vlm")
 
 
 class DecodeCaches(NamedTuple):
-    """The KV caches of every layer, stacked: ``layers.k``/``layers.v``
-    (L, B, S_max, Hkv, D) in the compute dtype, ``layers.length`` (L,);
-    ``length`` the tokens already in cache (int32, 0-d)."""
-    layers: L.KVCache
+    """The KV caches of every layer, in the compute dtype. All-global
+    models: ``layers`` one :class:`~repro_torch.models.layers.KVCache` of
+    stacks ``k``/``v`` (L, B, S_max, Hkv, D), ``length`` (L,). The grouped
+    pattern: ``layers`` = ``{"groups": (local, global), "extra": extra or
+    None}``, the local rings (G, lpg, B, w, Hkv, D), the global caches (G,
+    B, S_max, Hkv, D), the extra local rings (n_extra, B, w, Hkv, D), each
+    ``length`` of the leading shape. ``length`` is the tokens already in
+    cache (int32, 0-d)."""
+    layers: object
     length: torch.Tensor
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense all-global
-    decoder, the only family ported so far."""
-    unported = []
-    if cfg.family != "dense":
-        unported.append(f"family {cfg.family!r}")
-    if cfg.local_per_global > 0:
-        unported.append("the local:global layer pattern")
-    if cfg.mrope_sections != (0, 0, 0):
-        unported.append("M-RoPE")
-    if unported:
+def check_family(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for the families not ported yet."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.arch_id}: {', '.join(unported)} is not ported yet "
-            f"(ROADMAP slice 6b); the port builds dense all-global decoders")
+            f"{cfg.arch_id}: family {cfg.family!r} is not ported yet "
+            f"(ROADMAP slice 6c); the port builds the {', '.join(FAMILIES)} "
+            f"families")
+
+
+def _as_module(tree: dict) -> nn.Module:
+    """A nested dict of tensors as a module holding them as parameters
+    (sharing their storage), one submodule a nested dict."""
+    m = nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            m.add_module(k, _as_module(v))
+        else:
+            m.register_parameter(k, nn.Parameter(v))
+    return m
+
+
+def _as_tree(m: nn.Module) -> dict:
+    out = dict(m.named_parameters(recurse=False))
+    out.update({k: _as_tree(c) for k, c in m.named_children()})
+    return out
+
+
+def _stack_cache(caches) -> L.KVCache:
+    """Per-layer caches stacked along a new leading dim."""
+    return L.KVCache(*(torch.stack(x) for x in zip(*caches)))
 
 
 class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        check_dense(cfg)
+        check_family(cfg)
         self.cfg = cfg
+        # gemma3-style grouping
+        if cfg.local_per_global > 0:
+            period = cfg.local_per_global + 1
+            self.n_groups = cfg.n_layers // period
+            self.n_extra_local = cfg.n_layers - self.n_groups * period
+        else:
+            self.n_groups = 0
+            self.n_extra_local = 0
         self.top = nn.ParameterDict()
-        self.layers = nn.ParameterDict()
+
+    @property
+    def _stacks(self):
+        """The top-level keys of the params tree that hold layers."""
+        if self.n_groups == 0:
+            return ("layers",)
+        return ("groups",) + (("extra_local",) if self.n_extra_local
+                              else ())
 
     # ------------------------------------------------------------------
     # params
@@ -80,26 +135,47 @@ class TransformerLM(nn.Module):
             "wo": dense_init(gen, (cfg.q_dim, d), pdt),
             "ln2": torch.zeros((d,), dtype=pdt, device=gen.device),
         }
+        if cfg.family == "moe":
+            p["moe"] = init_moe_params(gen, cfg)
+            return p
         p["w1"] = dense_init(gen, (d, cfg.d_ff), pdt)
         if cfg.act == "silu":
             p["w3"] = dense_init(gen, (d, cfg.d_ff), pdt)
         p["w2"] = dense_init(gen, (cfg.d_ff, d), pdt)
         return p
 
-    def init(self, seed: int = 0, device=None) -> dict:
+    def init(self, seed: int = 0, device=None, *,
+             on_device: bool = False) -> dict:
         """A fresh params tree on ``device`` (``None`` = the CUDA card),
-        drawn from a CPU ``torch.Generator`` seeded with ``seed`` (the same
-        values on any device)."""
+        drawn from a ``torch.Generator`` seeded with ``seed``: by default
+        on the CPU (the same values on any device), with ``on_device`` on
+        ``device`` itself (other values than the CPU's; a full-width tree
+        of billions of parameters is drawn in under a second on a card,
+        where the CPU takes minutes)."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator().manual_seed(seed)
+        gen = torch.Generator(device=dev if on_device else "cpu")
+        gen.manual_seed(seed)
         params = {
             "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.pdtype,
                                 fan_in=cfg.d_model),
             "head": dense_init(gen, (cfg.d_model, cfg.vocab), cfg.pdtype),
-            "final_ln": torch.zeros((cfg.d_model,), dtype=cfg.pdtype),
-            "layers": stacked(self._init_layer, gen, cfg.n_layers),
+            "final_ln": torch.zeros((cfg.d_model,), dtype=cfg.pdtype,
+                                    device=gen.device),
         }
+        if self.n_groups > 0:
+            lpg = cfg.local_per_global
+
+            def init_group(g):
+                return {"local": stacked(self._init_layer, g, lpg),
+                        "global": self._init_layer(g)}
+
+            params["groups"] = stacked(init_group, gen, self.n_groups)
+            if self.n_extra_local:
+                params["extra_local"] = stacked(self._init_layer, gen,
+                                                self.n_extra_local)
+        else:
+            params["layers"] = stacked(self._init_layer, gen, cfg.n_layers)
         return _tree.tree_map(lambda x: x.to(dev), params)
 
     def load_params(self, params: dict) -> None:
@@ -107,12 +183,13 @@ class TransformerLM(nn.Module):
         parameters, sharing their storage."""
         self.top = nn.ParameterDict({k: nn.Parameter(params[k])
                                      for k in ("embed", "final_ln", "head")})
-        self.layers = nn.ParameterDict({k: nn.Parameter(v) for k, v in
-                                        params["layers"].items()})
+        for k in self._stacks:
+            setattr(self, k, _as_module(params[k]))
 
     def params_tree(self) -> dict:
         """The module's parameters as the reference's tree."""
-        return {**dict(self.top), "layers": dict(self.layers)}
+        return {**dict(self.top),
+                **{k: _as_tree(getattr(self, k)) for k in self._stacks}}
 
     def forward(self, batch: dict, **kw) -> torch.Tensor:
         """The loss on the module's own parameters."""
@@ -121,7 +198,7 @@ class TransformerLM(nn.Module):
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
-    def _project_qkv(self, p, h, positions):
+    def _project_qkv(self, p, h, positions, mrope_positions):
         cfg = self.cfg
         B, S, _ = h.shape
         q = (h @ p["wq"].to(h.dtype)).reshape(B, S, cfg.n_heads,
@@ -130,24 +207,39 @@ class TransformerLM(nn.Module):
                                               cfg.head_dim)
         v = (h @ p["wv"].to(h.dtype)).reshape(B, S, cfg.n_kv_heads,
                                               cfg.head_dim)
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        if cfg.mrope_sections != (0, 0, 0) and mrope_positions is not None:
+            q = L.apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                              cfg.rope_theta)
+            k = L.apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                              cfg.rope_theta)
+        else:
+            q = L.apply_rope(q, positions, cfg.rope_theta)
+            k = L.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def _attn_full(self, p, x, positions, chunk):
+    def _attn_full(self, p, x, positions, window, mrope_positions, chunk):
         """Full-sequence attention (train / prefill); returns (x, (k, v))."""
         h = L.rms_norm(x, p["ln1"])
-        q, k, v = self._project_qkv(p, h, positions)
-        o = L.blockwise_attention(q, k, v, causal=True, chunk=chunk)
+        q, k, v = self._project_qkv(p, h, positions, mrope_positions)
+        if (window > 0 and self.cfg.local_attn_fast_path
+                and x.shape[1] > window):
+            o = L.local_window_attention(q, k, v, window=window)
+        else:
+            o = L.blockwise_attention(q, k, v, causal=True, window=window,
+                                      chunk=chunk)
         o = o.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
         return x + o, (k, v)
 
-    def _attn_decode(self, p, x, cache: L.KVCache, length, chunk):
-        """Single-token attention against a cache; returns (x, new_cache)."""
+    def _attn_decode(self, p, x, cache: L.KVCache, length, mrope, chunk):
+        """Single-token attention against a cache (a ring for a local
+        layer: it holds exactly the window); returns (x, new_cache)."""
         B = x.shape[0]
         pos = length.reshape(1, 1).expand(B, 1).to(torch.int32)
+        mpos = None
+        if mrope:
+            mpos = length.reshape(1, 1, 1).expand(3, B, 1).to(torch.int32)
         h = L.rms_norm(x, p["ln1"])
-        q, k, v = self._project_qkv(p, h, pos)
+        q, k, v = self._project_qkv(p, h, pos, mpos)
         new_cache = L.cache_update_decode(cache._replace(length=length), k, v)
         S_max = cache.k.shape[1]
         kv_len = torch.clamp(length + 1, max=S_max)
@@ -157,49 +249,84 @@ class TransformerLM(nn.Module):
         return x + o, new_cache
 
     def _ffn(self, p, x):
+        """The FFN block; returns (x, aux), aux ``None`` without MoE."""
+        cfg = self.cfg
         h = L.rms_norm(x, p["ln2"])
-        if self.cfg.act == "silu":
+        if cfg.family == "moe":
+            y, aux = moe_ffn(p["moe"], h, cfg)
+            return x + y, aux
+        if cfg.act == "silu":
             y = L.swiglu(h, p["w1"].to(x.dtype), p["w3"].to(x.dtype),
                          p["w2"].to(x.dtype))
         else:
             y = L.gelu_mlp(h, p["w1"].to(x.dtype), p["w2"].to(x.dtype))
-        return x + y
+        return x + y, None
 
-    def _layer_full(self, p, x, positions, chunk):
-        x, kv = self._attn_full(p, x, positions, chunk)
-        return self._ffn(p, x), kv
+    def _layer_full(self, p, x, positions, window, mrope_positions, chunk):
+        x, kv = self._attn_full(p, x, positions, window, mrope_positions,
+                                chunk)
+        x, aux = self._ffn(p, x)
+        return x, aux, kv
 
     @staticmethod
-    def _per_layer(stack: dict):
-        """The stacked layer leaves as one dict per layer (views; one
-        ``unbind`` a leaf, whose backward stacks the layers' gradients)."""
-        keys = sorted(stack)
-        return [dict(zip(keys, vals))
-                for vals in zip(*(stack[k].unbind(0) for k in keys))]
+    def _per_layer(stack: dict, lead: int = 1):
+        """The stacked layer leaves as one tree per layer (views; one
+        ``unbind`` a leaf of its first ``lead`` dims flattened, whose
+        backward stacks the layers' gradients into the leaf's shape)."""
+        leaves, treedef = _tree.flatten(stack)
+        cols = [x.flatten(0, lead - 1).unbind(0) if lead > 1 else x.unbind(0)
+                for x in leaves]
+        return [_tree.unflatten(treedef, vals) for vals in zip(*cols)]
+
+    def _schedule(self, params):
+        """``(layer params, window, kind)`` for every layer in order; kind
+        is ``"layers"``, ``"local"``, ``"global"`` or ``"extra"``."""
+        if self.n_groups == 0:
+            return [(p, 0, "layers")
+                    for p in self._per_layer(params["layers"])]
+        w, lpg = self.cfg.sliding_window, self.cfg.local_per_global
+        loc = self._per_layer(params["groups"]["local"], lead=2)
+        glob = self._per_layer(params["groups"]["global"])
+        out = []
+        for g in range(self.n_groups):
+            out += [(p, w, "local") for p in loc[g * lpg:(g + 1) * lpg]]
+            out.append((glob[g], 0, "global"))
+        if self.n_extra_local:
+            out += [(p, w, "extra")
+                    for p in self._per_layer(params["extra_local"])]
+        return out
 
     # ------------------------------------------------------------------
     # full-sequence forward (train / prefill)
     # ------------------------------------------------------------------
-    def _embed(self, params, tokens):
+    def _embed(self, params, tokens=None, embeds=None):
+        if embeds is not None:
+            return embeds.to(self.cfg.cdtype)
         return params["embed"].to(self.cfg.cdtype)[tokens.long()]
 
-    def backbone(self, params, x, positions, *, remat: bool = False,
-                 collect_kv: bool = False, chunk: int = 1024):
-        """Runs all layers; returns (x, aux_sum, (k, v) stacks or None)."""
+    def backbone(self, params, x, positions, mrope_positions=None, *,
+                 remat: bool = False, collect_kv: bool = False,
+                 chunk: int = 1024):
+        """Runs all layers; returns (x, aux_sum, kv or None): kv per layer
+        kind (``"layers"``, ``"local"``, ``"global"``, ``"extra"``), a list
+        of (k, v) in layer order."""
         L.require_full_precision(x)
-        ks, vs = [], []
-        for p_l in self._per_layer(params["layers"]):
-            if remat and torch.is_grad_enabled():
-                x, (k, v) = checkpoint(self._layer_full, p_l, x, positions,
-                                       chunk, use_reentrant=False)
-            else:
-                x, (k, v) = self._layer_full(p_l, x, positions, chunk)
-            if collect_kv:
-                ks.append(k)
-                vs.append(v)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
-        return x, aux, kv
+        kv = {}
+        for p_l, window, kind in self._schedule(params):
+            args = (p_l, x, positions, window, mrope_positions, chunk)
+            if remat and torch.is_grad_enabled():
+                x, a, kv_l = checkpoint(
+                    self._layer_full, *args, use_reentrant=False,
+                    context_fn=lambda: (contextlib.nullcontext(),
+                                        uncounted_sorts()))
+            else:
+                x, a, kv_l = self._layer_full(*args)
+            if a is not None:
+                aux = aux + a
+            if collect_kv:
+                kv.setdefault(kind, []).append(kv_l)
+        return x, aux, (kv if collect_kv else None)
 
     def logits_last(self, params, x):
         """Logits for the final position only (prefill output)."""
@@ -208,13 +335,16 @@ class TransformerLM(nn.Module):
 
     def loss(self, params, batch, *, remat: bool = True,
              ce_chunk: int = 512, attn_chunk: int = 1024):
-        """Mean next-token CE. batch: tokens (B, S) + labels (B, S)."""
-        tokens, labels = batch["tokens"], batch["labels"]
+        """Mean next-token CE plus ``0.01 * aux``. batch: tokens (B, S) +
+        labels (B, S) [+ embeds (B, S, d) + mrope_positions (3, B, S) for
+        the VLM's stub frontend]."""
+        labels = batch["labels"]
         B, S = labels.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=labels.device).expand(B, S)
-        x = self._embed(params, tokens)
-        x, aux, _ = self.backbone(params, x, positions, remat=remat,
+        x = self._embed(params, batch.get("tokens"), batch.get("embeds"))
+        x, aux, _ = self.backbone(params, x, positions,
+                                  batch.get("mrope_positions"), remat=remat,
                                   chunk=attn_chunk)
         x = L.rms_norm(x, params["final_ln"])
         ce = chunked_ce(x, params["head"], labels, chunk=ce_chunk)
@@ -226,60 +356,151 @@ class TransformerLM(nn.Module):
     def init_cache(self, B: int, max_len: int, device=None) -> DecodeCaches:
         cfg = self.cfg
         dev = resolve_device(device)
-        shape = (cfg.n_layers, B, max_len, cfg.n_kv_heads, cfg.head_dim)
-        zeros = torch.zeros(shape, dtype=cfg.cdtype, device=dev)
-        return DecodeCaches(
-            layers=L.KVCache(zeros, zeros.clone(), torch.zeros(
-                (cfg.n_layers,), dtype=torch.int32, device=dev)),
-            length=torch.zeros((), dtype=torch.int32, device=dev))
+
+        def kv(lead, s):
+            shape = lead + (B, s, cfg.n_kv_heads, cfg.head_dim)
+            zeros = torch.zeros(shape, dtype=cfg.cdtype, device=dev)
+            return L.KVCache(zeros, zeros.clone(), torch.zeros(
+                lead, dtype=torch.int32, device=dev))
+
+        if self.n_groups > 0:
+            w = min(cfg.sliding_window, max_len)
+            layers = {
+                "groups": (kv((self.n_groups, cfg.local_per_global), w),
+                           kv((self.n_groups,), max_len)),
+                "extra": (kv((self.n_extra_local,), w)
+                          if self.n_extra_local else None),
+            }
+        else:
+            layers = kv((cfg.n_layers,), max_len)
+        return DecodeCaches(layers=layers, length=torch.zeros(
+            (), dtype=torch.int32, device=dev))
 
     @torch.no_grad()
-    def prefill(self, params, tokens, *, max_len: Optional[int] = None,
-                attn_chunk: int = 1024):
+    def prefill(self, params, tokens=None, embeds=None, mrope_positions=None,
+                *, max_len: Optional[int] = None, attn_chunk: int = 1024):
         """Full-sequence forward that also builds decode caches; returns
-        (last-position logits (B, vocab) f32, caches)."""
-        B, S = tokens.shape
+        (last-position logits (B, vocab) f32, caches). Raises
+        ``ValueError`` when ``max_len`` is under the prompt's length (the
+        reference's global caches cannot pad by a negative amount)."""
+        if tokens is not None:
+            B, S = tokens.shape
+            dev = tokens.device
+        else:
+            B, S = embeds.shape[:2]
+            dev = embeds.device
         max_len = max_len or S
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device).expand(B, S)
-        x = self._embed(params, tokens)
-        x, _, kv = self.backbone(params, x, positions, remat=False,
-                                 collect_kv=True, chunk=attn_chunk)
+        if max_len < S:
+            raise ValueError(f"max_len {max_len} is under the prompt's "
+                             f"length {S}")
+        positions = torch.arange(S, dtype=torch.int32, device=dev).expand(
+            B, S)
+        x = self._embed(params, tokens, embeds)
+        x, _, kv = self.backbone(params, x, positions, mrope_positions,
+                                 remat=False, collect_kv=True,
+                                 chunk=attn_chunk)
         caches = self._kv_to_caches(kv, S, max_len)
         return self.logits_last(params, x), caches
 
+    @staticmethod
+    def _ring_from_tail(k, S: int, w: int):
+        """A ring cache from the last ``w`` of a (B, S, kv, hd) array:
+        position p in slot p mod w."""
+        if S <= w:
+            return torch.nn.functional.pad(k, (0, 0, 0, 0, 0, w - S))
+        return torch.roll(k[:, S - w:], shifts=(S - w) % w, dims=1)
+
     def _kv_to_caches(self, kv, S: int, max_len: int) -> DecodeCaches:
-        k, v = kv  # (L, B, S, kv, hd)
-        pad = max_len - S
-        kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-        lens = torch.full(k.shape[:1], S, dtype=torch.int32, device=k.device)
-        return DecodeCaches(layers=L.KVCache(kp, vp, lens),
-                            length=torch.tensor(S, dtype=torch.int32,
-                                                device=k.device))
+        dev = next(iter(kv.values()))[0][0].device
+
+        def lens(lead):
+            return torch.full(lead, S, dtype=torch.int32, device=dev)
+
+        def full_cache(pairs):
+            pad = (0, 0, 0, 0, 0, max_len - S)
+            return L.KVCache(
+                torch.stack([torch.nn.functional.pad(k, pad)
+                             for k, _ in pairs]),
+                torch.stack([torch.nn.functional.pad(v, pad)
+                             for _, v in pairs]), lens((len(pairs),)))
+
+        def ring_cache(pairs, w, lead):
+            return L.KVCache(
+                torch.stack([self._ring_from_tail(k, S, w)
+                             for k, _ in pairs]).reshape(
+                    lead + (-1, w) + pairs[0][0].shape[2:]),
+                torch.stack([self._ring_from_tail(v, S, w)
+                             for _, v in pairs]).reshape(
+                    lead + (-1, w) + pairs[0][1].shape[2:]), lens(lead))
+
+        if self.n_groups > 0:
+            w = min(self.cfg.sliding_window, max_len)
+            G = self.n_groups
+            layers = {
+                "groups": (ring_cache(kv["local"], w,
+                                      (G, self.cfg.local_per_global)),
+                           full_cache(kv["global"])),
+                "extra": (ring_cache(kv["extra"], w, (self.n_extra_local,))
+                          if self.n_extra_local else None),
+            }
+        else:
+            layers = full_cache(kv["layers"])
+        return DecodeCaches(layers=layers, length=torch.tensor(
+            S, dtype=torch.int32, device=dev))
+
+    def _layer_caches(self, layers):
+        """The caches of every layer in :meth:`_schedule`'s order."""
+        if self.n_groups == 0:
+            c = layers
+            return [L.KVCache(c.k[i], c.v[i], c.length[i])
+                    for i in range(c.k.shape[0])]
+        loc, glob = layers["groups"]
+        out = []
+        for g in range(self.n_groups):
+            out += [L.KVCache(loc.k[g, i], loc.v[g, i], loc.length[g, i])
+                    for i in range(self.cfg.local_per_global)]
+            out.append(L.KVCache(glob.k[g], glob.v[g], glob.length[g]))
+        if self.n_extra_local:
+            e = layers["extra"]
+            out += [L.KVCache(e.k[i], e.v[i], e.length[i])
+                    for i in range(self.n_extra_local)]
+        return out
+
+    def _restack(self, per_layer):
+        """:meth:`_layer_caches` inverted: per-layer caches in schedule
+        order back into the layout of :class:`DecodeCaches`."""
+        if self.n_groups == 0:
+            return _stack_cache(per_layer)
+        G, lpg = self.n_groups, self.cfg.local_per_global
+        loc = [c for g in range(G) for c in per_layer[g * (lpg + 1):
+                                                      g * (lpg + 1) + lpg]]
+        glob = [per_layer[g * (lpg + 1) + lpg] for g in range(G)]
+        loc = _stack_cache(loc)
+        loc = L.KVCache(*(x.reshape((G, lpg) + x.shape[1:]) for x in loc))
+        extra = per_layer[G * (lpg + 1):]
+        return {"groups": (loc, _stack_cache(glob)),
+                "extra": _stack_cache(extra) if extra else None}
 
     @torch.no_grad()
     def decode_step(self, params, caches: DecodeCaches, tokens,
                     *, attn_chunk: int = 4096):
         """One token for every sequence. tokens: (B,) integers. Returns
-        (logits (B, vocab) f32, new caches)."""
+        (logits (B, vocab) f32, new caches). M-RoPE models take the cache
+        length on all three streams."""
         length = caches.length
         x = self._embed(params, tokens[:, None])
         L.require_full_precision(x)
-        c = caches.layers
-        new_k, new_v, new_len = [], [], []
-        for i, p_l in enumerate(self._per_layer(params["layers"])):
-            x, cache = self._attn_decode(
-                p_l, x, L.KVCache(c.k[i], c.v[i], c.length[i]), length,
-                attn_chunk)
-            x = self._ffn(p_l, x)
-            new_k.append(cache.k)
-            new_v.append(cache.v)
-            new_len.append(cache.length)
+        mrope = self.cfg.mrope_sections != (0, 0, 0)
+        new = []
+        for (p_l, _, _), cache in zip(self._schedule(params),
+                                      self._layer_caches(caches.layers)):
+            x, cache = self._attn_decode(p_l, x, cache, length, mrope,
+                                         attn_chunk)
+            x, _ = self._ffn(p_l, x)
+            new.append(cache)
         logits = self.logits_last(params, x)
-        layers = L.KVCache(torch.stack(new_k), torch.stack(new_v),
-                           torch.stack(new_len))
-        return logits, DecodeCaches(layers=layers, length=length + 1)
+        return logits, DecodeCaches(layers=self._restack(new),
+                                    length=length + 1)
 
 
 def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,

@@ -122,9 +122,15 @@ def make_train_step(model, hp: TrainHParams = TrainHParams()) -> Callable:
     return train_step
 
 
-def make_prefill_step(model, attn_chunk: int = 1024) -> Callable:
+def make_prefill_step(model, attn_chunk: int = 1024,
+                      max_len: int | None = None) -> Callable:
+    """``prefill_step(params, batch) -> (logits, caches)`` on the batch's
+    ``tokens`` or ``embeds``, with caches of ``max_len`` positions (``None``:
+    the prompt's length, the reference's step)."""
     def prefill_step(params, batch):
-        return model.prefill(params, batch["tokens"], attn_chunk=attn_chunk)
+        return model.prefill(params, tokens=batch.get("tokens"),
+                             embeds=batch.get("embeds"), max_len=max_len,
+                             attn_chunk=attn_chunk)
 
     return prefill_step
 
@@ -259,6 +265,9 @@ def make_compressed_train_step(model, mesh=None,
                 grads, residuals, data_group, k_fraction, **kw)
             loss = _pmean(loss, data_group)
             new_ef = _tree.tree_map(lambda r: r[None], new_res)
+        # the mean replaces the gradients: free them before AdamW builds
+        # the new state (as XLA frees a dead buffer)
+        del grads
         lr = cosine_schedule(opt_state.step, peak_lr=hp.peak_lr,
                              warmup=hp.warmup, total=hp.total_steps)
         new_params, new_state, gnorm = adamw_update(

@@ -1534,3 +1534,127 @@ def test_lossless_compressed_step_on_card_tracks_dense(nccl_world):
         assert abs(float(md["loss"]) - float(mc["loss"])) < 1e-4
     for a, b in zip(TR.leaves(pd), TR.leaves(pc)):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the MoE, gemma3 local:global and VLM decoders on the card
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e", "gemma3-27b",
+                "qwen2-vl-72b"]
+
+
+def _family_outputs(arch, dev):
+    """Loss, grads, prefill and eight decode logits of a family's f32 smoke
+    config (the CPU draw of its init, the same numpy batch)."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import use_full_precision
+
+    use_full_precision()
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (2, 33), dtype=np.int32)
+    batch = {"labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+    if cfg.family == "vlm":
+        batch["embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, 32, cfg.d_model)).astype(np.float32)).to(dev)
+        pos = np.broadcast_to(np.arange(32, dtype=np.int32), (3, 2, 32))
+        batch["mrope_positions"] = torch.from_numpy(pos // [[[1]], [[3]],
+                                                            [[5]]]).to(dev)
+        prompt = {"embeds": batch["embeds"]}
+    else:
+        batch["tokens"] = torch.from_numpy(toks[:, :-1].copy()).to(dev)
+        prompt = {"tokens": batch["tokens"]}
+    leaves, treedef = TR.flatten(params)
+    leaves = [x.requires_grad_() for x in leaves]
+    loss = model.loss(TR.unflatten(treedef, leaves), batch, ce_chunk=16,
+                      attn_chunk=8)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(
+        torch.autograd.grad(loss, leaves, allow_unused=True), leaves)]
+    params = TR.unflatten(treedef, [x.detach() for x in leaves])
+    logits, caches = model.prefill(params, **prompt, max_len=40,
+                                   attn_chunk=8)
+    decoded = [logits]
+    tok = logits.argmax(-1)
+    for _ in range(8):
+        logits, caches = model.decode_step(params, caches, tok, attn_chunk=8)
+        decoded.append(logits)
+        tok = logits.argmax(-1)
+    return [loss.detach()], grads, decoded, tok
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_decoder_family_on_card_equals_cpu(cuda, arch):
+    """Loss, every gradient, the prefill and eight decode steps (gemma3's
+    crossing its ring's wrap) of the f32 smoke configs: the card against
+    the CPU at the CPU parity tests' tolerance (1e-5 of each value's scale,
+    grads 1e-4 of a leaf's)."""
+    card = _family_outputs(arch, cuda)
+    cpu = _family_outputs(arch, "cpu")
+    for group, tol in zip(range(3), (1e-5, 1e-4, 1e-5)):
+        for i, (a, b) in enumerate(zip(card[group], cpu[group])):
+            scale = float(b.abs().max()) or 1.0
+            assert float((a.cpu() - b).abs().max()) <= tol * scale, (group, i)
+    assert torch.equal(card[3].cpu(), cpu[3])
+
+
+def _combine_edges(seed, dtype, T=300, K=6, d=96):
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((T, K, d)).astype(np.float32)
+    c[0, 1] = -c[0, 0]                     # exact cancellation
+    c[1] = -0.0
+    c[2, :, :8] = np.float32(1e-40)        # subnormals flush
+    c[3, :, 8:16] = np.float32(2.0 ** -24)  # ties at rounding
+    c[3, 0, 8:16] = 1.0
+    c[4:40] = c[4]                         # equal rows: tied contributions
+    c[5, :, 3] = 0.5                       # equal within a token
+    return torch.from_numpy(c).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_moe_combine_on_card_bitwise_to_plain_fold(cuda, dtype, seed):
+    """The MoE combine at K = 6 (the segment-fold kernel) against the plain
+    left-to-right fold on the card and the combine on the CPU, bitwise."""
+    from repro_torch.models import moe as MOE
+
+    c = _combine_edges(seed, dtype)
+    before = segment.segment_fold.launches
+    got = MOE.combine(c.to(cuda))
+    torch.cuda.synchronize()
+    assert segment.segment_fold.launches == before + 1
+    plain = MOE.combine_plain(c.to(cuda))
+    cpu = MOE.combine(c)
+    assert np.array_equal(bits(got), bits(plain))
+    assert np.array_equal(bits(got), bits(cpu))
+
+
+@pytest.mark.parametrize("arch", ["gemma3-27b", "qwen2-vl-72b"])
+def test_decoder_family_refuses_tf32(cuda, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    batch = {"labels": torch.zeros((1, 16), dtype=torch.int32, device=cuda)}
+    if cfg.family == "vlm":
+        batch["embeds"] = torch.zeros((1, 16, cfg.d_model), device=cuda)
+        batch["mrope_positions"] = torch.zeros((3, 1, 16), dtype=torch.int32,
+                                               device=cuda)
+    else:
+        batch["tokens"] = torch.zeros((1, 16), dtype=torch.int32, device=cuda)
+    q = torch.zeros(1, 16, 2, 8, device=cuda)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            model.loss(params, batch, ce_chunk=8, attn_chunk=8)
+        with pytest.raises(RuntimeError, match="TF32"):
+            L.local_window_attention(q, q, q, window=4)
+    finally:
+        L.use_full_precision()

@@ -43,7 +43,8 @@ def test_scan_covers_the_port():
                    "optim/__init__.py", "launch/spgemm_demo.py",
                    "launch/world.py", "models/__init__.py",
                    "models/common.py", "models/layers.py",
-                   "models/transformer.py", "configs/__init__.py",
+                   "models/transformer.py", "models/moe.py",
+                   "configs/__init__.py",
                    "configs/smollm_135m.py", "configs/internlm2_1_8b.py",
                    "configs/stablelm_3b.py", "configs/gemma3_27b.py",
                    "configs/qwen2_vl_72b.py", "configs/whisper_medium.py",

@@ -96,7 +96,7 @@ def test_dense_step_refuses_a_world_of_more_than_one_rank(tmp_path):
          "--steps", "1", "--ckpt-dir", str(tmp_path)], env=env, cwd=REPO,
         capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
-    assert "slice 6b" in proc.stdout + proc.stderr
+    assert "slice 6d" in proc.stdout + proc.stderr
 
 
 def test_serve_launcher_smoke():
