@@ -98,19 +98,30 @@ result, when no CUDA card is present or the package is missing.
    replayed through its plain version. The top-k, ``xla_add`` and
    segment-fold kernels must launch, and the catch-up an engine kernel.
 11. ``families`` (:func:`run_families`): the MoE, gemma3 local:global
-   and VLM decoders at full width, depth cut to fit the card
+   and VLM decoders, the Mamba2 SSM, the Zamba2 hybrid and the Whisper
+   encoder-decoder at full width, depth cut to fit the card
    (:data:`FAMILIES`; parameters drawn on the card, each family once):
    Moonshot-16B-A3B serves at depth 2 and takes one compressed step of
-   8 x 2,048 tokens at depth 1 (each mean ``densify(u)`` bitwise at
-   P = 1); Llama4-Scout at depth 1, gemma3-27B at depth 6 and
-   Qwen2-VL-72B at depth 2 (M-RoPE on ``make_batch``'s embeddings) a loss
-   and gradient on 1 x 4,096, all finite; each prefills its prompts through ``make_prefill_step`` (gemma3
-   at depth 7, 2 x 1,536 tokens, past its window) and decodes 8 tokens,
-   held to a prefill of prompts plus tokens (``WL_DECODE_TOL``; the VLM's
-   decode only finite); the step's largest top-k, ``xla_add`` and
-   segment-fold launches (the MoE combine's too) are replayed through the
-   plain versions, and the first layer's combine is held bitwise to the
-   plain ordered fold and timed beside ``index_add_``.
+   8 x 2,048 tokens at depth 1; Mamba2-370M (48 layers), Zamba2-2.7B (54
+   layers serving, 18 training) and Whisper-medium (24 + 24, on 8 x 1,500
+   frame embeddings) take one compressed step of 8 x 2,048 tokens (each
+   mean ``densify(u)`` bitwise at P = 1); Llama4-Scout at depth 1,
+   gemma3-27B at depth 6 and Qwen2-VL-72B at depth 2 (M-RoPE on
+   ``make_batch``'s embeddings) a loss and gradient on 1 x 4,096, all
+   finite; each prefills its prompts through ``make_prefill_step``
+   (gemma3 at depth 7, 2 x 1,536 tokens, past its window) and decodes 8
+   tokens, held to a prefill of prompts plus tokens (``WL_DECODE_TOL``;
+   the VLM's decode only finite; the MoE, SSM and hybrid models held in
+   f32 compute on the same weights, their bf16 gap reported); each step's
+   largest top-k, ``xla_add`` and segment-fold launches (the MoE
+   combine's too) are replayed through the plain versions, and
+   Moonshot's first layer's combine is held bitwise to the plain ordered
+   fold and timed beside ``index_add_``.
+   Mamba2, Zamba2 and Whisper hold the card's loss on 1 x 256 tokens to
+   the CPU's at depths 2, 6 and 2 + 2 (``WL_CPU_LOSS_RTOL``); Zamba2 and
+   Whisper quantize their first self-attention cache to int8
+   (``repro_torch.serve``): codes and scales bitwise to the CPU's, one
+   decode token's quantized attention within 5e-2 of the exact.
 12. One profiled call of each phase (device time by kernel, busy share),
    ten profiled calls each of the family's ``vec`` and ``blocked_spa``
    (each call's host time and the CUDA runtime calls that took the most
@@ -2409,21 +2420,29 @@ def run_workload(torch, seed: int, dev, kernels: dict):
                    "workload_decode_token": prof_decode}
 
 
-#: Phase ``families``: the other decoder families of the port at full
-#: width (``src/repro_torch/configs/``), depth cut to fit one card by
-#: ``ModelConfig.param_count`` (16 B a parameter for f32 weights,
-#: gradients and AdamW moments, 20 B with the compressed step's residual,
-#: 8 B for a loss and gradient). Each family's parameters are drawn once,
-#: on the card (``init(on_device=True)``); a shallower tree is cut from
-#: the deeper one (gemma3's depth-6 training tree is its depth-7 serving
-#: tree without ``extra_local``; Moonshot's depth-1 training tree is the
-#: first layer of its depth-2 serving tree). ``step``: ``"compressed"`` one
+#: Phase ``families``: the other families of the port at full width
+#: (``src/repro_torch/configs/``), depth cut to fit one card by
+#: ``tree_param_count`` (16 B a parameter for f32 weights, gradients and
+#: AdamW moments, 20 B with the compressed step's residual, 8 B for a loss
+#: and gradient). Each family's parameters are drawn once, on the card
+#: (``init(on_device=True)``); a shallower tree is cut from the deeper one
+#: (gemma3's depth-6 training tree is its depth-7 serving tree without
+#: ``extra_local``; Moonshot's depth-1 training tree is the first layer of
+#: its depth-2 serving tree; Zamba2's depth-18 training tree the first 3
+#: of its 9 groups). ``step``: ``"compressed"`` one
 #: ``make_compressed_train_step`` step, ``"grad"`` a loss and gradient
 #: (the compressed step of those would not fit). Moonshot's step trains
 #: at depth 1: at depth 2, AdamW holding the old and new parameters,
 #: moments and residuals at once with the mean reckons 65 GB (1.24 G
 #: parameters at depth 1: 45 GB) before its temporaries and the earlier
-#: phases' tensors, too close to the card's 79.2 GiB.
+#: phases' tensors, too close to the card's 79.2 GiB. Zamba2's step trains
+#: at depth 18 (3 shared-block sites): at 54 it reckons 48.4 GB (2.42 G
+#: parameters) plus the mean's temporaries, 5.8 GB a copy of the stacked
+#: ``in_proj`` leaf (1.44 G f32 elements); 18 layers reckon 19.7 GB.
+#: ``cpu_cut``: the config fields of the small depth at which the card's
+#: loss is held to the CPU's (``FAM_CPU_BATCH``); ``kv_quant``: whether
+#: the first self-attention cache is quantized to int8
+#: (:func:`family_kv_quant`).
 FAMILIES = {
     "moonshot_v1_16b_a3b": dict(train_depth=1, train=(8, 2048),
                                 serve_depth=2, prompts=(4, 512),
@@ -2435,9 +2454,25 @@ FAMILIES = {
                        prompts=(2, 1536), step="grad"),
     "qwen2_vl_72b": dict(train_depth=2, train=(1, 4096), serve_depth=2,
                          prompts=(4, 512), step="grad"),
+    "mamba2_370m": dict(train_depth=48, train=(8, 2048), serve_depth=48,
+                        prompts=(4, 512), step="compressed",
+                        cpu_cut=dict(n_layers=2)),
+    "zamba2_2_7b": dict(train_depth=18, train=(8, 2048), serve_depth=54,
+                        prompts=(4, 512), step="compressed",
+                        cpu_cut=dict(n_layers=6), kv_quant=True),
+    "whisper_medium": dict(train_depth=24, train=(8, 2048), serve_depth=24,
+                           prompts=(4, 512), step="compressed",
+                           cpu_cut=dict(n_layers=2, n_enc_layers=2),
+                           kv_quant=True),
 }
 FAM_NEW_TOKENS = 8
 FAM_K = 0.01
+#: The card's loss against the CPU's: one sequence of 256 tokens
+#: (``train_4k``'s draws; Whisper's 1,500 frames beside them).
+FAM_CPU_BATCH = (1, 256)
+#: ``attention_with_quant_cache`` against the exact attention: the
+#: reference's bound (``tests/test_extensions.py``: rtol and atol 5e-2).
+FAM_KV_QUANT_TOL = 5e-2
 
 
 def family_decode(torch, model, params, batch, counted=None):
@@ -2448,7 +2483,7 @@ def family_decode(torch, model, params, batch, counted=None):
     step, launches)``; launches are counted when ``counted`` is given."""
     from repro_torch.train import make_decode_step, make_prefill_step
 
-    P_S = batch["embeds" if "embeds" in batch else "tokens"].shape[1]
+    P_S = batch["tokens" if "tokens" in batch else "embeds"].shape[1]
     prefill = make_prefill_step(model, attn_chunk=32,
                                 max_len=P_S + FAM_NEW_TOKENS)
     decode = make_decode_step(model, attn_chunk=128)
@@ -2471,11 +2506,13 @@ def family_decode(torch, model, params, batch, counted=None):
     return prefill_ms, decode_ms, fed, lg, caches, decode, used
 
 
-def decode_vs_prefill(torch, model, params, prompts, fed, lg) -> dict:
+def decode_vs_prefill(torch, model, params, prompts, fed, lg,
+                      embeds=None) -> dict:
     """The last decode logits ``lg`` against ``model``'s prefill of the
-    prompts plus the ``fed`` tokens: max |diff|, the largest logit, the
-    share of sequences whose argmax agrees and, for a MoE model, the
-    assignments each layer of that prefill dropped."""
+    prompts plus the ``fed`` tokens (an encoder-decoder's on the same
+    frame ``embeds``): max |diff|, the largest logit, the share of
+    sequences whose argmax agrees and, for a MoE model, the assignments
+    each layer of that prefill dropped."""
     from repro_torch.models import moe as MOE
 
     drops = []
@@ -2489,7 +2526,7 @@ def decode_vs_prefill(torch, model, params, prompts, fed, lg) -> dict:
     full = torch.cat([prompts, torch.stack(fed, 1).to(torch.int32)], 1)
     MOE.dispatch = counting
     try:
-        lp, _ = model.prefill(params, full, attn_chunk=32)
+        lp, _ = model.prefill(params, full, embeds=embeds, attn_chunk=32)
     finally:
         MOE.dispatch = real_dispatch
     return {"max_abs": float((lp - lg).abs().max()),
@@ -2504,14 +2541,21 @@ def family_serve(torch, model, params, spec, dev, counted):
     greedy tokens (:func:`family_decode`), timed, and profile one more
     token. (b) But for the VLM, whose prompts are embeddings and whose
     decode is only held finite, the last decode logits are held to a
-    prefill of the prompts plus those tokens within ``WL_DECODE_TOL``. A
+    prefill of the prompts plus those tokens within ``WL_DECODE_TOL`` (the
+    encoder-decoder's on the same seeded frames, ``make_batch``'s). A
     MoE model at its capacity factor drops assignments in a prefill of
     thousands of tokens that a decode of a few keeps, and in bf16 the two
     paths' rounding flips a token's near-tied experts (a jump, not a
     drift), so its gap there is only reported; it is held on the same
     weights in f32 compute at a capacity factor of ``n_experts /
-    moe_topk``, where no expert can overflow. Returns the numbers and the
-    decode profile."""
+    moe_topk``, where no expert can overflow. An SSM or hybrid model's
+    chunked prefill and recurrent decode round differently in bf16 at
+    every layer, and over Mamba2's 48 and Zamba2's 54 layers the gap
+    compounds to a few percent, as the reference's own does
+    (``tests/test_torch_ssm.py``, ``tests/test_torch_hybrid_encdec.py``:
+    ``test_*bf16_decode_drift_is_the_references``), near the tolerance at
+    Zamba2's depth: it too is only reported in bf16 and held on the same
+    weights in f32 compute. Returns the numbers and the decode profile."""
     import dataclasses
 
     from repro_torch.data import make_batch
@@ -2539,7 +2583,7 @@ def family_serve(torch, model, params, spec, dev, counted):
            "decode_idle_share": 1.0 - prof["busy_share"],
            "launches_serve": used,
            "ring": (min(cfg.sliding_window, P_S + FAM_NEW_TOKENS)
-                    if model.n_groups else None)}
+                    if cfg.sliding_window else None)}
     idle = f"{1 - prof['busy_share']:.0%} idle"
     if cfg.family == "vlm":
         log(f"{what}: prefill {P_B}x{P_S} (embeddings) {prefill_ms:.1f} "
@@ -2547,26 +2591,27 @@ def family_serve(torch, model, params, spec, dev, counted):
             f"logits (no prefill to hold decode to: the prompts are "
             f"embeddings)")
         return out, prof
-    held = decode_vs_prefill(torch, model, params, batch["tokens"], fed, lg)
-    if cfg.family == "moe":
+    held = decode_vs_prefill(torch, model, params, batch["tokens"], fed, lg,
+                             batch.get("embeds"))
+    if cfg.family in ("moe", "ssm", "hybrid"):
         out["decode_vs_prefill_at_config"] = held
-        cf = cfg.n_experts / cfg.moe_topk
-        exact = build_model(dataclasses.replace(
-            cfg, capacity_factor=cf, compute_dtype="float32"))
+        exact_kw = {"compute_dtype": "float32"}
+        if cfg.family == "moe":
+            exact_kw["capacity_factor"] = cfg.n_experts / cfg.moe_topk
+        exact = build_model(dataclasses.replace(cfg, **exact_kw))
         _, _, fed, lg, caches, _, _ = family_decode(torch, exact, params,
                                                     batch)
         del caches
         held = decode_vs_prefill(torch, exact, params, batch["tokens"], fed,
                                  lg)
-        held.update(capacity_factor=cf, compute_dtype="float32")
+        held.update(exact_kw)
         check(not any(held["dropped_assignments"]), f"{what}: the lossless "
               f"capacity dropped {held['dropped_assignments']}")
     out["decode_vs_prefill"] = held
     at_cfg = out.get("decode_vs_prefill_at_config")
     log(f"{what}: prefill {P_B}x{P_S} {prefill_ms:.1f} ms, decode "
         f"{decode_med:.2f} ms a token ({idle}); decode vs prefill {held}"
-        + (f" (at the config's capacity factor: {at_cfg})" if at_cfg
-           else ""))
+        + (f" (at the config, bf16: {at_cfg})" if at_cfg else ""))
     check(np.isfinite(held["max_abs"])
           and held["max_abs"] <= WL_DECODE_TOL * held["logit_scale"],
           f"{what}: decode differs from prefill by {held['max_abs']} "
@@ -2615,12 +2660,24 @@ def family_grad(torch, model, params, spec, dev, counted):
 
 def shallower_tree(TR, model, cut, params) -> dict:
     """``params`` of ``model`` cut to ``cut``'s depth, sharing storage: the
-    first layers of an all-global stack, or a grouped tree without its
-    extra local layers (one whole group kept)."""
-    if model.n_groups == 0:
-        n = cut.cfg.n_layers
-        return {**params, "layers": TR.tree_map(lambda x: x[:n],
-                                                params["layers"])}
+    first layers of an all-global or SSM stack, the first groups of a
+    hybrid (its shared block kept), the first encoder and decoder layers,
+    or a grouped tree without its extra local layers (one whole group
+    kept)."""
+    family = model.cfg.family
+
+    def first(key, n):
+        return TR.tree_map(lambda x: x[:n], params[key])
+
+    if family == "hybrid":
+        return {**params, "mamba_layers": first("mamba_layers",
+                                                cut.n_groups)}
+    if family == "encdec":
+        return {**params, "enc_layers": first("enc_layers",
+                                              cut.cfg.n_enc_layers),
+                "dec_layers": first("dec_layers", cut.cfg.n_layers)}
+    if getattr(model, "n_groups", 0) == 0:
+        return {**params, "layers": first("layers", cut.cfg.n_layers)}
     check(cut.n_extra_local == 0 and cut.n_groups == model.n_groups,
           f"phase families: {model.cfg.arch_id}'s depth cut is not its "
           f"extra local layers")
@@ -2628,32 +2685,41 @@ def shallower_tree(TR, model, cut, params) -> dict:
 
 
 def run_families(torch, seed: int, dev, kernels: dict):
-    """Phase ``families``: the MoE, gemma3 local:global and VLM decoders at
+    """Phase ``families``: the MoE, gemma3 local:global and VLM decoders,
+    the Mamba2 SSM, the Zamba2 hybrid and the Whisper encoder-decoder at
     full width (:data:`FAMILIES`, depths cut to fit the card), through the
     port's entry points (``build_model``, ``make_batch``,
     ``make_prefill_step``, ``make_decode_step``,
-    ``make_compressed_train_step``) on the default NCCL group of one rank.
+    ``make_compressed_train_step``, ``repro_torch.serve``) on the default
+    NCCL group of one rank.
 
-    (a) Each family's loss and gradient are finite; Moonshot (its first
-    layer) takes one compressed step (k 0.01, block selector, ``gather_kway``), whose means
-    at P = 1 are ``densify(u)`` bitwise with mean + new residual equal to
-    gradient + residual (:func:`check_means_at_p1`). (b) Greedy decode of
-    8 tokens against a prefill of the prompts plus those tokens
-    (``WL_DECODE_TOL``), but for the VLM, whose decode is only held
-    finite; gemma3's prompts are longer than its window, so the rings are
-    rolled and every decoded token wraps them. (c) The step's largest
-    launch of the top-k, ``xla_add`` and segment-fold kernels (the
-    engine's and the MoE combine's) replayed through the plain versions.
-    (d) The combine of the step's first MoE layer held bitwise to the
-    plain ordered fold (``moe.combine_plain``) and timed beside
-    ``index_add_`` on the same contributions. Returns the phase's numbers
-    and one decode token's profile a family."""
+    (a) Llama4's, gemma3's and Qwen2-VL's loss and gradient are finite;
+    Moonshot (its first layer), Mamba2, Zamba2 (its first 3 groups) and
+    Whisper take one compressed step (k 0.01, block selector,
+    ``gather_kway``), whose means at P = 1 are ``densify(u)`` bitwise with
+    mean + new residual equal to gradient + residual
+    (:func:`check_means_at_p1`). (b) Greedy decode of 8 tokens against a
+    prefill of the prompts plus those tokens (``WL_DECODE_TOL``), but for
+    the VLM, whose decode is only held finite, and the MoE, SSM and hybrid
+    models, held on the same weights in f32 compute, their bf16 gap
+    reported (:func:`family_serve`); gemma3's prompts are longer than its
+    window, so the rings are rolled and every decoded token wraps them. (c) Each step's largest launch of the top-k, ``xla_add`` and
+    segment-fold kernels (the engine's and the MoE combine's) replayed
+    through the plain versions. (d) The combine of Moonshot's first MoE
+    layer held bitwise to the plain ordered fold (``moe.combine_plain``)
+    and timed beside ``index_add_`` on the same contributions. (e) Mamba2,
+    Zamba2 and Whisper: the card's loss against the CPU's at a small depth
+    (:func:`family_cpu_loss`). (f) Zamba2 and Whisper: the first
+    self-attention cache quantized to int8 (:func:`family_kv_quant`).
+    Returns the phase's numbers and one decode token's profile a
+    family."""
     import dataclasses
     import gc
 
     from repro_torch import tree as TR
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.models.common import tree_param_count
     from repro_torch.models.layers import use_full_precision
 
     use_full_precision()
@@ -2686,9 +2752,9 @@ def run_families(torch, seed: int, dev, kernels: dict):
                    x.numel() for x in TR.leaves(params)),
                "init_ms": (time.perf_counter() - t) * 1e3,
                "compute": full.compute_dtype}
-        check(res["params"] == model.cfg.param_count(), f"phase families: "
-              f"{arch}'s tree holds {res['params']} parameters, its config "
-              f"{model.cfg.param_count()}")
+        check(res["params"] == tree_param_count(model.cfg), f"phase "
+              f"families: {arch}'s tree holds {res['params']} parameters, "
+              f"its config {tree_param_count(model.cfg)}")
         smodel, sparams = model, params
         if spec["serve_depth"] != depth:
             smodel = build_model(dataclasses.replace(
@@ -2697,11 +2763,21 @@ def run_families(torch, seed: int, dev, kernels: dict):
         serve, profiles[f"families_{arch}_decode_token"] = family_serve(
             torch, smodel, sparams, spec, dev, counted)
         res.update(serve)
+        if spec.get("kv_quant"):
+            res["kv_quant"] = family_kv_quant(torch, smodel, sparams, spec,
+                                              dev)
+        if "cpu_cut" in spec:
+            res["cpu_loss"] = family_cpu_loss(torch, model, params, full,
+                                              spec, dev)
         tmodel, tparams = model, params
         if spec["train_depth"] != depth:
+            # a copy of the cut, so that the deeper tree's storage is freed
             tmodel = build_model(dataclasses.replace(
                 full, n_layers=spec["train_depth"]))
-            tparams = shallower_tree(TR, model, tmodel, params)
+            tparams = TR.tree_map(torch.clone, shallower_tree(
+                TR, model, tmodel, params))
+            params = None
+            free()
         res["train_params"] = sum(x.numel() for x in TR.leaves(tparams))
         del smodel, sparams
         if spec["step"] == "grad":
@@ -2712,8 +2788,9 @@ def run_families(torch, seed: int, dev, kernels: dict):
                 f"{spec['train']} in {res['loss_grad_ms']:.1f} ms; "
                 f"launches {res['launches_train']}")
         else:
-            res.update(moe_step(torch, tmodel, tparams, spec, dev, kernels,
-                                counted, plain_replays, combine))
+            res.update(compressed_step(torch, tmodel, tparams, spec, dev,
+                                       kernels, counted, plain_replays,
+                                       combine))
         del tmodel, tparams, params, model
         free()
         res["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -2739,23 +2816,28 @@ def run_families(torch, seed: int, dev, kernels: dict):
         + ["parameters drawn on the card (other values than the CPU draw)",
            "one chip (one NCCL rank, P = 1)",
            "llama4, gemma3, qwen2-vl: a loss and gradient, no optimizer "
-           "step (their compressed step needs 67-106 GB)"]}
+           "step (their compressed step needs 67-106 GB)",
+           "zamba2: the compressed step at depth 18 (3 shared-block sites) "
+           "of 54: at 54 it reckons 48.4 GB plus the mean's temporaries",
+           "the card's loss held to the CPU's at depths "
+           + ", ".join(f"{a} {s['cpu_cut']}" for a, s in FAMILIES.items()
+                       if "cpu_cut" in s)]}
     log(f"phase families: launches {launches}; replays {plain_replays}")
     return phase, profiles
 
 
-def moe_step(torch, model, params, spec, dev, kernels, counted,
-             plain_replays, combine):
-    """Phase ``families`` (a), (c), (d) for the Moonshot tree: one
+def compressed_step(torch, model, params, spec, dev, kernels, counted,
+                    plain_replays, combine):
+    """Phase ``families`` (a), (c) and, for a MoE model, (d): one
     compressed step. Its mean at P = 1 is checked, and its largest top-k,
     ``xla_add`` and segment-fold launches replayed through the plain
     versions, inside the mean's call, before AdamW builds the new state
     (kept until the step's end, the gradients and those inputs would not
     fit beside the old and new state); that aside is not counted in
-    launches and is taken off the step's time. The combine's largest
-    segment fold is replayed after the step, and its first layer's combine
-    held to the plain fold. Fills ``plain_replays`` and ``combine``;
-    returns the step's numbers."""
+    launches and is taken off the step's time. A MoE model's combine: its
+    largest segment fold is replayed after the step, and its first layer's
+    combine held to the plain fold. Fills ``plain_replays`` and
+    ``combine``; returns the step's numbers."""
     from repro_torch import tree as TR
     from repro_torch.core import engine as E
     from repro_torch.data import make_batch
@@ -2768,6 +2850,7 @@ def moe_step(torch, model, params, spec, dev, kernels, counted,
     from repro_torch.train import step as ST
 
     what = f"phase families {model.cfg.arch_id}"
+    is_moe = model.cfg.family == "moe"
     B, S_len = spec["train"]
     batch = make_batch(model.cfg, SHAPES["train_4k"], 0, batch_override=B,
                        seq_override=S_len, device=dev)
@@ -2831,13 +2914,16 @@ def moe_step(torch, model, params, spec, dev, kernels, counted,
         p, o, ef = state.pop("p"), state.pop("o"), state.pop("ef")
         return comp(p, o, ef, batch)
 
-    ST.compressed_gradient_mean, MOE.combine = timed_mean, first_combine
+    moe_fold = ({"segment_fold/moe": (MOE, "segment_fold")} if is_moe
+                else {})
+    ST.compressed_gradient_mean = timed_mean
+    if is_moe:
+        MOE.combine = first_combine
     try:
         torch.cuda.synchronize()
         t = time.perf_counter()
         (out, kept), used = counted(lambda: keeping_largest_each(
-            {"segment_fold/moe": (MOE, "segment_fold")}, one_step,
-            required=("segment_fold/moe",)))
+            moe_fold, one_step, required=tuple(moe_fold)))
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t - log_["aside_s"]) * 1e3
     finally:
@@ -2860,6 +2946,8 @@ def moe_step(torch, model, params, spec, dev, kernels, counted,
         f"{mean_ms:.1f} ms, {res['mean_share']:.2%}), loss {loss:.4f}; "
         f"means == densify(u) bitwise ({log_['dense']} dense leaves); "
         f"launches {used}")
+    if not is_moe:
+        return res
     replay("segment_fold", segment.segment_fold, segment.segment_fold_plain,
            kept.pop("segment_fold/moe"),
            f"{what} (c): the MoE combine's segment fold")
@@ -2890,6 +2978,114 @@ def moe_step(torch, model, params, spec, dev, kernels, counted,
         f", bound {b_ms:.3f}) on {T} x {K} x {d} {combine['dtype']}, "
         f"bitwise to the plain fold")
     return res
+
+
+def family_cpu_loss(torch, model, params, full, spec, dev) -> dict:
+    """(e) The card's loss against the CPU's on the same parameters, cut to
+    ``spec["cpu_cut"]``'s depth, and the same ``FAM_CPU_BATCH`` tokens
+    (and frames), bf16 compute, no remat: within ``WL_CPU_LOSS_RTOL``."""
+    import dataclasses
+
+    from repro_torch import tree as TR
+    from repro_torch.data import make_batch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import SHAPES
+
+    cut = build_model(dataclasses.replace(full, **spec["cpu_cut"]))
+    p = shallower_tree(TR, model, cut, params)
+    cpu = torch.device("cpu")
+    bc = make_batch(cut.cfg, SHAPES["train_4k"], 0,
+                    batch_override=FAM_CPU_BATCH[0],
+                    seq_override=FAM_CPU_BATCH[1], device=cpu)
+    with torch.no_grad():
+        loss_card = float(cut.loss(p, {k: v.to(dev) for k, v in bc.items()},
+                                   remat=False))
+        t = time.perf_counter()
+        loss_cpu = float(cut.loss(TR.tree_map(lambda x: x.to(cpu), p), bc,
+                                  remat=False))
+        cpu_s = time.perf_counter() - t
+    what = f"phase families (e) {full.arch_id}"
+    check(np.isfinite(loss_card) and abs(loss_card - loss_cpu)
+          <= WL_CPU_LOSS_RTOL * abs(loss_cpu), f"{what}: the card's loss "
+          f"{loss_card} against the CPU's {loss_cpu}")
+    log(f"{what}: loss on {FAM_CPU_BATCH} at {spec['cpu_cut']}: card "
+        f"{loss_card:.6f}, CPU {loss_cpu:.6f} ({cpu_s:.1f} s)")
+    return {"cut": spec["cpu_cut"], "batch": list(FAM_CPU_BATCH),
+            "loss_card": loss_card, "loss_cpu": loss_cpu, "cpu_s": cpu_s}
+
+
+def family_kv_quant(torch, model, params, spec, dev) -> dict:
+    """(f) int8 KV quantization of the first self-attention cache
+    (Whisper's decoder layer 0, Zamba2's shared-block site 0): the
+    family's prompts are prefilled and one token decoded, the first
+    ``blockwise_attention`` call of that decode kept (its query, the
+    cache with the new token, its output). The prompts' keys and values
+    quantized on the card (``quantize_kv``) equal their quantization on
+    the CPU bitwise, codes and scales; the new token is written by
+    ``quant_cache_update_decode``, and ``attention_with_quant_cache`` of
+    the kept query is within ``FAM_KV_QUANT_TOL`` of the kept exact
+    output."""
+    from repro_torch.data import make_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models.common import SHAPES
+    from repro_torch.serve import kv_quant as Q
+
+    what = f"phase families (f) {model.cfg.arch_id}"
+    P_B, P_S = spec["prompts"]
+    batch = make_batch(model.cfg, SHAPES["prefill_32k"], 0,
+                       batch_override=P_B, seq_override=P_S, device=dev)
+    lg, caches = model.prefill(params, batch["tokens"],
+                               embeds=batch.get("embeds"),
+                               max_len=P_S + FAM_NEW_TOKENS, attn_chunk=32)
+    real, kept = L.blockwise_attention, {}
+
+    def keeping(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        if not kept:
+            kept.update(q=q, k=k, v=v, out=out, kw=kw)
+        return out
+
+    L.blockwise_attention = keeping
+    try:
+        model.decode_step(params, caches, torch.argmax(lg, -1),
+                          attn_chunk=128)
+    finally:
+        L.blockwise_attention = real
+    del caches
+    k, v = kept["k"], kept["v"]
+    check(int(kept["kw"]["kv_len"]) == P_S + 1, f"{what}: the first decode "
+          f"attention is not the first self-attention's")
+    qc = Q.quantize_kv(k[:, :P_S], v[:, :P_S])
+    cpu = Q.quantize_kv(k[:, :P_S].cpu(), v[:, :P_S].cpu())
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(qc, cpu)),
+          f"{what}: int8 codes or scales differ from the CPU's")
+    # the prefill's codes in a cache of S_max slots, then the new token
+    S_max = k.shape[1]
+    pad = S_max - P_S
+    qc = Q.QuantKVCache(
+        torch.nn.functional.pad(qc.k_q, (0, 0, 0, 0, 0, pad)),
+        torch.nn.functional.pad(qc.v_q, (0, 0, 0, 0, 0, pad)),
+        torch.nn.functional.pad(qc.k_scale, (0, 0, 0, pad)),
+        torch.nn.functional.pad(qc.v_scale, (0, 0, 0, pad)), qc.length)
+    qc = Q.quant_cache_update_decode(qc, k[:, P_S:P_S + 1],
+                                     v[:, P_S:P_S + 1])
+    approx = Q.attention_with_quant_cache(kept["q"], qc, chunk=128)
+    exact = kept["out"]
+    gap = (approx.float() - exact.float()).abs()
+    limit = FAM_KV_QUANT_TOL * (1 + exact.float().abs())
+    worst = float((gap - limit).max())
+    check(worst <= 0, f"{what}: quantized attention differs from the exact "
+          f"by {float(gap.max())} (rtol and atol {FAM_KV_QUANT_TOL})")
+    out = {"cache": [list(k[:, :P_S].shape), str(k.dtype).split(".")[-1]],
+           "codes_bitwise_to_cpu": True,
+           "attention_max_abs": float(gap.max()),
+           "attention_scale": float(exact.float().abs().max()),
+           "int8_bytes": qc.k_q.numel() * 2 + qc.k_scale.numel() * 8,
+           "cache_bytes": k.numel() * k.element_size() * 2}
+    log(f"{what}: codes of {out['cache']} bitwise to the CPU's; quantized "
+        f"attention within {out['attention_max_abs']:.4f} of the exact "
+        f"(largest {out['attention_scale']:.3f})")
+    return out
 
 
 def run(args, torch) -> int:

@@ -2,8 +2,8 @@
 
 ``get_config(arch_id)`` returns the FULL config; ``get_smoke_config(arch_id)``
 a reduced same-family config for CPU smoke tests. The ten config files are
-data, field for field the reference's; the port builds only the dense
-family so far (``repro_torch.models.build_model`` raises for the others).
+data, field for field the reference's; ``repro_torch.models.build_model``
+builds every one.
 ``long_500k`` applicability is recorded per arch (``SHAPE_SKIPS``).
 """
 from __future__ import annotations

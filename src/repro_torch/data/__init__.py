@@ -1,3 +1,4 @@
-from repro_torch.data.synthetic import batch_for_shape, make_batch
+from repro_torch.data.synthetic import (batch_for_shape, decode_inputs,
+                                        input_specs, make_batch)
 
-__all__ = ["batch_for_shape", "make_batch"]
+__all__ = ["batch_for_shape", "decode_inputs", "input_specs", "make_batch"]

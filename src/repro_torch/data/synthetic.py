@@ -6,8 +6,10 @@ and calls) and returns them as tensors on a device, deterministic in
 is ``hash((arch_id, shape name, step))``, and Python salts the hash of a
 string per process (``PYTHONHASHSEED``): two processes agree on a batch
 only when that salt is fixed, so a batch is compared between the two
-packages inside one process. The dry-run input specs wait for the dry-run
-tools.
+packages inside one process. ``input_specs`` and ``decode_inputs`` give the
+dry-run's stand-ins: tensors on the ``meta`` device, which carry a shape
+and a dtype and allocate nothing (the reference's ``ShapeDtypeStruct`` and
+``jax.eval_shape``).
 
 Modality frontends are stubs, as in the reference: [audio] gets frame
 embeddings (B, n_frames, d); [vlm] gets patch/token embeddings (B, S, d)
@@ -64,3 +66,35 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, step: int = 0,
         batch["mrope_positions"] = torch.from_numpy(pos.copy()).to(dev)
         del batch["tokens"]
     return batch
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors standing in for every model input of a
+    train/prefill step (decode adds caches via :func:`decode_inputs`)."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def sd(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    specs: Dict[str, torch.Tensor] = {
+        "tokens": sd((B, S), torch.int32),
+        "labels": sd((B, S), torch.int32),
+    }
+    if cfg.family == "encdec":
+        specs["embeds"] = sd((B, cfg.n_frames, cfg.d_model), cfg.cdtype)
+    elif cfg.family == "vlm":
+        specs["embeds"] = sd((B, S, cfg.d_model), cfg.cdtype)
+        specs["mrope_positions"] = sd((3, B, S), torch.int32)
+        del specs["tokens"]
+    if shape.kind != "train":
+        del specs["labels"]
+    return specs
+
+
+def decode_inputs(cfg: ModelConfig, shape: ShapeConfig, model):
+    """(cache specs, token spec) for a decode cell: the model's
+    ``init_cache`` on the ``meta`` device (no allocation)."""
+    B, S = shape.global_batch, shape.seq_len
+    caches = model.init_cache(B, S, device="meta")
+    return caches, torch.empty((B,), dtype=torch.int32, device="meta")

@@ -16,7 +16,9 @@ hot-swaps them before the next token.
 
 The parameters are the model's seed-0 init (the trainer's initial
 parameters), the prompts uniform tokens from a ``torch.Generator`` seeded
-with 1 (the VLM's prompts zero patch embeddings, as the reference's).
+with 1 (the VLM's prompts zero patch embeddings, and the encoder-decoder
+encodes zero frame embeddings, as the reference's). Every family serves:
+``--arch whisper-medium`` and ``--arch mamba2-370m`` too.
 """
 from __future__ import annotations
 
@@ -75,10 +77,16 @@ def run(args) -> dict:
     toks = torch.randint(0, cfg.vocab, (B, S), generator=gen,
                          dtype=torch.int32).to(dev)
 
-    # the VLM prefills on its stub frontend's (zero) patch embeddings
-    prompt = ({"embeds": torch.zeros((B, S, cfg.d_model), dtype=cfg.cdtype,
-                                     device=dev)}
-              if cfg.family == "vlm" else {"tokens": toks})
+    # the stub frontends' inputs are zeros: the VLM prefills on patch
+    # embeddings, the encoder-decoder on frame embeddings beside its tokens
+    if cfg.family == "vlm":
+        prompt = {"embeds": torch.zeros((B, S, cfg.d_model),
+                                        dtype=cfg.cdtype, device=dev)}
+    else:
+        prompt = {"tokens": toks}
+    if cfg.family == "encdec":
+        prompt["embeds"] = torch.zeros((B, cfg.n_frames, cfg.d_model),
+                                       dtype=cfg.cdtype, device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()

@@ -9,6 +9,12 @@ its normals from the generator in call order, and :func:`stacked` calls an
 init ``n`` times in a row. The values need not match JAX's PRNG; a
 reference params tree crosses into the port through
 ``repro_torch.interop.params_from_numpy``.
+
+:class:`TreeModel` is what every model class shares: the seeded ``init``
+(each class draws its own tree), the last position's logits, and the
+params tree held as the module's own parameters (``load_params``,
+``params_tree``, ``forward``); :func:`per_layer` gives a stacked leaf's
+layers as views and :func:`maybe_remat` recomputes a layer in backward.
 """
 from __future__ import annotations
 
@@ -17,8 +23,12 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as _tree
+from repro_torch.core.sparse import resolve_device
+from repro_torch.models.layers import rms_norm
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -157,6 +167,19 @@ class ModelConfig:
         return int(self.vocab * d * 2 + self.n_layers * per_layer + d)
 
 
+def tree_param_count(cfg: ModelConfig) -> int:
+    """The parameters a model's params tree holds. The reference's
+    ``ModelConfig.param_count`` (kept as it is) leaves some out: each
+    Mamba2 layer's convolution ((W + 1) * (d_inner + 2 * ssm_state)) and
+    ``dt_bias`` (H), and the encoder's final norm (d)."""
+    if cfg.family in ("ssm", "hybrid"):
+        conv = (cfg.conv_width + 1) * (cfg.d_inner + 2 * cfg.ssm_state)
+        return cfg.param_count() + cfg.n_layers * (conv + cfg.n_ssm_heads)
+    if cfg.family == "encdec":
+        return cfg.param_count() + cfg.d_model
+    return cfg.param_count()
+
+
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str          # train_4k | prefill_32k | decode_32k | long_500k
@@ -197,3 +220,101 @@ def stacked(init_fn: Callable[[torch.Generator], object],
     treedef = _tree.flatten(trees[0])[1]
     columns = zip(*(_tree.leaves(t) for t in trees))
     return _tree.unflatten(treedef, [torch.stack(c) for c in columns])
+
+
+# ---------------------------------------------------------------------------
+# params trees as module parameters
+# ---------------------------------------------------------------------------
+
+def _as_module(tree: dict) -> nn.Module:
+    """A nested dict of tensors as a module holding them as parameters
+    (sharing their storage), one submodule a nested dict."""
+    m = nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            m.add_module(k, _as_module(v))
+        else:
+            m.register_parameter(k, nn.Parameter(v))
+    return m
+
+
+def _as_tree(m: nn.Module) -> dict:
+    out = dict(m.named_parameters(recurse=False))
+    out.update({k: _as_tree(c) for k, c in m.named_children()})
+    return out
+
+
+def per_layer(stack: dict, lead: int = 1):
+    """The stacked layer leaves as one tree per layer (views; one
+    ``unbind`` a leaf of its first ``lead`` dims flattened, whose backward
+    stacks the layers' gradients into the leaf's shape)."""
+    leaves, treedef = _tree.flatten(stack)
+    cols = [x.flatten(0, lead - 1).unbind(0) if lead > 1 else x.unbind(0)
+            for x in leaves]
+    return [_tree.unflatten(treedef, vals) for vals in zip(*cols)]
+
+
+def maybe_remat(fn, remat: bool):
+    """``fn`` recomputed in backward (``torch.utils.checkpoint``) when
+    ``remat`` and grad is on, else ``fn`` itself."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+class TreeModel(nn.Module):
+    """A model whose methods take the reference's params tree explicitly
+    and that can also hold one as its own parameters: the top-level leaves
+    ``_TOP`` in ``self.top``, each subtree of :attr:`_stacks` as a
+    submodule of that name. A subclass draws its tree in
+    ``_init_tree(gen)``."""
+    _TOP = ("embed", "final_ln", "head")
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.top = nn.ParameterDict()
+
+    def init(self, seed: int = 0, device=None, *,
+             on_device: bool = False) -> dict:
+        """A fresh params tree on ``device`` (``None`` = the CUDA card),
+        drawn from a ``torch.Generator`` seeded with ``seed``: by default
+        on the CPU (the same values on any device), with ``on_device`` on
+        ``device`` itself (other values than the CPU's; a full-width tree
+        of billions of parameters is drawn in under a second on a card,
+        where the CPU takes minutes)."""
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev if on_device else "cpu")
+        gen.manual_seed(seed)
+        return _tree.tree_map(lambda x: x.to(dev), self._init_tree(gen))
+
+    def _init_tree(self, gen: torch.Generator) -> dict:
+        raise NotImplementedError
+
+    def logits_last(self, params, x):
+        """Logits for the final position only (prefill and decode
+        output), f32."""
+        h = rms_norm(x[:, -1:], params["final_ln"])
+        return (h @ params["head"].to(h.dtype)).to(torch.float32)[:, 0]
+
+    @property
+    def _stacks(self) -> tuple:
+        """The top-level keys of the params tree that hold subtrees."""
+        raise NotImplementedError
+
+    def load_params(self, params: dict) -> None:
+        """Hold ``params`` (the reference's tree) as this module's
+        parameters, sharing their storage."""
+        self.top = nn.ParameterDict({k: nn.Parameter(params[k])
+                                     for k in self._TOP})
+        for k in self._stacks:
+            setattr(self, k, _as_module(params[k]))
+
+    def params_tree(self) -> dict:
+        """The module's parameters as the reference's tree."""
+        return {**dict(self.top),
+                **{k: _as_tree(getattr(self, k)) for k in self._stacks}}
+
+    def forward(self, batch: dict, **kw) -> torch.Tensor:
+        """The loss on the module's own parameters."""
+        return self.loss(self.params_tree(), batch, **kw)

@@ -39,17 +39,16 @@ import contextlib
 from typing import NamedTuple, Optional
 
 import torch
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import tree as _tree
 from repro_torch.core.sparse import resolve_device, uncounted_sorts
 from repro_torch.models import layers as L
-from repro_torch.models.common import ModelConfig, dense_init, stacked
+from repro_torch.models.common import (ModelConfig, TreeModel, dense_init,
+                                       per_layer, stacked)
 from repro_torch.models.moe import init_moe_params, moe_ffn
 
 #: Families this module builds; ``models.build_model`` sends the others
-#: here only to be refused.
+#: to their own classes.
 FAMILIES = ("dense", "moe", "vlm")
 
 
@@ -67,30 +66,13 @@ class DecodeCaches(NamedTuple):
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the families not ported yet."""
+    """Raise ``ValueError`` for a family this class does not build (the
+    SSM, hybrid and encoder-decoder families have their own classes, which
+    ``models.build_model`` picks)."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP slice 6c); the port builds the {', '.join(FAMILIES)} "
-            f"families")
-
-
-def _as_module(tree: dict) -> nn.Module:
-    """A nested dict of tensors as a module holding them as parameters
-    (sharing their storage), one submodule a nested dict."""
-    m = nn.Module()
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            m.add_module(k, _as_module(v))
-        else:
-            m.register_parameter(k, nn.Parameter(v))
-    return m
-
-
-def _as_tree(m: nn.Module) -> dict:
-    out = dict(m.named_parameters(recurse=False))
-    out.update({k: _as_tree(c) for k, c in m.named_children()})
-    return out
+        raise ValueError(
+            f"{cfg.arch_id}: TransformerLM builds the {', '.join(FAMILIES)} "
+            f"families, not {cfg.family!r}; use models.build_model")
 
 
 def _stack_cache(caches) -> L.KVCache:
@@ -98,11 +80,10 @@ def _stack_cache(caches) -> L.KVCache:
     return L.KVCache(*(torch.stack(x) for x in zip(*caches)))
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(TreeModel):
     def __init__(self, cfg: ModelConfig):
-        super().__init__()
+        super().__init__(cfg)
         check_family(cfg)
-        self.cfg = cfg
         # gemma3-style grouping
         if cfg.local_per_global > 0:
             period = cfg.local_per_global + 1
@@ -111,7 +92,6 @@ class TransformerLM(nn.Module):
         else:
             self.n_groups = 0
             self.n_extra_local = 0
-        self.top = nn.ParameterDict()
 
     @property
     def _stacks(self):
@@ -144,18 +124,8 @@ class TransformerLM(nn.Module):
         p["w2"] = dense_init(gen, (cfg.d_ff, d), pdt)
         return p
 
-    def init(self, seed: int = 0, device=None, *,
-             on_device: bool = False) -> dict:
-        """A fresh params tree on ``device`` (``None`` = the CUDA card),
-        drawn from a ``torch.Generator`` seeded with ``seed``: by default
-        on the CPU (the same values on any device), with ``on_device`` on
-        ``device`` itself (other values than the CPU's; a full-width tree
-        of billions of parameters is drawn in under a second on a card,
-        where the CPU takes minutes)."""
+    def _init_tree(self, gen: torch.Generator) -> dict:
         cfg = self.cfg
-        dev = resolve_device(device)
-        gen = torch.Generator(device=dev if on_device else "cpu")
-        gen.manual_seed(seed)
         params = {
             "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.pdtype,
                                 fan_in=cfg.d_model),
@@ -176,24 +146,7 @@ class TransformerLM(nn.Module):
                                                 self.n_extra_local)
         else:
             params["layers"] = stacked(self._init_layer, gen, cfg.n_layers)
-        return _tree.tree_map(lambda x: x.to(dev), params)
-
-    def load_params(self, params: dict) -> None:
-        """Hold ``params`` (the reference's tree) as this module's
-        parameters, sharing their storage."""
-        self.top = nn.ParameterDict({k: nn.Parameter(params[k])
-                                     for k in ("embed", "final_ln", "head")})
-        for k in self._stacks:
-            setattr(self, k, _as_module(params[k]))
-
-    def params_tree(self) -> dict:
-        """The module's parameters as the reference's tree."""
-        return {**dict(self.top),
-                **{k: _as_tree(getattr(self, k)) for k in self._stacks}}
-
-    def forward(self, batch: dict, **kw) -> torch.Tensor:
-        """The loss on the module's own parameters."""
-        return self.loss(self.params_tree(), batch, **kw)
+        return params
 
     # ------------------------------------------------------------------
     # blocks
@@ -268,32 +221,22 @@ class TransformerLM(nn.Module):
         x, aux = self._ffn(p, x)
         return x, aux, kv
 
-    @staticmethod
-    def _per_layer(stack: dict, lead: int = 1):
-        """The stacked layer leaves as one tree per layer (views; one
-        ``unbind`` a leaf of its first ``lead`` dims flattened, whose
-        backward stacks the layers' gradients into the leaf's shape)."""
-        leaves, treedef = _tree.flatten(stack)
-        cols = [x.flatten(0, lead - 1).unbind(0) if lead > 1 else x.unbind(0)
-                for x in leaves]
-        return [_tree.unflatten(treedef, vals) for vals in zip(*cols)]
-
     def _schedule(self, params):
         """``(layer params, window, kind)`` for every layer in order; kind
         is ``"layers"``, ``"local"``, ``"global"`` or ``"extra"``."""
         if self.n_groups == 0:
             return [(p, 0, "layers")
-                    for p in self._per_layer(params["layers"])]
+                    for p in per_layer(params["layers"])]
         w, lpg = self.cfg.sliding_window, self.cfg.local_per_global
-        loc = self._per_layer(params["groups"]["local"], lead=2)
-        glob = self._per_layer(params["groups"]["global"])
+        loc = per_layer(params["groups"]["local"], lead=2)
+        glob = per_layer(params["groups"]["global"])
         out = []
         for g in range(self.n_groups):
             out += [(p, w, "local") for p in loc[g * lpg:(g + 1) * lpg]]
             out.append((glob[g], 0, "global"))
         if self.n_extra_local:
             out += [(p, w, "extra")
-                    for p in self._per_layer(params["extra_local"])]
+                    for p in per_layer(params["extra_local"])]
         return out
 
     # ------------------------------------------------------------------
@@ -327,11 +270,6 @@ class TransformerLM(nn.Module):
             if collect_kv:
                 kv.setdefault(kind, []).append(kv_l)
         return x, aux, (kv if collect_kv else None)
-
-    def logits_last(self, params, x):
-        """Logits for the final position only (prefill output)."""
-        h = L.rms_norm(x[:, -1:], params["final_ln"])
-        return (h @ params["head"].to(h.dtype)).to(torch.float32)[:, 0]
 
     def loss(self, params, batch, *, remat: bool = True,
              ce_chunk: int = 512, attn_chunk: int = 1024):

@@ -1537,11 +1537,13 @@ def test_lossless_compressed_step_on_card_tracks_dense(nccl_world):
 
 
 # ---------------------------------------------------------------------------
-# the MoE, gemma3 local:global and VLM decoders on the card
+# the MoE, gemma3 local:global and VLM decoders, the Mamba2 SSM, the Zamba2
+# hybrid and the Whisper encoder-decoder on the card
 # ---------------------------------------------------------------------------
 
 FAMILY_ARCHS = ["moonshot-v1-16b-a3b", "llama4-scout-17b-a16e", "gemma3-27b",
-                "qwen2-vl-72b"]
+                "qwen2-vl-72b", "mamba2-370m", "zamba2-2.7b",
+                "whisper-medium"]
 
 
 def _family_outputs(arch, dev):
@@ -1569,6 +1571,10 @@ def _family_outputs(arch, dev):
     else:
         batch["tokens"] = torch.from_numpy(toks[:, :-1].copy()).to(dev)
         prompt = {"tokens": batch["tokens"]}
+    if cfg.family == "encdec":  # frame embeddings (12, not a chunk multiple)
+        batch["embeds"] = prompt["embeds"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.n_frames, cfg.d_model)).astype(
+                np.float32)).to(dev)
     leaves, treedef = TR.flatten(params)
     leaves = [x.requires_grad_() for x in leaves]
     loss = model.loss(TR.unflatten(treedef, leaves), batch, ce_chunk=16,
@@ -1590,7 +1596,8 @@ def _family_outputs(arch, dev):
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_decoder_family_on_card_equals_cpu(cuda, arch):
     """Loss, every gradient, the prefill and eight decode steps (gemma3's
-    crossing its ring's wrap) of the f32 smoke configs: the card against
+    crossing its ring's wrap; the SSM scan over four chunks; the hybrid's
+    shared block at two sites) of the f32 smoke configs: the card against
     the CPU at the CPU parity tests' tolerance (1e-5 of each value's scale,
     grads 1e-4 of a leaf's)."""
     card = _family_outputs(arch, cuda)
@@ -1633,7 +1640,8 @@ def test_moe_combine_on_card_bitwise_to_plain_fold(cuda, dtype, seed):
     assert np.array_equal(bits(got), bits(cpu))
 
 
-@pytest.mark.parametrize("arch", ["gemma3-27b", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["gemma3-27b", "qwen2-vl-72b",
+                                  "mamba2-370m"])
 def test_decoder_family_refuses_tf32(cuda, arch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import build_model
@@ -1658,3 +1666,39 @@ def test_decoder_family_refuses_tf32(cuda, arch):
             L.local_window_attention(q, q, q, window=4)
     finally:
         L.use_full_precision()
+
+
+def test_kv_quant_on_card_equals_cpu(cuda):
+    """int8 codes and scales of the same keys and values on the card and on
+    the CPU, bitwise (f32 and bf16 inputs, a ring write past the end); the
+    quantized attention within 1e-5 of the CPU's and 5e-2 of the exact
+    attention (``tests/test_extensions.py``'s bound)."""
+    from repro_torch.models import layers as L
+    from repro_torch.serve import kv_quant as Q
+
+    L.use_full_precision()
+    rng = np.random.default_rng(3)
+    k, v = (torch.from_numpy(rng.standard_normal((2, 40, 4, 64)).astype(
+        np.float32)) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((2, 1, 8, 64)).astype(
+        np.float32))
+    kn = torch.from_numpy(rng.standard_normal((2, 1, 4, 64)).astype(
+        np.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        caches = []
+        for dev in (cuda, "cpu"):
+            c = Q.quantize_kv(k.to(dev, dt), v.to(dev, dt), length=39)
+            c = Q.quant_cache_update_decode(c, kn.to(dev, dt),
+                                            kn.to(dev, dt))
+            c = Q.quant_cache_update_decode(c, kn.to(dev, dt),
+                                            -kn.to(dev, dt))
+            caches.append(c)
+        for a, b in zip(*caches):
+            assert torch.equal(a.cpu(), b), dt
+    cache = Q.quantize_kv(k.to(cuda), v.to(cuda))
+    got = Q.attention_with_quant_cache(q.to(cuda), cache, chunk=16)
+    cpu = Q.attention_with_quant_cache(q, Q.quantize_kv(k, v), chunk=16)
+    exact = L.blockwise_attention(q, k, v, causal=False, kv_len=40, chunk=16)
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-5 * float(
+        cpu.abs().max())
+    torch.testing.assert_close(got.cpu(), exact, rtol=5e-2, atol=5e-2)

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_parity as P
 from repro import configs as RC
 from repro.models import build_model as ref_build_model
 from repro.models import layers as RL
@@ -434,77 +435,15 @@ COMPRESSED_ARCH = "moonshot-v1-16b-a3b"
 COMPRESSED_K, COMPRESSED_MIN = 0.05, 1024
 COMPRESSED_HP = dict(ce_chunk=16, attn_chunk=16, remat=True, total_steps=10,
                      warmup=2)
-#: As tests/test_torch_train_step.py: each leaf within TOL of its largest
-#: magnitude, parameters also within LR_TOL of the rates summed.
-TOL, LR_TOL = 1e-4, 1e-3
 
 
 @functools.lru_cache(maxsize=None)
 def compressed_steps():
-    from repro.optim import adamw_init as ref_adamw_init
-    from repro.train import TrainHParams as RefHP
-    from repro.train import init_ef_state as ref_init_ef
-    from repro.train import make_compressed_train_step as ref_make
-    from repro_torch.launch.world import process_world
-    from repro_torch.optim import adamw_init
-    from repro_torch.train import (TrainHParams, make_compressed_train_step,
-                                   rank_ef_state)
-
-    rm = ref_build_model(RC.get_smoke_config(COMPRESSED_ARCH))
-    m = build_model(TC.get_smoke_config(COMPRESSED_ARCH))
-    rp = rm.init(jax.random.PRNGKey(0))
-    p = interop.params_from_numpy(jax.tree.map(np.asarray, rp), CPU)
-    mesh = jax.make_mesh((1,), ("data",))
-    rstep = jax.jit(ref_make(rm, mesh, RefHP(**COMPRESSED_HP),
-                             k_fraction=COMPRESSED_K, selector="block",
-                             min_compress_elems=COMPRESSED_MIN))
-    ro, ref_ef = ref_adamw_init(rp), ref_init_ef(rp, 1)
-    out = []
-    with process_world("cpu"):
-        step = make_compressed_train_step(
-            m, None, TrainHParams(**COMPRESSED_HP), k_fraction=COMPRESSED_K,
-            selector="block", min_compress_elems=COMPRESSED_MIN)
-        o, ef = adamw_init(p), rank_ef_state(p)
-        lr_sum = 0.0
-        for s in range(2):
-            rb, tb = _batches(TC.get_smoke_config(COMPRESSED_ARCH), 32,
-                              seed=10 + s)
-            rp, ro, ref_ef, rmet = rstep(rp, ro, ref_ef, rb)
-            p, o, ef, met = step(p, o, ef, tb)
-            from repro_torch.optim import cosine_schedule
-            lr_sum += float(cosine_schedule(
-                torch.tensor(s), peak_lr=TrainHParams().peak_lr,
-                warmup=COMPRESSED_HP["warmup"],
-                total=COMPRESSED_HP["total_steps"]))
-            out.append({
-                "lr_sum": lr_sum,
-                "ref": [jax.tree.leaves(t) for t in (rp, ro.mu, ro.nu,
-                                                     ref_ef)]
-                + [{k: float(v) for k, v in rmet.items()}],
-                "port": [[x.numpy() for x in TR.leaves(t)]
-                         for t in (p, o.mu, o.nu, ef)]
-                + [{k: float(v) for k, v in met.items()}]})
-    return out
-
-
-def _close(ref_leaves, got_leaves, what, lr_sum=0.0):
-    assert len(ref_leaves) == len(got_leaves)
-    for i, (r, g) in enumerate(zip(ref_leaves, got_leaves)):
-        r = np.asarray(r, np.float32)
-        assert r.shape == g.shape, (what, i)
-        err = float(np.abs(r - g).max())
-        bound = TOL * (float(np.abs(r).max()) or 1.0) + LR_TOL * lr_sum
-        assert err <= bound, (what, i, err, bound)
+    return P.compressed_steps(
+        COMPRESSED_ARCH, lambda cfg, s: _batches(cfg, 32, seed=10 + s),
+        COMPRESSED_HP, COMPRESSED_K, COMPRESSED_MIN)
 
 
 @pytest.mark.parametrize("n_steps", [1, 2])
 def test_moe_compressed_step_matches_reference(n_steps):
-    r = compressed_steps()[n_steps - 1]
-    (rp, rmu, rnu, ref_ef, rmet) = r["ref"]
-    (p, mu, nu, ef, met) = r["port"]
-    _close(rp, p, "params", r["lr_sum"])
-    _close(rmu, mu, "mu")
-    _close(rnu, nu, "nu")
-    _close(ref_ef, ef, "ef")
-    for k in ("loss", "grad_norm"):
-        assert abs(met[k] - rmet[k]) <= RTOL * abs(rmet[k]), k
+    P.assert_compressed_step(compressed_steps()[n_steps - 1], RTOL)

@@ -44,6 +44,8 @@ def test_scan_covers_the_port():
                    "launch/world.py", "models/__init__.py",
                    "models/common.py", "models/layers.py",
                    "models/transformer.py", "models/moe.py",
+                   "models/ssm.py", "models/hybrid.py", "models/encdec.py",
+                   "serve/__init__.py", "serve/kv_quant.py",
                    "configs/__init__.py",
                    "configs/smollm_135m.py", "configs/internlm2_1_8b.py",
                    "configs/stablelm_3b.py", "configs/gemma3_27b.py",

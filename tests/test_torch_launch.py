@@ -106,6 +106,16 @@ def test_serve_launcher_smoke():
     assert "ms/token" in out and "sample token ids:" in out
 
 
+@pytest.mark.parametrize("arch", ["whisper-medium", "mamba2-370m"])
+def test_serve_launcher_smoke_new_families(arch):
+    """The encoder-decoder (on zero frame embeddings, as the reference's
+    launcher) and the SSM serve through the same launcher."""
+    out = run_module(["repro_torch.launch.serve", "--arch", arch,
+                      "--smoke", "--tokens", "6", "--device", "cpu"])
+    assert re.search(r"prefill 4x32: [0-9.]+ ms", out)
+    assert "ms/token" in out and "sample token ids:" in out
+
+
 # ---------------------------------------------------------------------------
 # a trainer's delta spool feeding a serving replica
 # ---------------------------------------------------------------------------

@@ -38,7 +38,6 @@ DENSE = ("smollm-135m", "internlm2-1.8b", "stablelm-3b")
 #: The other decoder families (tests/test_torch_families.py holds them).
 FAMILIES = ("moonshot-v1-16b-a3b", "llama4-scout-17b-a16e", "gemma3-27b",
             "qwen2-vl-72b")
-UNPORTED = ("whisper-medium", "zamba2-2.7b", "mamba2-370m")
 SHAPE = (2, 32)         # the batch of tests/test_models_smoke.py
 CE_CHUNK, ATTN_CHUNK = 16, 8
 #: f32: the loss and logits to this share of their scale; gradients to
@@ -108,10 +107,14 @@ def test_unknown_arch_raises():
         TC.get_config("gpt-5")
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_build_model_raises_for_unported_families(arch):
-    with pytest.raises(NotImplementedError, match="slice 6c"):
-        build_model(TC.get_smoke_config(arch))
+@pytest.mark.parametrize("arch", RC.ARCHS)
+def test_build_model_returns_the_references_counterpart(arch):
+    """Every family is built, by the class of the reference's name."""
+    for getter in ("get_config", "get_smoke_config"):
+        ref = ref_build_model(getattr(RC, getter)(arch))
+        got = build_model(getattr(TC, getter)(arch))
+        assert type(got).__name__ == type(ref).__name__
+        assert got.cfg == getattr(TC, getter)(arch)
 
 
 # ---------------------------------------------------------------------------
