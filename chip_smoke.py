@@ -122,7 +122,20 @@ result, when no CUDA card is present or the package is missing.
    Whisper quantize their first self-attention cache to int8
    (``repro_torch.serve``): codes and scales bitwise to the CPU's, one
    decode token's quantized attention within 5e-2 of the exact.
-12. One profiled call of each phase (device time by kernel, busy share),
+12. ``sharding`` (:func:`run_sharding`): the FSDP×TP placements of
+   ``repro_torch.sharding`` on the same (1, 1) NCCL mesh (world 1: NCCL
+   puts no two ranks on one card), under PyTorch's deterministic kernels:
+   SmolLM-135M at full width and depth, params and AdamW state placed by
+   ``params_shardings``, three dense steps of 8 x 2,048 tokens through the
+   DTensor path bitwise to three plain steps (median step and peak memory
+   of each); Moonshot-16B-A3B at depth 1 on 1 x 4,096 tokens, the sharded
+   step's loss and gradients bitwise to the plain ones (the MoE combine's
+   segment folds counted, the largest replayed); two publishes of
+   ``DeltaPublisher(..., mesh=...)`` byte-identical to a publisher's
+   without one (top-k and ``xla_add`` counted, the largest replayed); the
+   sharded state saved, then restored onto its placements and onto plain
+   tensors, bitwise.
+13. One profiled call of each phase (device time by kernel, busy share),
    ten profiled calls each of the family's ``vec`` and ``blocked_spa``
    (each call's host time and the CUDA runtime calls that took the most
    host time: where a slow call waits), then each of the eight kernels against its plain PyTorch version on the
@@ -139,11 +152,12 @@ result, when no CUDA card is present or the package is missing.
    delta-sync catch-up's largest launch (its inputs rebuilt after the
    phase by a replay of that launch's engine call); the top-k row its
    radix passes and its time at each leaf shape of a publish beside
-   ``torch.topk``. Each row also counts its launches in phases 8-11
+   ``torch.topk``. Each row also counts its launches in phases 8-12
    (``launches_allreduce``, ``launches_spgemm``, ``launches_workload``,
-   ``launches_families``), and the rows fold the replays of those phases'
-   launches (``replay_allreduce``, ``replay_spgemm``, ``replay_workload``,
-   ``replay_families``) into their ``max_abs_err``; the segment-fold row
+   ``launches_families``, ``launches_sharding``), and the rows fold the
+   replays of those phases' launches (``replay_allreduce``,
+   ``replay_spgemm``, ``replay_workload``, ``replay_families``,
+   ``replay_sharding``) into their ``max_abs_err``; the segment-fold row
    carries the MoE combine's times (``moe_combine``). Then JSON lines of the
    phases' end-to-end times, the profiles and the kernel numbers (median ms by
    CUDA events, bound, plain and library times), the card's name and power
@@ -2518,8 +2532,8 @@ def decode_vs_prefill(torch, model, params, prompts, fed, lg,
     drops = []
     real_dispatch = MOE.dispatch
 
-    def counting(expert, n_experts, capacity):
-        d = real_dispatch(expert, n_experts, capacity)
+    def counting(expert, n_experts, capacity, **kw):
+        d = real_dispatch(expert, n_experts, capacity, **kw)
         drops.append(int((~d.keep).sum()))
         return d
 
@@ -3088,6 +3102,312 @@ def family_kv_quant(torch, model, params, spec, dev) -> dict:
     return out
 
 
+#: Phase ``sharding``: SmolLM-135M's dense steps through the DTensor path
+#: (``WL_ARCH``, ``WL_TRAIN_BATCH``), Moonshot-16B-A3B's loss and gradient
+#: at depth 1 on 1 x 4,096 tokens, the publisher's epochs and the save.
+SH_STEPS = 3
+SH_MOE_ARCH = "moonshot_v1_16b_a3b"
+SH_MOE_BATCH = (1, 4096)
+SH_EPOCHS = 2
+
+
+def first_mismatch(torch, names, want, got) -> str:
+    """The first leaf of ``got`` whose bits differ from ``want``'s, with
+    its largest difference ("" when every leaf agrees)."""
+    for name, a, b in zip(names, want, got):
+        if not bitwise_equal(torch, a, b):
+            diff = float((a.double() - b.double()).abs().max())
+            return f"{name}: largest |difference| {diff!r}"
+    return ""
+
+
+def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
+    """Phase ``sharding``: the port's FSDP×TP placements
+    (``repro_torch.sharding``) on the script's (1, 1) NCCL mesh, held
+    bitwise to the unsharded path (every collective is the identity at
+    world 1; NCCL will not put two ranks on one card).
+
+    (a) SmolLM-135M at full width and depth, params placed by
+    ``params_shardings`` and AdamW state by ``adamw_init`` (the moments take
+    the placements): three ``make_train_step`` steps on phase
+    ``workload``'s 8 x 2,048 batches through the DTensor path (cast,
+    gather, local loss and gradients, reduce, AdamW on shards), bitwise to
+    three plain steps from the same params; each path's median step (host
+    ms ending in a synchronize) and peak memory. (b) Moonshot-16B-A3B at
+    depth 1 (drawn on the card) on 1 x 4,096 tokens: the loss and
+    gradients of ``sharded_loss_and_grads`` bitwise to the plain ones; the
+    MoE combine's segment folds counted, its largest replayed through the
+    plain fold. (c) ``DeltaPublisher(..., mesh=mesh)`` on (a)'s
+    trajectory, two epochs: frames byte-identical to a publisher without a
+    mesh; its top-k and ``xla_add`` launches counted, the largest replayed.
+    (d) (a)'s sharded state saved, then restored onto its placements and
+    onto plain tensors, both bitwise; save and restore ms. Two runs of
+    one path agree bitwise only on deterministic kernels, so (a) and (b)
+    run under ``torch.use_deterministic_algorithms(True, warn_only=True)``
+    (the sorted ``index_put_`` accumulate of the embedding's and the MoE
+    dispatch's backward). Returns the phase's numbers."""
+    import gc
+
+    from repro_torch.models.layers import use_full_precision
+
+    use_full_precision()
+    gc.collect()
+    torch.cuda.empty_cache()
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _run_sharding(torch, seed, dev, kernels, mesh)
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+
+
+def _run_sharding(torch, seed, dev, kernels, mesh):
+    """The body of :func:`run_sharding`."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree as TR
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import segment, topk_block, xla_add
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.common import SHAPES
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import DeltaPublisher, InProcTransport
+    from repro_torch.sharding.params import (distribute, gathered,
+                                             params_shardings)
+    from repro_torch.train import TrainHParams, make_train_step
+    from repro_torch.train import step as ST
+
+    launches = dict.fromkeys(("topk_block", "xla_add", "segment_fold"), 0)
+    plain_replays = {}
+
+    def counted(fn):
+        return count_launches(torch, kernels, launches, fn)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def sync_ms(t0: float) -> float:
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    # ---- (a) dense steps, plain and through the DTensor path -----------
+    cfg = get_config(WL_ARCH)
+    model = build_model(cfg)
+    params0 = model.init(seed, device=dev, on_device=True)
+    names = TR.flatten_with_names(params0)[1]
+    B, S_len = WL_TRAIN_BATCH
+    batches = [make_batch(cfg, SHAPES["train_4k"], s, batch_override=B,
+                          seq_override=S_len, device=dev)
+               for s in range(SH_STEPS)]
+    step = make_train_step(model, TrainHParams(warmup=0, total_steps=100))
+    sh = params_shardings(params0, mesh)
+
+    def steps(p, label):
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        o, ms, mets, traj = adamw_init(p), [], [], []
+        for b in batches:
+            t = time.perf_counter()
+            p, o, met = step(p, o, b)
+            ms.append(sync_ms(t))
+            mets.append(met)
+            traj.append(p)
+        peak = torch.cuda.max_memory_allocated(dev) - resident
+        log(f"phase sharding (a) {label}: steps "
+            f"{[round(x, 1) for x in ms]} ms, loss "
+            f"{[round(float(m['loss']), 4) for m in mets]}, peak above "
+            f"resident {peak / 2**30:.2f} GiB")
+        return p, o, mets, traj, {"step_ms": ms,
+                                  "median_step_ms": statistics.median(ms),
+                                  "peak_above_resident_bytes": peak}
+
+    p, o, mets, traj, plain_t = steps(params0, "plain")
+    sp0 = distribute(params0, sh)
+    check(all(isinstance(x, DTensor) for x in TR.leaves(sp0)),
+          "phase sharding (a): a leaf was not placed as a DTensor")
+    (sp, so, smets, _, sharded_t), used_a = counted(
+        lambda: steps(sp0, "DTensor"))
+    check(all(isinstance(m, DTensor) and m.placements == x.placements
+              for x, m in zip(TR.leaves(sp) * 2, TR.leaves(so.mu)
+                              + TR.leaves(so.nu))),
+          "phase sharding (a): the moments do not take the params' "
+          "placements")
+    for i, (m, sm) in enumerate(zip(mets, smets)):
+        for k in ("loss", "grad_norm", "lr"):
+            check(bitwise_equal(torch, m[k], sm[k]), f"phase sharding (a): "
+                  f"step {i}'s {k} {float(sm[k])!r} differs from the plain "
+                  f"step's {float(m[k])!r}")
+    full = gathered((sp, so.mu, so.nu))
+    for kind, want, got in (("params", p, full[0]), ("mu", o.mu, full[1]),
+                            ("nu", o.nu, full[2])):
+        bad = first_mismatch(torch, names, TR.leaves(want), TR.leaves(got))
+        check(not bad, f"phase sharding (a): the DTensor path's {kind} "
+              f"differ from the plain path's at {bad}")
+    a = {"arch": cfg.arch_id, "batch": [B, S_len], "steps": SH_STEPS,
+         "params": sum(x.numel() for x in TR.leaves(params0)),
+         "placements": sorted({repr(tuple(x.placements))
+                               for x in TR.leaves(sp)}),
+         "plain": plain_t, "dtensor": sharded_t,
+         "step_ratio": (sharded_t["median_step_ms"]
+                        / plain_t["median_step_ms"]),
+         "launches": used_a, "bitwise": True}
+    log(f"phase sharding (a): DTensor path bitwise to the plain path over "
+        f"{SH_STEPS} steps; median step {sharded_t['median_step_ms']:.1f} "
+        f"ms vs plain {plain_t['median_step_ms']:.1f} ms (ratio "
+        f"{a['step_ratio']:.3f})")
+
+    # ---- (c) the publisher with a mesh, on (a)'s trajectory -------------
+    pubs = {}
+    for label, m in (("none", None), ("mesh", mesh)):
+        wire = InProcTransport()
+        pub = DeltaPublisher(params0, wire, k_fraction=WL_K,
+                             selector="block", device=dev, mesh=m)
+        t = time.perf_counter()
+        if m is None:
+            for e in range(SH_EPOCHS):
+                pub.publish(traj[e], epoch=e + 1)
+            kept = {}
+        else:
+            (_, kept), used_c = counted(lambda: keeping_largest_each(
+                {"topk_block": (topk_block, "topk_block_raw"),
+                 "xla_add": (xla_add, "xla_add_raw")},
+                lambda: [pub.publish(traj[e], epoch=e + 1)
+                         for e in range(SH_EPOCHS)],
+                required=("topk_block", "xla_add")))
+        pubs[label] = {"frames": wire.poll(), "ms": sync_ms(t),
+                       "placements": pub.ef_placements}
+        del pub
+    check(pubs["none"]["frames"] == pubs["mesh"]["frames"],
+          "phase sharding (c): the publisher's frames with a mesh differ "
+          "from those without one")
+    with launches_uncounted(kernels):
+        plain_replays["topk_block"] = replay_through_plain(
+            torch, topk_block.topk_block_raw, topk_block.topk_block_plain,
+            kept.pop("topk_block"), "phase sharding (c): the largest top-k")
+        plain_replays["xla_add"] = replay_through_plain(
+            torch, xla_add.xla_add_raw, xla_add.xla_add_plain,
+            kept.pop("xla_add"), "phase sharding (c): the largest xla_add")
+    del kept
+    c = {"epochs": SH_EPOCHS, "frames": len(pubs["mesh"]["frames"]),
+         "frame_bytes": sum(len(f) for f in pubs["mesh"]["frames"]),
+         "byte_identical": True, "launches": used_c,
+         "ef_placements": sorted({repr(tuple(x))
+                                  for x in pubs["mesh"]["placements"]}),
+         "publish_ms": {k: v["ms"] for k, v in pubs.items()}}
+    log(f"phase sharding (c): {c['frames']} frames, {c['frame_bytes']} B, "
+        f"byte-identical with and without the mesh; residuals "
+        f"{c['ef_placements']}; launches {used_c}")
+    del pubs, traj
+
+    # ---- (d) the elastic checkpoint of (a)'s sharded state --------------
+    state_sh = (sh, (None, sh, sh))
+    with tempfile.TemporaryDirectory(prefix="sharding_ckpt_") as tmp:
+        t = time.perf_counter()
+        save_checkpoint(tmp, SH_STEPS, (sp, tuple(so)))
+        save_ms = sync_ms(t)
+        t = time.perf_counter()
+        back = restore_checkpoint(tmp, SH_STEPS, (sp, tuple(so)), state_sh)
+        restore_sharded_ms = sync_ms(t)
+        t = time.perf_counter()
+        flat = restore_checkpoint(tmp, SH_STEPS, (p, tuple(o)))
+        restore_plain_ms = sync_ms(t)
+    want = TR.leaves((p, tuple(o)))
+    check(all(isinstance(x, DTensor) and x.placements == y.placements
+              for x, y in zip(TR.leaves(back[0]), TR.leaves(sp))),
+          "phase sharding (d): the restore did not land on the placements")
+    for label, got in (("onto its placements", gathered(back)),
+                       ("onto plain tensors", flat)):
+        bad = first_mismatch(torch, names + ["step"] + names * 2, want,
+                             TR.leaves(got))
+        check(not bad, f"phase sharding (d): the restore {label} differs "
+              f"at {bad}")
+    d = {"leaves": len(want),
+         "bytes": sum(x.numel() * x.element_size() for x in want),
+         "save_ms": save_ms, "restore_sharded_ms": restore_sharded_ms,
+         "restore_plain_ms": restore_plain_ms, "bitwise": True}
+    log(f"phase sharding (d): {d['bytes'] / 2**30:.2f} GiB saved in "
+        f"{save_ms:.0f} ms; restored onto the placements in "
+        f"{restore_sharded_ms:.0f} ms and onto plain tensors in "
+        f"{restore_plain_ms:.0f} ms, both bitwise")
+    del back, flat, want, full, p, o, sp, so, sp0, params0, batches
+    free()
+
+    # ---- (b) Moonshot-16B-A3B at depth 1: the sharded gather and reduce -
+    full_cfg = get_config(SH_MOE_ARCH)
+    moe_model = build_model(dataclasses.replace(full_cfg, n_layers=1))
+    mp = moe_model.init(seed, device=dev, on_device=True)
+    mnames = TR.flatten_with_names(mp)[1]
+    B2, S2 = SH_MOE_BATCH
+    mb = make_batch(moe_model.cfg, SHAPES["train_4k"], 0, batch_override=B2,
+                    seq_override=S2, device=dev)
+    hp = TrainHParams()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    loss, grads = ST._accumulated_grads(moe_model, hp, TR.tree_map(
+        lambda x: ST._to_compute(x, moe_model.cfg.cdtype), mp), mb)
+    plain_ms = sync_ms(t)
+    smp = distribute(mp, params_shardings(mp, mesh))
+    del mp
+    free()
+    t = time.perf_counter()
+    ((sloss, sgrads), kept), used_b = counted(lambda: keeping_largest_each(
+        {"segment_fold/moe": (MOE, "segment_fold")},
+        lambda: ST.sharded_loss_and_grads(moe_model, hp, smp, mb),
+        required=("segment_fold/moe",)))
+    sharded_ms = sync_ms(t)
+    peak = torch.cuda.max_memory_allocated(dev) - resident
+    check(bitwise_equal(torch, loss, sloss), f"phase sharding (b): the "
+          f"sharded loss {float(sloss)!r} differs from the plain "
+          f"{float(loss)!r}")
+    bad = first_mismatch(torch, mnames, grads,
+                         TR.leaves(gathered(sgrads)))
+    check(not bad, f"phase sharding (b): the sharded gradients differ at "
+          f"{bad}")
+    with launches_uncounted(kernels):
+        plain_replays["segment_fold"] = replay_through_plain(
+            torch, segment.segment_fold, segment.segment_fold_plain,
+            kept.pop("segment_fold/moe"),
+            "phase sharding (b): the MoE combine's largest segment fold")
+    check(used_b.get("segment_fold", 0) > 0, "phase sharding (b): the MoE "
+          "combine's segment fold did not launch")
+    b = {"arch": full_cfg.arch_id, "depth": 1,
+         "layers_full": full_cfg.n_layers, "batch": [B2, S2],
+         "params": sum(x.numel() for x in TR.leaves(smp)),
+         "loss": float(loss), "plain_loss_grad_ms": plain_ms,
+         "sharded_loss_grad_ms": sharded_ms,
+         "peak_above_resident_bytes": peak, "launches": used_b,
+         "bitwise": True}
+    log(f"phase sharding (b): {b['arch']} depth 1, {b['params']} params, "
+        f"loss {b['loss']:.4f}; sharded loss and gradients bitwise to the "
+        f"plain ones ({sharded_ms:.0f} ms vs {plain_ms:.0f} ms, first "
+        f"calls); launches {used_b}")
+    del kept, smp, sgrads, grads, mb, moe_model
+    free()
+    for name in launches:
+        check(launches[name] > 0, f"phase sharding: the {name} kernel did "
+              f"not launch")
+    return {"launches": launches, "plain_replays": plain_replays,
+            "dense": a, "moe": b, "publisher": c, "checkpoint": d,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "reduced": ["one chip: world 1 on a (1, 1) NCCL mesh (NCCL puts "
+                        "no two ranks on one card)",
+                        f"{SH_MOE_ARCH}: depth 1 of {full_cfg.n_layers}, "
+                        f"batch {B2} x {S2} of train_4k's 256 x 4,096",
+                        f"{WL_ARCH}: batch {B} x {S_len} of train_4k's "
+                        f"256 x 4,096"]}
+
+
 def run(args, torch) -> int:
     from repro_torch import obs
     from repro_torch.core import engine as E
@@ -3433,6 +3753,9 @@ def run(args, torch) -> int:
         phases["families"], prof_families = run_families(
             torch, args.seed, dev, kernels)
         phases["families"]["phase_s"] = took()
+        phases["sharding"] = run_sharding(torch, args.seed, dev, kernels,
+                                          mesh)
+        phases["sharding"]["phase_s"] = took()
     finally:
         dist.destroy_process_group()
 
@@ -3963,9 +4286,12 @@ def run(args, torch) -> int:
             r["name"], 0)
         r["launches_families"] = phases["families"]["launches"].get(
             r["name"], 0)
+        r["launches_sharding"] = phases["sharding"]["launches"].get(
+            r["name"], 0)
         if r["name"] == "segment_fold":  # the MoE combine's fold
             r["moe_combine"] = phases["families"]["moe_combine"]
-        for ph in ("allreduce", "spgemm", "workload", "families"):
+        for ph in ("allreduce", "spgemm", "workload", "families",
+                   "sharding"):
             # a launch of the later paths replayed through the plain version
             replay = phases[ph]["plain_replays"].get(r["name"])
             if replay is not None:

@@ -1,4 +1,5 @@
 from repro_torch.checkpoint.checkpoint import (save_checkpoint,
                                                restore_checkpoint,
                                                latest_step, AsyncCheckpointer,
-                                               save_on_signal)
+                                               save_on_signal,
+                                               preemption_save)

@@ -13,16 +13,22 @@ replicas (``launch/serve.py --sync-spool``).
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch smollm-135m --smoke --compress --mesh 2x2 --device cpu
 
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch smollm-135m --smoke --mesh 2x2 \\
+        --device cpu
+
 Its world is the one ``torchrun`` gives it, or a world of one rank (NCCL
 on the card, gloo on the CPU; :func:`repro_torch.launch.world.process_world`).
 ``--mesh auto`` puts every rank on the data dim; ``DxM`` makes a
-``("data", "model")`` ``DeviceMesh``. Params and optimizer state are
-replicated on every rank: the dense step runs on a world of one rank (its
-sharded form needs the port of ``sharding/``, ROADMAP slice 6d), and
-``--compress`` on any world. Every rank trains on the reference's global
-batch, which rank 0 draws and broadcasts (a batch's seed is Python's
-per-process ``hash``); only rank 0 prints and publishes deltas, and each
-rank checkpoints its own state (its residuals are its own).
+``("data", "model")`` ``DeviceMesh``. The dense step runs on any world:
+params and AdamW state are DTensors placed by ``params_shardings``
+(FSDP×TP), each batch is placed by ``batch_shardings``, and checkpoints are
+global arrays in one directory, restored onto the same placements. With
+``--compress`` params and optimizer state are replicated on every rank and
+each rank checkpoints its own state (its residuals are its own). Every
+rank trains on the reference's global batch, which rank 0 draws and
+broadcasts (a batch's seed is Python's per-process ``hash``); only rank 0
+prints and publishes deltas.
 
 The state the Supervisor checkpoints is ``(params, (step, mu, nu))``, or
 ``(params, (step, mu, nu), ef)`` with ``--compress``: the reference's
@@ -42,12 +48,15 @@ from repro_torch import obs
 from repro_torch.checkpoint import save_on_signal
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import make_batch
+from repro_torch.launch.mesh import make_dp_tp_mesh
 from repro_torch.launch.world import process_world
 from repro_torch.models import build_model
 from repro_torch.models.common import SHAPES, ShapeConfig
 from repro_torch.models.layers import use_full_precision
 from repro_torch.optim import AdamWState, adamw_init
 from repro_torch.runtime import DeltaPublisher, DirTransport, Supervisor
+from repro_torch.sharding.params import (batch_shardings, distribute,
+                                         gathered, params_shardings)
 from repro_torch.train import (TrainHParams, make_compressed_train_step,
                                make_train_step, rank_ef_state)
 
@@ -103,16 +112,13 @@ def global_batch(cfg, shape, step: int, dev, world: int) -> dict:
 
 
 def make_mesh(spec: str, world: int, dev):
-    from torch.distributed.device_mesh import init_device_mesh
-
+    """The ``("data", "model")`` mesh of ``--mesh`` (``auto``: every rank
+    on the data dim) over the world's ``world`` ranks."""
     if spec == "auto":
         d, t = world, 1
     else:
         d, t = (int(x) for x in spec.split("x"))
-    if d * t != world:
-        raise ValueError(f"mesh {d}x{t} does not match a world of {world}")
-    return init_device_mesh(dev.type, (d, t),
-                            mesh_dim_names=("data", "model"))
+    return make_dp_tp_mesh(data=d, model=t, device_type=dev.type)
 
 
 def run(args) -> int:
@@ -132,24 +138,27 @@ def run(args) -> int:
         if lead:
             print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
                   f"{world} ranks ({dev.type})", flush=True)
-        if not args.compress and world > 1:
-            raise NotImplementedError(
-                "the dense step over more than one rank needs the port of "
-                "sharding/ (ROADMAP slice 6d); use --compress")
         params = model.init(0, device=dev)
-        opt = tuple(adamw_init(params))
+        state_sh = None
         if args.compress:
+            opt = tuple(adamw_init(params))
             ef = rank_ef_state(params, model_shards=mesh.size(1))
             step_impl = make_compressed_train_step(
                 model, mesh, hp, k_fraction=args.k_fraction,
                 schedule=args.schedule, model_reduce=args.model_reduce)
             state0 = (params, opt, ef)
         else:
+            p_sh = params_shardings(params, mesh)
+            params = distribute(params, p_sh)
+            opt = tuple(adamw_init(params))  # moments take the placements
             step_impl = make_train_step(model, hp)
             state0 = (params, opt)
+            state_sh = (p_sh, (None, p_sh, p_sh))
 
         def step_fn(state, step):
             batch = global_batch(cfg, shape, step, dev, world)
+            if not args.compress:
+                batch = distribute(batch, batch_shardings(batch, mesh))
             with obs.span("train.step", step=step, compress=args.compress,
                           schedule=args.schedule if args.compress
                           else "dense", mesh=str(tuple(mesh.shape))):
@@ -172,12 +181,13 @@ def run(args) -> int:
             return new_state
 
         # compressed state has a different tree ((p, o, ef) vs (p, o)), so
-        # the two modes must not share an auto-resume directory; each rank
-        # keeps its own residuals
+        # the two modes must not share an auto-resume directory; with
+        # --compress each rank keeps its own residuals, the dense state is
+        # saved as global arrays by all ranks together
         suffix = "_compressed" if args.compress else ""
         ckpt_dir = args.ckpt_dir or os.path.join(
             tempfile.gettempdir(), f"repro_torch_{cfg.arch_id}_ckpt{suffix}")
-        if world > 1:
+        if world > 1 and args.compress:
             ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
         sup = Supervisor(ckpt_dir, ckpt_every=args.ckpt_every,
                          async_ckpt=True)
@@ -185,9 +195,12 @@ def run(args) -> int:
         save_on_signal(ckpt_dir, lambda: (holder["step"], holder["state"]))
 
         publisher = None
+        if args.publish_deltas:
+            # the gather is a collective: every rank takes part
+            full = gathered(params)
         if args.publish_deltas and lead:
             publisher = DeltaPublisher(
-                params, DirTransport(args.publish_deltas),
+                full, DirTransport(args.publish_deltas),
                 k_fraction=args.sync_k_fraction,
                 window_epochs=args.sync_window,
                 ckpt_dir=os.path.join(args.publish_deltas, "ckpt"),
@@ -196,20 +209,22 @@ def run(args) -> int:
         def tracked_step(state, step):
             new_state = step_fn(state, step)
             holder["state"], holder["step"] = new_state, step + 1
-            if publisher is not None and (step + 1) % args.sync_every == 0:
+            if args.publish_deltas and (step + 1) % args.sync_every == 0:
                 # epochs are derived from the step so a supervisor replay
                 # after a restart re-publishes the same epoch numbers it
                 # already shipped — the monotonicity check skips them
                 epoch = (step + 1) // args.sync_every
-                if epoch > publisher.epoch:
-                    stats = publisher.publish(new_state[0], epoch=epoch)
+                full = gathered(new_state[0])
+                if publisher is not None and epoch > publisher.epoch:
+                    stats = publisher.publish(full, epoch=epoch)
                     if step % 10 == 0:
                         print(f"delta-sync epoch {stats.epoch}: "
                               f"{stats.bytes}B vs {stats.dense_bytes}B dense "
                               f"({stats.selected} entries)", flush=True)
             return new_state
 
-        state, steps = sup.run(state0, tracked_step, args.steps)
+        state, steps = sup.run(state0, tracked_step, args.steps,
+                               shardings=state_sh)
         if lead:
             print(f"finished at step {steps}; restarts={sup.restarts}, "
                   f"stragglers={len(sup.monitor.flagged)}", flush=True)

@@ -10,10 +10,13 @@ default, or ``cpu``)::
         --steps 50 --compress --schedule gather_kway --k-fraction 0.05 --device cpu
 
 Its world is the one ``torchrun`` gives it, or a world of one rank
-(:func:`repro_torch.launch.world.process_world`); ``--compress`` runs on
-either (every rank on the data dim), the dense step on one rank. Resume
-after a crash: re-run the same command; the Supervisor restores the latest
-complete checkpoint automatically.
+(:func:`repro_torch.launch.world.process_world`); every rank is on the data
+dim. The dense step keeps params and AdamW state as DTensors placed by
+``params_shardings`` (FSDP over the data dim) and checkpoints them as
+global arrays in one directory; ``--compress`` replicates them and each
+rank checkpoints its own state. Resume after a crash: re-run the same
+command; the Supervisor restores the latest complete checkpoint
+automatically.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ from repro_torch.models.common import ModelConfig, ShapeConfig
 from repro_torch.models.layers import use_full_precision
 from repro_torch.optim import AdamWState, adamw_init
 from repro_torch.runtime import Supervisor
+from repro_torch.sharding.params import (batch_shardings, distribute,
+                                         params_shardings)
 from repro_torch.train import (TrainHParams, make_compressed_train_step,
                                make_train_step, rank_ef_state)
 
@@ -69,9 +74,10 @@ def main(argv=None) -> int:
             n_params = sum(x.numel() for x in _tree.leaves(params))
             print(f"model: {CFG.arch_id}, {n_params / 1e6:.1f}M params",
                   flush=True)
-        opt = tuple(adamw_init(params))
+        mesh = make_mesh("auto", world, dev)
+        state_sh = None
         if args.compress:
-            mesh = make_mesh("auto", world, dev)
+            opt = tuple(adamw_init(params))
             step_impl = make_compressed_train_step(
                 model, mesh, hp, k_fraction=args.k_fraction,
                 schedule=args.schedule)
@@ -87,25 +93,26 @@ def main(argv=None) -> int:
                           f"[sparse-allreduce/{args.schedule}]", flush=True)
                 return (p, tuple(o), e)
         else:
-            if world > 1:
-                raise NotImplementedError(
-                    "the dense step over more than one rank needs the port "
-                    "of sharding/ (ROADMAP slice 6d); use --compress")
+            p_sh = params_shardings(params, mesh)
+            params = distribute(params, p_sh)
+            opt = tuple(adamw_init(params))  # moments take the placements
             step_impl = make_train_step(model, hp)
             state0 = (params, opt)
+            state_sh = (p_sh, (None, p_sh, p_sh))
 
             def step_fn(state, step):
                 p, o = state
                 batch = global_batch(CFG, shape, step, dev, world)
+                batch = distribute(batch, batch_shardings(batch, mesh))
                 p, o, metrics = step_impl(p, AdamWState(*o), batch)
-                if step % 10 == 0:
+                if lead and step % 10 == 0:
                     print(f"step {step:5d} loss {float(metrics['loss']):.4f} "
                           f"gnorm {float(metrics['grad_norm']):.3f}",
                           flush=True)
                 return (p, tuple(o))
 
         ckpt_dir = args.ckpt_dir
-        if world > 1:
+        if world > 1 and args.compress:
             ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")
         resumed = latest_step(ckpt_dir)
         if lead and resumed:
@@ -113,7 +120,7 @@ def main(argv=None) -> int:
         sup = Supervisor(ckpt_dir, ckpt_every=args.ckpt_every,
                          async_ckpt=True)
         t0 = time.time()
-        _, steps = sup.run(state0, step_fn, args.steps)
+        _, steps = sup.run(state0, step_fn, args.steps, shardings=state_sh)
         dt = time.time() - t0
         if lead:
             print(f"done: {steps} steps in {dt:.1f}s "

@@ -21,6 +21,12 @@ version on the CPU), XLA's float rules included. A dropped assignment
 contributes ``+0.0``, which leaves a running sum that started at ``+0.0``
 unchanged (such a sum is never ``-0.0``).
 
+When the sharded train step runs the model on each rank's own rows
+(``repro_torch.sharding.api.get_row_split``), the capacity, the ranks
+within an expert and the load-balance statistics are still the whole
+batch's, as under the reference's ``jit``: each rank all-gathers its
+expert counts and probability sums.
+
 The router's top-k is a stable descending sort of the probabilities (the
 rule of ``lax.top_k``: ties to the lower expert index), not a counted sort.
 """
@@ -36,6 +42,7 @@ from repro_torch.core.sparse import stable_argsort
 from repro_torch.kernels import xla_float
 from repro_torch.kernels.segment import segment_fold
 from repro_torch.models.common import ModelConfig, dense_init
+from repro_torch.sharding.api import RowSplit, get_row_split
 
 
 def init_moe_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -76,12 +83,17 @@ class Dispatch(NamedTuple):
     slot_valid: torch.Tensor  # (E*C,) the slot holds an assignment
 
 
-def dispatch(expert: torch.Tensor, n_experts: int, capacity: int
-             ) -> Dispatch:
+def dispatch(expert: torch.Tensor, n_experts: int, capacity: int,
+             offset: torch.Tensor | None = None,
+             slots: int | None = None) -> Dispatch:
     """Sort the assignments by expert (one counted stable sort) and give
-    each expert's first ``capacity`` of them a slot."""
+    each expert's first ``capacity`` of them a slot. ``offset`` (E,): each
+    expert's assignments in the rows before these, which rank ahead of
+    them; ``slots``: the buffer's slots an expert (``capacity`` by
+    default; it must hold every assignment kept here)."""
     T, K = expert.shape
     E, C, TK = n_experts, capacity, expert.numel()
+    S = C if slots is None else slots
     dev = expert.device
     flat_e = expert.reshape(TK).to(torch.int32)
     order = stable_argsort(flat_e)
@@ -89,11 +101,11 @@ def dispatch(expert: torch.Tensor, n_experts: int, capacity: int
     starts = torch.searchsorted(sorted_e, torch.arange(
         E, dtype=torch.int32, device=dev))
     pos = torch.arange(TK, device=dev) - starts[sorted_e.long()]
-    keep = pos < C
-    slot = sorted_e.long() * C + pos
+    keep = (pos if offset is None else pos + offset[sorted_e.long()]) < C
+    slot = sorted_e.long() * S + pos
     tok = order // K
     # inverse permutation (slot -> assignment): unique slots, any scatter
-    inv = torch.full((E * C,), TK, dtype=torch.int64, device=dev)
+    inv = torch.full((E * S,), TK, dtype=torch.int64, device=dev)
     inv[slot[keep]] = torch.arange(TK, device=dev)[keep]
     slot_valid = inv < TK
     src_tok = torch.where(slot_valid, tok[inv.clamp(0, TK - 1)], 0)
@@ -151,25 +163,54 @@ def combine_plain(contrib: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _routed_over_rows(split: RowSplit, probs: torch.Tensor,
+                      expert: torch.Tensor, cfg: ModelConfig):
+    """``(f, P, dispatch)`` of this rank's rows as the reference takes them
+    over the whole batch, whose rows lie in ``split``'s blocks: the
+    capacity and the load ``f`` from the global token count, each
+    expert's assignments ranked after those of the blocks before this
+    one, and ``P`` the global mean probability. ``P``'s gradient is
+    ``split.count`` times this block's share of it, so that the mean of
+    the ranks' gradients (the sharded step's reduction) is the global
+    one. The buffer has ``min(capacity, T)`` slots an expert: this block
+    gives an expert at most ``T`` assignments."""
+    T, K = expert.shape
+    E, n = cfg.n_experts, split.count
+    Tg = T * n
+    C = capacity_for(Tg, cfg)
+    counts = torch.bincount(expert.reshape(-1), minlength=E)
+    psum = probs.sum(0)
+    all_counts = split.gather(counts)
+    f = all_counts.sum(0).to(torch.float32) / (Tg * K)
+    pbar = split.gather(psum.detach()).sum(0) / Tg
+    pbar = pbar + (psum - psum.detach()) / T  # the value stays pbar's
+    offset = all_counts[:split.index].sum(0)
+    return f, pbar, dispatch(expert, E, C, offset=offset, slots=min(C, T))
+
+
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux load-balance loss scalar)."""
     B, S, d = x.shape
     T = B * S
     E, K = cfg.n_experts, cfg.moe_topk
-    C = capacity_for(T, cfg)
 
     xf = x.reshape(T, d)
     probs, gate, expert = route(p["router"], xf, K)
-
-    # aux loss (Switch-style): E * sum_e f_e * P_e
-    f = torch.bincount(expert.reshape(-1), minlength=E).to(
-        torch.float32) / (T * K)
-    pbar = probs.mean(0)
+    split = get_row_split()
+    if split is None:
+        C = capacity_for(T, cfg)
+        # aux loss (Switch-style): E * sum_e f_e * P_e
+        f = torch.bincount(expert.reshape(-1), minlength=E).to(
+            torch.float32) / (T * K)
+        pbar = probs.mean(0)
+        # ---- sort-based dispatch ---------------------------------------
+        disp = dispatch(expert, E, C)
+    else:
+        f, pbar, disp = _routed_over_rows(split, probs, expert, cfg)
+        C = disp.slot_valid.numel() // E
     aux = E * torch.sum(f * pbar)
 
-    # ---- sort-based dispatch -------------------------------------------
-    disp = dispatch(expert, E, C)
     buf = xf[disp.src_tok] * disp.slot_valid[:, None].to(x.dtype)
     buf = buf.reshape(E, C, d)
 

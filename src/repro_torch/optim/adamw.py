@@ -15,6 +15,13 @@ a constant is a product with its f32 reciprocal, as XLA compiles it. What
 still differs from the reference is the order of each leaf's sum, the last
 bit of ``pow``, ``cos`` and ``sqrt``, and the multiply-adds XLA fuses: the
 port holds the reference to a stated tolerance, not bitwise.
+
+Parameter, gradient and moment leaves may be DTensors
+(``repro_torch.sharding``): the moments then take their parameter's
+placements, each rank updates its own shards with the same arithmetic,
+and the global norm counts each element once and has the same bits on
+every rank. With plain tensors, or on a world of one rank, every result
+is bitwise what the plain path gives.
 """
 from __future__ import annotations
 
@@ -23,9 +30,11 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as _tree
 from repro_torch.kernels import xla_float
+from repro_torch.sharding.params import counted_once, local_of, placed_like
 
 
 def _f(x):
@@ -41,13 +50,16 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params) -> AdamWState:
-    """Zero moments, fp32, each on its leaf's device; ``step`` 0 (int32)
-    on the first leaf's device."""
+    """Zero moments, fp32, each on its leaf's device and, for a DTensor
+    leaf, with its placements; ``step`` 0 (int32, a plain tensor) on the
+    first leaf's device."""
     leaves = _tree.leaves(params)
-    dev = leaves[0].device if leaves else torch.device("cpu")
+    dev = local_of(leaves[0]).device if leaves else torch.device("cpu")
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        shard = local_of(p)
+        return placed_like(p, torch.zeros(shard.shape, dtype=torch.float32,
+                                          device=shard.device))
 
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=_tree.tree_map(zeros, params),
@@ -60,17 +72,49 @@ def _div(num: float, den: torch.Tensor) -> torch.Tensor:
     return _f(torch.div(den.new_tensor(num), den))
 
 
+def _leaf_sq_sum(g: torch.Tensor) -> torch.Tensor:
+    g32 = _f(g.to(torch.float32))
+    return _f(torch.sum(_f(g32 * g32)))
+
+
+def _sharded_sq_sums(leaves) -> list:
+    """Each leaf's squared sum over the mesh, the same bits on every rank:
+    every rank's partial sums (zero on a rank whose shard another rank
+    counts, :func:`counted_once`) are all-gathered, and each rank adds
+    them up in rank order."""
+    parts = [_leaf_sq_sum(local_of(g)) if counted_once(g)
+             else local_of(g).new_zeros((), dtype=torch.float32)
+             for g in leaves]
+    mine = torch.stack(parts)
+    table = [torch.empty_like(mine)
+             for _ in range(torch.distributed.get_world_size())]
+    torch.distributed.all_gather(table, mine)
+    sums = []
+    for i in range(len(leaves)):
+        s = table[0][i]
+        for row in table[1:]:
+            s = _f(s + row[i])
+        sums.append(s)
+    return sums
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """(grads as fp32 scaled to a global norm of at most ``max_norm``, the
-    global norm before scaling)."""
+    global norm before scaling). On DTensor leaves each element counts
+    once, whatever the mesh dims that replicate it, and the norm has the
+    same bits on every rank (the mesh spans the world)."""
+    leaves = _tree.leaves(grads)
+    if any(isinstance(g, DTensor) for g in leaves):
+        sums = _sharded_sq_sums(leaves)
+    else:
+        sums = [_leaf_sq_sum(g) for g in leaves]
     total = 0
-    for g in _tree.leaves(grads):
-        g32 = _f(g.to(torch.float32))
-        total = _f(total + _f(torch.sum(_f(g32 * g32))))
+    for s in sums:
+        total = _f(total + s)
     gn = torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
     scale = torch.clamp(_div(max_norm, torch.clamp(gn, min=1e-9)), max=1.0)
-    return (_tree.tree_map(lambda g: _f(_f(g.to(torch.float32)) * scale),
-                           grads), gn)
+    return (_tree.tree_map(lambda g: placed_like(
+        g, _f(_f(local_of(g).to(torch.float32)) * scale)), grads), gn)
 
 
 def cosine_schedule(step: torch.Tensor, *, peak_lr: float, warmup: int,
@@ -113,13 +157,17 @@ def adamw_update(params, grads, state: AdamWState, *, lr,
             return xla_float.round_bf16(new_p), m, v
         return new_p.to(p.dtype), m, v
 
+    # on DTensor leaves, each rank updates its own shards
     p_flat, treedef = _tree.flatten(params)
     g_flat = _tree.leaves(grads)
     m_flat = _tree.leaves(state.mu)
     v_flat = _tree.leaves(state.nu)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(p_flat, g_flat, m_flat,
-                                                 v_flat)]
-    new_params = _tree.unflatten(treedef, [o[0] for o in out])
-    new_mu = _tree.unflatten(treedef, [o[1] for o in out])
-    new_nu = _tree.unflatten(treedef, [o[2] for o in out])
+    out = [upd(*map(local_of, (p, g, m, v)))
+           for p, g, m, v in zip(p_flat, g_flat, m_flat, v_flat)]
+    new_params = _tree.unflatten(treedef, [placed_like(p, o[0]) for p, o
+                                           in zip(p_flat, out)])
+    new_mu = _tree.unflatten(treedef, [placed_like(m, o[1]) for m, o
+                                       in zip(m_flat, out)])
+    new_nu = _tree.unflatten(treedef, [placed_like(v, o[2]) for v, o
+                                       in zip(v_flat, out)])
     return new_params, AdamWState(step=step, mu=new_mu, nu=new_nu), gnorm

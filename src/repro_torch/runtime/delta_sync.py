@@ -36,8 +36,7 @@ usable checkpoint, the fold is the fallback.
 State lives on one device: ``device=None`` means the CUDA card (raising
 without one), ``device="cpu"`` the CPU. The publisher's and subscriber's
 tensors are their own copies; ``params`` and ``shadow_params()`` return
-views of them, to read and not to modify. Placing EF residuals on a mesh
-(the reference's ``mesh`` argument) waits for the port's sharding.
+views of them, to read and not to modify.
 """
 from __future__ import annotations
 
@@ -63,6 +62,7 @@ from repro_torch.core.topk import global_k, sparsify_with_feedback
 from repro_torch.kernels import xla_float
 from repro_torch.kernels import xla_add as _xla_add
 from repro_torch.runtime.faults import backoff_delay
+from repro_torch.sharding.params import distribute, ef_shardings
 from repro_torch.train.step import init_ef_state
 
 MAGIC = b"SPKD"
@@ -329,12 +329,19 @@ class DeltaPublisher:
     ``request_resend``. With ``ckpt_dir`` set, the shadow is checkpointed
     every ``checkpoint_every`` epochs (epoch 0 included) — the reload target
     of the subscriber's degradation ladder.
+
+    ``mesh``: optional ``DeviceMesh`` (on ``device``'s type) — places the
+    EF residuals as DTensors by ``sharding/params.ef_shardings`` (the DP
+    layout ``(1, size)``: its ``data`` axis drops unless ``data`` is 1, and
+    its size dim is never split), as the reference does on multi-device
+    publishers. Each rank then holds every residual whole, so the frames
+    are byte-identical to a publisher's without a mesh.
     """
 
     def __init__(self, params, transport, *, k_fraction: float = 0.01,
                  selector: str = "global", window_epochs: int = 16,
                  ckpt_dir: Optional[str] = None, checkpoint_every: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         if not 0.0 < k_fraction <= 1.0:
             raise ValueError(f"k_fraction must be in (0, 1], got {k_fraction}")
         if window_epochs < 1:
@@ -359,6 +366,11 @@ class DeltaPublisher:
         self._sizes = [int(f.shape[0]) for f in self._prev]
         self._k = [global_k(s, k_fraction) for s in self._sizes]
         ef = init_ef_state(self._prev, n_workers=1)
+        self.ef_placements = None
+        if mesh is not None:
+            ef = distribute(ef, ef_shardings(ef, mesh))
+            self.ef_placements = [x.placements for x in ef]
+            ef = [x.to_local() for x in ef]
         self._residual = [leaf[0] for leaf in ef]
 
         self.epoch = 0

@@ -84,12 +84,18 @@ class Supervisor:
         else:
             save_checkpoint(self.ckpt_dir, step, state)
 
-    def run(self, init_state, step_fn: Callable, n_steps: int):
+    def run(self, init_state, step_fn: Callable, n_steps: int,
+            shardings=None):
+        """``(state, steps run to)``; a restore places the checkpoint on
+        ``shardings`` (a tree of ``NamedSharding`` matching
+        ``init_state``; ``None``: as ``init_state``'s leaves lie), which
+        may be another mesh than the one that saved it."""
         state = init_state
         start = 0
         last = latest_step(self.ckpt_dir)
         if last is not None:
-            state = restore_checkpoint(self.ckpt_dir, last, init_state)
+            state = restore_checkpoint(self.ckpt_dir, last, init_state,
+                                       shardings)
             start = last
             log.info("resumed from checkpoint step %d", last)
         step = start
@@ -126,7 +132,7 @@ class Supervisor:
                     state, step = init_state, 0
                 else:
                     state = restore_checkpoint(self.ckpt_dir, last,
-                                               init_state)
+                                               init_state, shardings)
                     step = last
         if self.async_ckpt:
             self.async_ckpt.close()

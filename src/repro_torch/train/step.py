@@ -10,7 +10,16 @@ parameter trees (``repro_torch.tree``) and a model from
   *outside* the gradient and differentiates with respect to that copy, as
   the reference does (its gradients are rounded to the compute dtype, then
   cast to f32), with optional microbatch accumulation; AdamW and the cosine
-  schedule are ``repro_torch.optim``'s.
+  schedule are ``repro_torch.optim``'s. On parameters placed as DTensors
+  (``repro_torch.sharding.params``: FSDP×TP over a ``("data", "model")``
+  or ``("pod", "data", "model")`` ``DeviceMesh``) the same step is the
+  reference's ``jit`` of it over a mesh, made explicit
+  (:func:`sharded_loss_and_grads`): each leaf is cast, then gathered whole;
+  each rank takes its rows of the global batch; the model runs on plain
+  local tensors, its batch-wide statistics (the MoE's capacity and load)
+  taken over every rank's rows; each gradient is reduced as the mean over
+  the data axes into its leaf's placements; AdamW updates each rank's
+  shards.
 - :func:`make_compressed_train_step` is the reference's ``shard_map`` body
   run on every rank of a ``torch.distributed`` world: each rank takes its
   slice of the global batch (the reference's ``batch_spec``: the batch split
@@ -31,6 +40,8 @@ from typing import Callable
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch import tree as _tree
 from repro_torch.core.allreduce import (MIN_COMPRESS_ELEMS,
@@ -39,6 +50,8 @@ from repro_torch.core.allreduce import (MIN_COMPRESS_ELEMS,
 from repro_torch.kernels import xla_float
 from repro_torch.models.common import torch_dtype
 from repro_torch.optim import adamw_update, cosine_schedule
+from repro_torch.sharding.api import RowSplit, row_split_context
+from repro_torch.sharding.params import local_of, placed_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,35 +95,154 @@ def _micro_batches(batch: dict, n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def _accumulated_grads(model, hp: TrainHParams, params_c, batch):
+    """``(loss, f32 gradients in leaf order)`` of the compute copy
+    ``params_c`` on ``batch``, over ``hp.grad_accum`` microbatches."""
+    if hp.grad_accum <= 1:
+        loss, grads = _loss_and_grads(model, hp, params_c, batch)
+        return loss, [g.to(torch.float32) for g in grads]
+    n = hp.grad_accum
+    adt = torch_dtype(hp.accum_dtype)
+    leaves = _tree.leaves(params_c)
+    loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    acc = [torch.zeros(p.shape, dtype=adt, device=p.device) for p in leaves]
+    for b in _micro_batches(batch, n):
+        loss_i, g = _loss_and_grads(model, hp, params_c, b)
+        acc = [a + x.to(adt) for a, x in zip(acc, g)]
+        loss = loss + loss_i
+    return (xla_float.div_const(loss, n),
+            [xla_float.div_const(g.to(torch.float32), n) for g in acc])
+
+
+def _to_compute(x, compute_dtype):
+    if x.dtype != torch.float32:
+        return x
+    return placed_like(x, local_of(x).to(compute_dtype))
+
+
+def _gather(x) -> torch.Tensor:
+    """A DTensor leaf's whole value on every rank (an all-gather)."""
+    return x.full_tensor()
+
+
+def _reduce(g: torch.Tensor, mesh, mean_dims, placements) -> DTensor:
+    """This rank's value ``g`` of a whole tensor, as the mean over the
+    mesh dims ``mean_dims`` (equal on the others), placed on
+    ``placements``."""
+    src = [Partial("avg") if i in mean_dims else Replicate()
+           for i in range(mesh.ndim)]
+    return DTensor.from_local(g, mesh, src, run_check=False).redistribute(
+        mesh, placements)
+
+
+def _batch_dim(key: str) -> int:
+    """The dim of a batch leaf that holds its rows: dim 1 of the ``(3, B,
+    S)`` M-RoPE positions, dim 0 of every other leaf. (``batch_spec`` tells
+    the positions by a leading 3, so it takes a 2-D batch of 3 rows for
+    them and splits its sequence: a layout hint under ``jit``, but rows
+    taken by it would change the loss.)"""
+    return 1 if key == "mrope_positions" else 0
+
+
+def _interleave(x: torch.Tensor, dim: int, n_micro: int, n_blocks: int
+                ) -> torch.Tensor:
+    """``x``'s rows along ``dim`` reordered so that its ``n_blocks``
+    contiguous blocks each hold, microbatch by microbatch, that block's
+    share of every one of the ``n_micro`` microbatches."""
+    s = tuple(x.shape)
+    per = s[dim] // (n_micro * n_blocks)
+    y = x.reshape(s[:dim] + (n_micro, n_blocks, per) + s[dim + 1:])
+    return y.transpose(dim, dim + 1).reshape(s)
+
+
+def _local_rows(batch: dict, mesh, n_micro: int = 1):
+    """``(this rank's rows of the global batch, the mesh dims of more than
+    one rank they are split over)``: the rows split over the data axes
+    (``pod`` major) when every leaf's row count divides over them and its
+    ``n_micro`` microbatches, else replicated and split over no dim. With
+    microbatches, a rank's ``i``-th holds its block of the global batch's
+    ``i``-th (the rows the reference's microbatch takes). A DTensor leaf
+    placed otherwise is gathered first."""
+    names = mesh.mesh_dim_names
+    dp = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    n_dp = 1
+    for i in dp:
+        n_dp *= mesh.size(i)
+    n_micro = max(1, n_micro)
+    split = all(x.shape[_batch_dim(k)] % (n_dp * n_micro) == 0
+                for k, x in batch.items())
+    reorder = split and n_dp > 1 and n_micro > 1
+    local = {}
+    for k, x in batch.items():
+        want = tuple(Shard(_batch_dim(k)) if split and i in dp
+                     else Replicate() for i in range(mesh.ndim))
+        if isinstance(x, DTensor):
+            if tuple(x.placements) == want and not reorder:
+                local[k] = x.to_local()
+                continue
+            x = x.full_tensor()
+        if reorder:
+            x = _interleave(x, _batch_dim(k), n_micro, n_dp)
+        local[k] = distribute_tensor(x, mesh, want,
+                                     src_data_rank=None).to_local()
+    return local, tuple(i for i in dp if split and mesh.size(i) > 1)
+
+
+def sharded_loss_and_grads(model, hp: TrainHParams, params, batch):
+    """``(loss, grads)`` of :func:`make_train_step` on a tree of DTensor
+    parameters (one ``DeviceMesh``): each f32 leaf is cast to the compute
+    dtype, then gathered whole (cast first: the same bits, half the bytes
+    in bf16); each rank takes its rows of the global ``batch``; the loss
+    and its gradients are taken on plain local tensors (no kernel sees a
+    DTensor), under a :class:`~repro_torch.sharding.api.RowSplit` that
+    lets the MoE take its capacity and load statistics over the whole
+    batch, as the reference's ``jit`` does; and each gradient is reduced as the mean over the mesh dims
+    the batch is split over into its leaf's placements. A batch that is
+    replicated takes no mean: every rank already holds the same value, and
+    a mean of equal f32 values need not give it back. ``loss`` is the mean
+    over the same dims (a plain tensor)."""
+    leaves, treedef = _tree.flatten(params)
+    if not all(isinstance(x, DTensor) for x in leaves):
+        raise ValueError("a sharded step needs every parameter leaf as a "
+                         "DTensor")
+    mesh = leaves[0].device_mesh
+    compute_dtype = model.cfg.cdtype
+    full_c = [_gather(_to_compute(x, compute_dtype)) for x in leaves]
+    local, split = _local_rows(batch, mesh, hp.grad_accum)
+    with row_split_context(RowSplit(mesh, split) if split else None):
+        loss, grads = _accumulated_grads(
+            model, hp, _tree.unflatten(treedef, full_c), local)
+    del full_c
+    reduced = []
+    for i, x in enumerate(leaves):
+        reduced.append(_reduce(grads[i], mesh, split, x.placements))
+        grads[i] = None
+    if split:
+        loss = _reduce(loss, mesh, split,
+                       [Replicate()] * mesh.ndim).to_local()
+    return loss, _tree.unflatten(treedef, reduced)
+
+
 def make_train_step(model, hp: TrainHParams = TrainHParams()) -> Callable:
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` with metrics ``loss``, ``grad_norm`` and ``lr``."""
+    metrics)`` with metrics ``loss``, ``grad_norm`` and ``lr``. ``params``
+    is a tree of plain tensors, or of DTensors on one mesh
+    (:func:`sharded_loss_and_grads`; ``batch`` is then the global batch,
+    plain or placed by ``batch_shardings``, and the moments take the
+    parameters' placements)."""
     compute_dtype = model.cfg.cdtype
 
     def train_step(params, opt_state, batch):
-        # cast OUTSIDE the gradient and differentiate w.r.t. the compute
-        # copy; accumulation and the optimizer stay fp32
-        params_c = _tree.tree_map(
-            lambda x: x.to(compute_dtype) if x.dtype == torch.float32 else x,
-            params)
-        if hp.grad_accum > 1:
-            n = hp.grad_accum
-            adt = torch_dtype(hp.accum_dtype)
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=_tree.leaves(params)[0].device)
-            acc = [torch.zeros(p.shape, dtype=adt, device=p.device)
-                   for p in _tree.leaves(params)]
-            for b in _micro_batches(batch, n):
-                loss_i, g = _loss_and_grads(model, hp, params_c, b)
-                acc = [a + x.to(adt) for a, x in zip(acc, g)]
-                loss = loss + loss_i
-            loss = xla_float.div_const(loss, n)
-            grads = [xla_float.div_const(g.to(torch.float32), n)
-                     for g in acc]
+        p_leaves, treedef = _tree.flatten(params)
+        if any(isinstance(x, DTensor) for x in p_leaves):
+            loss, grads = sharded_loss_and_grads(model, hp, params, batch)
         else:
-            loss, grads = _loss_and_grads(model, hp, params_c, batch)
-            grads = [g.to(torch.float32) for g in grads]
-        grads = _tree.unflatten(_tree.flatten(params)[1], grads)
+            # cast OUTSIDE the gradient and differentiate w.r.t. the
+            # compute copy; accumulation and the optimizer stay fp32
+            params_c = _tree.tree_map(
+                lambda x: _to_compute(x, compute_dtype), params)
+            loss, grads = _accumulated_grads(model, hp, params_c, batch)
+            grads = _tree.unflatten(treedef, grads)
         lr = cosine_schedule(opt_state.step, peak_lr=hp.peak_lr,
                              warmup=hp.warmup, total=hp.total_steps)
         new_params, new_state, gnorm = adamw_update(

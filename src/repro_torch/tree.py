@@ -96,6 +96,32 @@ def unflatten(treedef: TreeDef, leaves) -> Any:
     return out
 
 
+def flatten_up_to(treedef: TreeDef, tree) -> List[Any]:
+    """The subtrees of ``tree`` at the leaf positions of ``treedef``, in
+    JAX's order (``tree`` has ``treedef``'s structure down to those
+    positions; what sits there is returned whole, ``None`` included)."""
+    out: List[Any] = []
+
+    def walk(td, node):
+        kind = td[0]
+        if kind == "leaf":
+            out.append(node)
+        elif kind == "dict":
+            if type(node) is not dict or tuple(sorted(node)) != td[1]:
+                raise ValueError(f"expected a dict with keys {td[1]}")
+            for k, c in zip(td[1], td[2]):
+                walk(c, node[k])
+        elif kind in ("list", "tuple"):
+            if (type(node) not in (list, tuple)
+                    or len(node) != len(td[1])):
+                raise ValueError(f"expected a {kind} of {len(td[1])}")
+            for c, n in zip(td[1], node):
+                walk(c, n)
+
+    walk(treedef, tree)
+    return out
+
+
 def tree_map(fn: Callable[[Any], Any], tree) -> Any:
     leaves_, treedef = flatten(tree)
     return unflatten(treedef, [fn(x) for x in leaves_])

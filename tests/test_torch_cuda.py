@@ -1536,6 +1536,63 @@ def test_lossless_compressed_step_on_card_tracks_dense(nccl_world):
         torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-5)
 
 
+def test_sharded_dense_step_is_bitwise_plain_on_one_nccl_rank(nccl_world):
+    """The twin of ``chip_smoke.py`` phase ``sharding`` (a) at smoke size:
+    on a (1, 1) ``("data", "model")`` NCCL mesh, params and AdamW state
+    placed by ``params_shardings``, three dense steps through the DTensor
+    path equal three plain steps bitwise (every collective is the identity
+    at world 1), and a checkpoint of the sharded state restores onto its
+    placements and onto plain tensors bitwise."""
+    import tempfile
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree as TR
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import use_full_precision
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.params import (distribute, gathered,
+                                             params_shardings)
+    from repro_torch.train import TrainHParams, make_train_step
+
+    use_full_precision()
+    model = build_model(get_smoke_config("smollm-135m"))
+    step = make_train_step(model, TrainHParams(ce_chunk=16, attn_chunk=16,
+                                               total_steps=100, warmup=0))
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+    p = model.init(0, device="cuda")
+    o = adamw_init(p)
+    sh = params_shardings(p, mesh)
+    sp = distribute(p, sh)
+    so = adamw_init(sp)
+    rng = np.random.default_rng(6)
+    for _ in range(3):
+        toks = torch.from_numpy(rng.integers(0, 128, (8, 33),
+                                             dtype=np.int32)).cuda()
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        p, o, met = step(p, o, batch)
+        sp, so, smet = step(sp, so, batch)
+        assert np.array_equal(bits(met["loss"]), bits(smet["loss"]))
+        assert np.array_equal(bits(met["grad_norm"]),
+                              bits(smet["grad_norm"]))
+    plain = TR.leaves((p, o.mu, o.nu))
+    for a, b in zip(plain, TR.leaves(gathered((sp, so.mu, so.nu)))):
+        assert np.array_equal(bits(a), bits(b))
+    assert all(isinstance(x, DTensor) for x in TR.leaves(so.mu))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp, 3, (sp, so.mu, so.nu))
+        back = restore_checkpoint(tmp, 3, (sp, so.mu, so.nu),
+                                  (sh, sh, sh))
+        flat = restore_checkpoint(tmp, 3, (p, o.mu, o.nu))
+    for a, b, c in zip(plain, TR.leaves(back), TR.leaves(flat)):
+        assert isinstance(b, DTensor) and not isinstance(c, DTensor)
+        assert np.array_equal(bits(a), bits(b.full_tensor()))
+        assert np.array_equal(bits(a), bits(c))
+
+
 # ---------------------------------------------------------------------------
 # the MoE, gemma3 local:global and VLM decoders, the Mamba2 SSM, the Zamba2
 # hybrid and the Whisper encoder-decoder on the card

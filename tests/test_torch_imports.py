@@ -55,7 +55,9 @@ def test_scan_covers_the_port():
                    "configs/llama4_scout_17b_a16e.py", "data/__init__.py",
                    "data/synthetic.py", "train/__init__.py",
                    "launch/train.py", "launch/serve.py",
-                   "launch/train_100m.py", "launch/quickstart.py"):
+                   "launch/train_100m.py", "launch/quickstart.py",
+                   "launch/mesh.py", "sharding/__init__.py",
+                   "sharding/api.py", "sharding/params.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert "chip_smoke.py" in names
 

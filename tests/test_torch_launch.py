@@ -88,15 +88,19 @@ def test_train_launcher_compressed_2d_under_torchrun(tmp_path):
 
 
 def test_dense_step_refuses_a_world_of_more_than_one_rank(tmp_path):
+    """A world of two ranks that the dense step's ``--mesh`` does not fill
+    (2 x 2 wants four) is refused before any step; a world that fills its
+    mesh trains (``test_torch_sharded_step.py``'s launcher tests)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "repro_torch.launch.train", *SMOKE,
-         "--steps", "1", "--ckpt-dir", str(tmp_path)], env=env, cwd=REPO,
-        capture_output=True, text=True, timeout=300)
+         "--steps", "1", "--mesh", "2x2", "--ckpt-dir", str(tmp_path)],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
-    assert "slice 6d" in proc.stdout + proc.stderr
+    assert "mesh 2x2 does not match a world of 2" in proc.stdout + proc.stderr
+    assert os.listdir(tmp_path) == []
 
 
 def test_serve_launcher_smoke():
