@@ -135,7 +135,20 @@ result, when no CUDA card is present or the package is missing.
    without one (top-k and ``xla_add`` counted, the largest replayed); the
    sharded state saved, then restored onto its placements and onto plain
    tensors, bitwise.
-13. One profiled call of each phase (device time by kernel, busy share),
+13. ``tools`` (:func:`run_tools`): on the same mesh, SmolLM-135M's dense
+   step under ``launch/hlo_analysis.py``'s ``analyze_step`` on the card
+   and on fake tensors of the same shapes (the FLOP counts equal as
+   integers; ``model_flops``, the counted FLOPs and their share of
+   989e12 x one step's time printed); the bytes resident after placing
+   params, AdamW state and the batch equal to ``arg_bytes`` and to
+   ``launch/shard_memory.py``'s count (plus AdamW's step and the batch),
+   the step's peak above resident beside the fake ``temp_bytes``;
+   spkaddlint's trace rules (``repro_torch.analysis``) on CUDA tensors,
+   the index dtypes through a proxy over the built libraries, SPKJ204
+   against the card's shared memory a block: no active finding; one
+   dry-run cell (``python -m repro_torch.launch.dryrun``, a fake world of
+   256 ranks on the host) whose record says ``ok``.
+14. One profiled call of each phase (device time by kernel, busy share),
    ten profiled calls each of the family's ``vec`` and ``blocked_spa``
    (each call's host time and the CUDA runtime calls that took the most
    host time: where a slow call waits), then each of the eight kernels against its plain PyTorch version on the
@@ -152,10 +165,10 @@ result, when no CUDA card is present or the package is missing.
    delta-sync catch-up's largest launch (its inputs rebuilt after the
    phase by a replay of that launch's engine call); the top-k row its
    radix passes and its time at each leaf shape of a publish beside
-   ``torch.topk``. Each row also counts its launches in phases 8-12
+   ``torch.topk``. Each row also counts its launches in phases 8-13
    (``launches_allreduce``, ``launches_spgemm``, ``launches_workload``,
-   ``launches_families``, ``launches_sharding``), and the rows fold the
-   replays of those phases' launches (``replay_allreduce``,
+   ``launches_families``, ``launches_sharding``, ``launches_tools``), and
+   the rows fold the replays of phases 8-12's launches (``replay_allreduce``,
    ``replay_spgemm``, ``replay_workload``, ``replay_families``,
    ``replay_sharding``) into their ``max_abs_err``; the segment-fold row
    carries the MoE combine's times (``moe_combine``). Then JSON lines of the
@@ -3408,6 +3421,221 @@ def _run_sharding(torch, seed, dev, kernels, mesh):
                         f"256 x 4,096"]}
 
 
+#: Phase ``tools``: the dry-run cell run as a subprocess on the card's
+#: host (a fake world; no card), and its time limit.
+TOOLS_DRYRUN_CELL = ("--arch", "smollm-135m", "--shape", "train_4k",
+                     "--mesh", "single")
+TOOLS_DRYRUN_TIMEOUT_S = 600
+#: The kernels the lint's geometry matrix must launch on the card: the
+#: partitioned regimes', the sliding hash's, the merge paths' fold and the
+#: allreduce's vec accumulator.
+TOOLS_LINT_KERNELS = ("partition", "hash_slide", "segment_fold", "spa_accum")
+
+
+def requested_bytes(torch, dev) -> int:
+    """Bytes the caching allocator's live blocks were asked for (unrounded:
+    the tensors' own sizes)."""
+    return int(torch.cuda.memory_stats(dev)["requested_bytes.all.current"])
+
+
+def run_tools(torch, seed: int, dev, kernels: dict, mesh):
+    """Phase ``tools``: the port's dry-run, cost analysis and lint held to
+    what the card does, on the script's (1, 1) NCCL mesh.
+
+    (a) FLOPs: SmolLM-135M's dense step (phase ``workload``'s 8 x 2,048
+    tokens) through the DTensor path under ``launch/hlo_analysis.py``'s
+    ``analyze_step`` on the card, and on fake tensors of the same shapes:
+    the two FLOP counts equal as integers; ``model_flops``, the counted
+    FLOPs and their share of 989e12 x one unanalysed step's time. (b)
+    Memory: the bytes the allocator holds for the params, AdamW state and
+    batch placed on the mesh equal the analysed step's ``arg_bytes``, the
+    fake step's, and ``launch/shard_memory.py``'s count (plus AdamW's
+    step and the batch); the step's peak above resident beside the fake
+    ``temp_bytes`` (their ratio reported, not gated). (c) Lint on the card:
+    SPKJ201 and SPKJ202 over the geometry matrix on CUDA tensors (both sort
+    counts, the wrappers' arguments and, through a recording proxy, the
+    built libraries' C entry points), SPKJ203, and SPKJ204 against the
+    card's opt-in shared memory a block: no active finding, and the proxy
+    must have seen the kernels' calls. (d) ``python -m
+    repro_torch.launch.dryrun`` on one cell (smollm-135m x train_4k x
+    16x16, a fake world of 256 ranks on the host), started first and read
+    last: its record must say ``ok``. Returns the phase's numbers."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    from repro_torch import tree as TR
+    from repro_torch.analysis import findings as LF
+    from repro_torch.analysis import smem, trace_rules
+    from repro_torch.compat import fake_tensor_mode
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch import hlo_analysis as HA
+    from repro_torch.launch.dryrun import model_flops
+    from repro_torch.launch.shard_memory import (STATE_BYTES,
+                                                 per_rank_elements)
+    from repro_torch.models import build_model
+    from repro_torch.models.common import SHAPES
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.params import distribute, params_shardings
+    from repro_torch.train import TrainHParams, make_train_step
+
+    # ---- (d) started first: the dry-run cell on the host's CPU ----------
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    out_json = os.path.join(out_dir, "dryrun.json")
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), CUDA_VISIBLE_DEVICES="")
+    t_d = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun",
+         *TOOLS_DRYRUN_CELL, "--print-hlo-collectives", "--out", out_json],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(WL_ARCH)
+        model = build_model(cfg)
+        B, S_len = WL_TRAIN_BATCH
+        shape = dataclasses.replace(SHAPES["train_4k"], global_batch=B,
+                                    seq_len=S_len)
+        step = make_train_step(model, TrainHParams(warmup=0, total_steps=100))
+
+        # ---- (b) what the placed state holds on the card ----------------
+        torch.cuda.synchronize()
+        req0 = requested_bytes(torch, dev)
+        params0 = model.init(seed, device=dev, on_device=True)
+        sp = distribute(params0, params_shardings(params0, mesh))
+        del params0
+        opt = adamw_init(sp)
+        batch = make_batch(cfg, SHAPES["train_4k"], 0, batch_override=B,
+                           seq_override=S_len, device=dev)
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = requested_bytes(torch, dev) - req0
+        local = per_rank_elements(sp, mesh)
+        batch_bytes = sum(x.numel() * x.element_size()
+                          for x in batch.values())
+        reckoned = local * STATE_BYTES + 4 + batch_bytes  # + AdamW's step
+
+        # ---- (a) the analysed step on the card and on fake tensors ------
+        _, real = HA.analyze_step(step, sp, opt, batch)
+        torch.cuda.synchronize()
+        gc.collect()
+        alloc0 = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        step(sp, opt, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t
+        peak_above = torch.cuda.max_memory_allocated(dev) - alloc0
+        with fake_tensor_mode()():
+            fp = model.init(seed, device=dev)
+            fsp = distribute(fp, params_shardings(fp, mesh))
+            fbatch = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                      for k, v in batch.items()}
+            _, fake = HA.analyze_step(step, fsp, adamw_init(fsp), fbatch)
+            del fp, fsp, fbatch
+        check(int(real.flops) == int(fake.flops) and real.flops > 0,
+              f"phase tools (a): {int(real.flops)} FLOPs counted on the card, "
+              f"{int(fake.flops)} on fake tensors")
+        mf = model_flops(cfg, shape, 1)
+        a = {"arch": cfg.arch_id, "batch": [B, S_len],
+             "flops_counted": int(real.flops),
+             "flops_fake": int(fake.flops), "model_flops": mf,
+             "step_ms": step_s * 1e3,
+             "counted_share_of_peak": real.flops / (HA.PEAK_FLOPS * step_s),
+             "model_share_of_peak": mf / (HA.PEAK_FLOPS * step_s),
+             "hbm_bytes_counted": real.hbm_bytes,
+             "hbm_bytes_fake": fake.hbm_bytes,
+             "coll_by_kind": real.coll_by_kind}
+        log(f"phase tools (a): {cfg.arch_id} dense step on {B} x {S_len}: "
+            f"model_flops {mf:.4e}, counted {int(real.flops)} (card) = "
+            f"{int(fake.flops)} (fake); one step {step_s * 1e3:.1f} ms: "
+            f"counted {a['counted_share_of_peak']:.4f}, model "
+            f"{a['model_share_of_peak']:.4f} of 989e12 FLOP/s; unfused bytes "
+            f"{real.hbm_bytes:.4e} (fake {fake.hbm_bytes:.4e})")
+        check(resident == real.arg_bytes == fake.arg_bytes == reckoned,
+              f"phase tools (b): resident {resident} B, arg_bytes "
+              f"{real.arg_bytes} (card) / {fake.arg_bytes} (fake), "
+              f"shard_memory {local} x {STATE_BYTES} + 4 + batch "
+              f"{batch_bytes} = {reckoned}")
+        b = {"resident_bytes": resident, "arg_bytes": real.arg_bytes,
+             "params": local, "state_bytes": local * STATE_BYTES + 4,
+             "batch_bytes": batch_bytes,
+             "peak_above_resident_bytes": peak_above,
+             "temp_bytes_fake": fake.temp_bytes,
+             "temp_bytes_card": real.temp_bytes,
+             "peak_over_temp": peak_above / fake.temp_bytes}
+        log(f"phase tools (b): resident {resident} B = arg_bytes = "
+            f"shard_memory's {local} x {STATE_BYTES} + 4 + {batch_bytes}; "
+            f"peak above resident {peak_above / 2**30:.3f} GiB, fake "
+            f"temp_bytes {fake.temp_bytes / 2**30:.3f} GiB (ratio "
+            f"{b['peak_over_temp']:.3f}; card temp_bytes "
+            f"{real.temp_bytes / 2**30:.3f} GiB)")
+        del sp, opt, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (c) the lint's trace rules on the card ---------------------
+        def lint():
+            return (trace_rules.trace_entry_points("cuda"),
+                    trace_rules.check_step_tables(), smem.check_all("cuda"))
+
+        t = time.perf_counter()
+        (cells, steps_f, smem_f), used = count_launches(torch, kernels, {},
+                                                        lint)
+        lint_s = time.perf_counter() - t
+        entry_f = trace_rules.entry_point_findings(cells)
+        active = [f.render() for f in LF.active(entry_f + steps_f + smem_f)]
+        check(not active, f"phase tools (c): active findings on the card: "
+              f"{active[:4]}")
+        entry_calls = sum(r["entry_calls"] for r in cells)
+        wrapper_calls = sum(r["wrapper_calls"] for r in cells)
+        check(entry_calls > 0 and wrapper_calls > 0,
+              f"phase tools (c): the proxy saw {entry_calls} C entry calls "
+              f"under {wrapper_calls} wrapper calls")
+        missing = [k for k in TOOLS_LINT_KERNELS if not used.get(k)]
+        check(not missing, f"phase tools (c): the geometry matrix launched "
+              f"no {missing} kernel on the card")
+        cap = smem.backend_cap("cuda")
+        c = {"cells": len(cells), "wrapper_calls": wrapper_calls,
+             "entry_calls": entry_calls, "launches": used,
+             "smem_cap": cap, "smem_budget": smem.runtime_budget("cuda"),
+             "lint_s": lint_s, "active_findings": 0}
+        log(f"phase tools (c): SPKJ201-204 on the card: {len(cells)} cells, "
+            f"{wrapper_calls} wrapper calls, {entry_calls} C entry calls, "
+            f"launches {used}; shared-memory cap {cap} B a block (budget "
+            f"{c['smem_budget']} B); no active finding ({lint_s:.1f} s)")
+
+        # ---- (d) the dry-run cell's record ------------------------------
+        text, _ = dry.communicate(timeout=TOOLS_DRYRUN_TIMEOUT_S)
+    except BaseException:
+        dry.kill()
+        dry.communicate()
+        raise
+    dry_s = time.perf_counter() - t_d
+    check(dry.returncode == 0, f"phase tools (d): the dry-run exited "
+          f"{dry.returncode}:\n{text[-2000:]}")
+    with open(out_json) as f:
+        (rec,) = json.load(f)
+    check(rec["status"] == "ok", f"phase tools (d): the dry-run cell "
+          f"says {rec['status']}")
+    d = {k: rec[k] for k in ("arch", "shape", "mesh", "chips", "status",
+                             "trace_s", "model_flops_per_chip",
+                             "useful_flops_ratio", "flops", "hbm_bytes",
+                             "coll_bytes", "coll_by_kind", "coll_counts",
+                             "bottleneck", "arg_bytes", "temp_bytes")}
+    d["wall_s"] = dry_s
+    log(f"phase tools (d): dry-run {rec['arch']} x {rec['shape']} x "
+        f"{rec['mesh']}: {rec['status']}, flops/chip {rec['flops']:.4e}, "
+        f"coll {rec['coll_bytes']:.4e} B, arg + temp "
+        f"{(rec['arg_bytes'] + rec['temp_bytes']) / 2**30:.2f} GiB, "
+        f"{rec['bottleneck']}-bound; traced in {rec['trace_s']} s "
+        f"({dry_s:.1f} s with start-up)")
+    return {"a": a, "b": b, "c": c, "d": d, "launches": used}
+
+
 def run(args, torch) -> int:
     from repro_torch import obs
     from repro_torch.core import engine as E
@@ -3756,6 +3984,8 @@ def run(args, torch) -> int:
         phases["sharding"] = run_sharding(torch, args.seed, dev, kernels,
                                           mesh)
         phases["sharding"]["phase_s"] = took()
+        phases["tools"] = run_tools(torch, args.seed, dev, kernels, mesh)
+        phases["tools"]["phase_s"] = took()
     finally:
         dist.destroy_process_group()
 
@@ -4288,6 +4518,7 @@ def run(args, torch) -> int:
             r["name"], 0)
         r["launches_sharding"] = phases["sharding"]["launches"].get(
             r["name"], 0)
+        r["launches_tools"] = phases["tools"]["launches"].get(r["name"], 0)
         if r["name"] == "segment_fold":  # the MoE combine's fold
             r["moe_combine"] = phases["families"]["moe_combine"]
         for ph in ("allreduce", "spgemm", "workload", "families",

@@ -190,15 +190,21 @@ def from_coords(rows, cols, vals, shape: Tuple[int, int], nnz=None,
     return PaddedCOO(keys=keys, vals=vals, nnz=nnz, shape=shape)
 
 
-def top_k_abs(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the ``k`` largest ``|x|`` along the last axis, largest
-    first, ties to the lower index: the rule of the reference's
-    ``lax.top_k`` (``torch.topk`` breaks ties in another order).
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(values, indices)`` of the ``k`` largest elements along the last
+    axis, largest first, ties to the lower index: the rule of the
+    reference's ``lax.top_k`` (``torch.topk`` breaks ties in another order).
 
     A stable descending sort, not counted by :func:`sort_calls`: the
     reference's ``top_k`` is not a counted sort either."""
-    order = torch.sort(x.abs(), dim=-1, descending=True, stable=True).indices
-    return order[..., :k]
+    top = torch.sort(x, dim=-1, descending=True, stable=True)
+    return top.values[..., :k], top.indices[..., :k]
+
+
+def top_k_abs(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest ``|x|`` along the last axis
+    (:func:`top_k`'s rule)."""
+    return top_k(x.abs(), k)[1]
 
 
 def from_dense(dense: torch.Tensor, cap: int) -> PaddedCOO:

@@ -341,7 +341,8 @@ class StreamService:
         self.device = _placed(device)
         # host-side service: the seeded generator only jitters retry-after
         # hints, never device values
-        self._rng = rng if rng is not None else np.random.default_rng(0)
+        self._rng = (rng if rng is not None
+                     else np.random.default_rng(0))  # spkaddlint: disable=SPK105
         self._streams: Dict[str, TenantStream] = {}
         self._buckets: Dict[Tuple, List[str]] = {}
         self._pool = _BufferPool()

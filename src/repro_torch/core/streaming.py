@@ -32,7 +32,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.engine import spkadd_batched_ragged, spkadd_run
 from repro_torch.core.sparse import (PaddedCOO, make_empty, resolve_device,
-                                     sentinel_key, stable_argsort)
+                                     sentinel_key, stable_argsort, top_k)
 
 
 def truncate_by_magnitude(a: PaddedCOO, cap: int) -> PaddedCOO:
@@ -49,8 +49,7 @@ def truncate_by_magnitude(a: PaddedCOO, cap: int) -> PaddedCOO:
         return a
     sent = sentinel_key(a.shape)
     mag = torch.where(a.keys != sent, a.vals.abs(), -1.0)
-    idx = torch.sort(mag, dim=-1, descending=True, stable=True).indices
-    idx = idx[..., :cap]
+    _, idx = top_k(mag, cap)
     keys = torch.gather(a.keys, -1, idx)
     vals = torch.gather(a.vals, -1, idx)
     valid = keys != sent

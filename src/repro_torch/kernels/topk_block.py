@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.sparse import top_k
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
@@ -65,7 +66,7 @@ def radix_passes(x: torch.Tensor, *, k: int, block: int) -> torch.Tensor:
     if k == 0 or nb == 0:
         return out
     keys = order_key(x).view(nb, block)
-    kth = torch.sort(keys, dim=1, descending=True).values[:, k - 1:k]
+    kth = top_k(keys, k)[0][:, k - 1:k]
     out.fill_(RADIX_PASSES)
     for d in range(RADIX_PASSES - 1, 0, -1):
         mask = ((1 << (DIGIT_BITS * d)) - 1) << (32 - DIGIT_BITS * d)

@@ -32,6 +32,8 @@ import subprocess
 import numpy as np
 import torch
 
+from repro_torch.core.sparse import stable_argsort
+
 #: Cycles of one dependent f32 add on the card (the latency of FADD on
 #: Hopper), the step of a strict left fold's chain.
 ADD_CYCLES = 4
@@ -101,7 +103,7 @@ def phase1_stream(seed: int, dev):
     vals = rng.standard_normal((k, n * d), dtype=np.float32)
     keys = (torch.from_numpy(cols).to(dev) * m
             + torch.from_numpy(rows).to(dev)).reshape(-1)
-    order = torch.sort(keys, stable=True).indices
+    order = stable_argsort(keys)
     sk = keys[order]
     is_new = torch.ones_like(sk, dtype=torch.bool)
     is_new[1:] = sk[1:] != sk[:-1]

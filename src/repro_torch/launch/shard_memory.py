@@ -42,12 +42,11 @@ def per_rank_elements(params, mesh) -> int:
 
 
 def fake_params(arch: str):
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
+    from repro_torch.compat import fake_tensor_mode
     from repro_torch.models import build_model
 
     model = build_model(get_config(arch))
-    with FakeTensorMode():
+    with fake_tensor_mode()():
         return model.init(0, device="cpu")
 
 

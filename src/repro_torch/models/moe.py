@@ -38,7 +38,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.sparse import stable_argsort
+from repro_torch.core.sparse import stable_argsort, top_k
 from repro_torch.kernels import xla_float
 from repro_torch.kernels.segment import segment_fold
 from repro_torch.models.common import ModelConfig, dense_init
@@ -55,6 +55,16 @@ def init_moe_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
+def expert_counts(expert: torch.Tensor, E: int) -> torch.Tensor:
+    """The assignments of each of the ``E`` experts (int64 ``(E,)``): ones
+    scattered into a buffer of static shape, the reference's ``zeros((E,))
+    .at[expert].add(1.0)``. (``bincount``'s size depends on the values,
+    which a trace on fake tensors cannot know.)"""
+    flat = expert.reshape(-1)
+    return torch.zeros(E, dtype=torch.int64, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
 def capacity_for(tokens: int, cfg: ModelConfig) -> int:
     c = math.ceil(tokens * cfg.moe_topk / cfg.n_experts * cfg.capacity_factor)
     return max(8, ((c + 7) // 8) * 8)  # sublane-align
@@ -66,8 +76,7 @@ def route(router: torch.Tensor, xf: torch.Tensor, k: int):
     the gates renormalised to sum to 1."""
     logits = xf.to(torch.float32) @ router.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
-    top = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, expert = top.values[:, :k], top.indices[:, :k]
+    gate, expert = top_k(probs, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     return probs, gate, expert
 
@@ -104,9 +113,13 @@ def dispatch(expert: torch.Tensor, n_experts: int, capacity: int,
     keep = (pos if offset is None else pos + offset[sorted_e.long()]) < C
     slot = sorted_e.long() * S + pos
     tok = order // K
-    # inverse permutation (slot -> assignment): unique slots, any scatter
-    inv = torch.full((E * S,), TK, dtype=torch.int64, device=dev)
-    inv[slot[keep]] = torch.arange(TK, device=dev)[keep]
+    # inverse permutation (slot -> assignment): unique slots, any scatter;
+    # a dropped assignment writes one slot past the end, cut off after (a
+    # scatter of static shape, where a boolean mask's size depends on the
+    # values)
+    inv = torch.full((E * S + 1,), TK, dtype=torch.int64, device=dev)
+    inv[torch.where(keep, slot, E * S)] = torch.arange(TK, device=dev)
+    inv = inv[:E * S]
     slot_valid = inv < TK
     src_tok = torch.where(slot_valid, tok[inv.clamp(0, TK - 1)], 0)
     return Dispatch(order, slot, keep, tok, src_tok, slot_valid)
@@ -178,7 +191,7 @@ def _routed_over_rows(split: RowSplit, probs: torch.Tensor,
     E, n = cfg.n_experts, split.count
     Tg = T * n
     C = capacity_for(Tg, cfg)
-    counts = torch.bincount(expert.reshape(-1), minlength=E)
+    counts = expert_counts(expert, E)
     psum = probs.sum(0)
     all_counts = split.gather(counts)
     f = all_counts.sum(0).to(torch.float32) / (Tg * K)
@@ -201,8 +214,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig
     if split is None:
         C = capacity_for(T, cfg)
         # aux loss (Switch-style): E * sum_e f_e * P_e
-        f = torch.bincount(expert.reshape(-1), minlength=E).to(
-            torch.float32) / (T * K)
+        f = expert_counts(expert, E).to(torch.float32) / (T * K)
         pbar = probs.mean(0)
         # ---- sort-based dispatch ---------------------------------------
         disp = dispatch(expert, E, C)

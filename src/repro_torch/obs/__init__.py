@@ -7,6 +7,9 @@
 - :mod:`repro_torch.obs.metrics` — always-on named
   **counters/gauges/histograms** with snapshot/reset semantics and the
   reference package's metric names.
+- :mod:`repro_torch.obs.ledger` — the perf-history **ledger** keyed by
+  (commit, backend, suite, geometry) and its regression gate, in the
+  reference's format.
 
 The re-exports below are the instrumentation API the rest of the port uses:
 ``obs.span(...)``, ``obs.counter(...)``, etc.

@@ -227,7 +227,9 @@ def get_row_split() -> Optional[RowSplit]:
 
 @contextlib.contextmanager
 def row_split_context(split: Optional[RowSplit]):
-    global _row_split
+    # a layout the model reads (on autograd's device thread too), not a
+    # counter or a gauge
+    global _row_split  # spkaddlint: disable=SPK103
     prev, _row_split = _row_split, split
     try:
         yield split

@@ -655,3 +655,37 @@ def publish_params(params_np, epoch: int):
                 ).astype(node.dtype)
 
     return step(params_np)
+
+
+def cost_rank(rank: int, world: int, params_np) -> dict:
+    """One dense step of the smoke config on a (2, 2) ``("data",
+    "model")`` mesh under ``launch/hlo_analysis.analyze_step``, from the
+    reference's tree on :func:`train_batch` 0, on real CPU tensors and on
+    fake tensors of the same shapes: each run's ``Roofline.to_dict()``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import interop
+    from repro_torch.compat import fake_tensor_mode
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.params import distribute, params_shardings
+    from repro_torch.train import TrainHParams, make_train_step
+
+    model = build_model(get_smoke_config(TRAIN_ARCH))
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    step = make_train_step(model, TrainHParams(**TRAIN_HP))
+
+    def run(plain, batch):
+        params = distribute(plain, params_shardings(plain, mesh))
+        return analyze_step(step, params, adamw_init(params), batch)[1]
+
+    real = run(interop.params_from_numpy(params_np, "cpu"),
+               {k: torch.from_numpy(v) for k, v in train_batch(0).items()})
+    with fake_tensor_mode()():
+        fake = run(model.init(0, device="cpu"),
+                   {k: torch.empty(v.shape, dtype=torch.int32)
+                    for k, v in train_batch(0).items()})
+    return {"real": real.to_dict(), "fake": fake.to_dict()}

@@ -57,7 +57,12 @@ def test_scan_covers_the_port():
                    "launch/train.py", "launch/serve.py",
                    "launch/train_100m.py", "launch/quickstart.py",
                    "launch/mesh.py", "sharding/__init__.py",
-                   "sharding/api.py", "sharding/params.py"):
+                   "sharding/api.py", "sharding/params.py", "compat.py",
+                   "obs/ledger.py", "launch/hlo_analysis.py",
+                   "launch/dryrun.py", "analysis/__init__.py",
+                   "analysis/findings.py", "analysis/ast_rules.py",
+                   "analysis/trace_rules.py", "analysis/smem.py",
+                   "analysis/cli.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert "chip_smoke.py" in names
 

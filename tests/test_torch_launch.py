@@ -87,7 +87,7 @@ def test_train_launcher_compressed_2d_under_torchrun(tmp_path):
     assert sorted(os.listdir(tmp_path)) == [f"rank{r}" for r in range(4)]
 
 
-def test_dense_step_refuses_a_world_of_more_than_one_rank(tmp_path):
+def test_dense_step_refuses_a_mesh_its_world_does_not_fill(tmp_path):
     """A world of two ranks that the dense step's ``--mesh`` does not fill
     (2 x 2 wants four) is refused before any step; a world that fills its
     mesh trains (``test_torch_sharded_step.py``'s launcher tests)."""

@@ -5,8 +5,11 @@ against the reference's (``repro.sharding``), on the CPU.
   devices (``tests/conftest.py``'s ``run_multidevice``) and emits, as JSON,
   the spec of every leaf of the ten configs' full-size params trees
   (``jax.eval_shape``), of their AdamW state, of ``input_specs`` batches,
-  of ``decode_inputs`` caches and of the error-feedback layouts, on the
-  16 x 16, 2 x 16 x 16 and (4, 2) meshes. The port works out the same
+  of ``decode_inputs`` caches, of the error-feedback layouts and of the
+  dry-run's TP-only serving layout (``launch/dryrun.py``'s
+  ``serve_shardings`` on ``serve_param_sds``), and the dry-run's
+  ``model_flops`` of every shape, on the 16 x 16, 2 x 16 x 16 and (4, 2)
+  meshes. The port works out the same
   specs from the mesh's names and sizes alone (``MeshShape``), on trees of
   fake tensors (no values drawn), and each must equal the reference's.
 - Every assertion of ``tests/test_sharding.py``, replayed on the port, one
@@ -31,6 +34,8 @@ from repro_torch import tree as TR
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.topk import global_k, per_shard_k
 from repro_torch.data import decode_inputs, input_specs
+from repro_torch.launch.dryrun import (model_flops, serve_param_sds,
+                                       serve_shardings)
 from repro_torch.launch.mesh import chips, production_mesh_shape
 from repro_torch.launch.world import spawn_world
 from repro_torch.models import build_model
@@ -49,13 +54,15 @@ from repro_torch.train import init_ef_state
 MESHES = {"16x16": production_mesh_shape(),
           "2x16x16": production_mesh_shape(multi_pod=True),
           "4x2": MeshShape(("data", "model"), (4, 2))}
-KINDS = ("params", "opt", "batch", "cache", "ef")
+KINDS = ("params", "opt", "batch", "cache", "ef", "serve", "flops")
 WORLD_TIMEOUT_S = 200
 
 REF_SPECS = r"""
 import json, sys
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import Mesh
+# before any device is touched: the module refuses once a backend exists
+from repro.launch.dryrun import model_flops, serve_param_sds, serve_shardings
 from repro.configs import ARCHS, get_config
 from repro.data import decode_inputs, input_specs
 from repro.launch.mesh import make_production_mesh
@@ -103,6 +110,12 @@ for arch in ARCHS:
                             for x in jax.tree.leaves(caches)]
         out[key + "/batch"] = batch
         out[key + "/cache"] = cache
+        out[key + "/serve"] = [[n, js(s.spec)] for n, s in keyed(
+            serve_shardings(serve_param_sds(params), mesh),
+            lambda p, s: s)]
+        out[key + "/flops"] = {{sname: model_flops(cfg, shape,
+                                                  mesh.devices.size)
+                               for sname, shape in SHAPES.items()}}
         d = mesh.shape["data"]
         t = mesh.shape.get("model", 1)
         ef = {{}}
@@ -174,6 +187,11 @@ def port_specs(arch, mname, kind):
             opt = tuple(adamw_init(params))
             return [js(s.spec) for s in TR.flatten_up_to(
                 TR.flatten(opt)[1], params_shardings(opt, mesh))]
+        if kind == "serve":
+            _, names, treedef = TR.flatten_with_names(params)
+            sh = serve_shardings(serve_param_sds(params), mesh)
+            return [[n, js(x.spec)]
+                    for n, x in zip(names, TR.flatten_up_to(treedef, sh))]
         if kind == "ef":
             sizes = dict(zip(mesh.axis_names, mesh.shape))
             out = {}
@@ -181,6 +199,9 @@ def port_specs(arch, mname, kind):
                 ef = init_ef_state(params, sizes["data"], model_shards=shards)
                 out[lay] = [js(ef_spec(x, mesh)) for x in TR.leaves(ef)]
             return out
+    if kind == "flops":
+        return {s: model_flops(cfg, shape, chips(mesh))
+                for s, shape in SHAPES.items()}
     if kind == "batch":
         return {s: {k: js(batch_spec(v, mesh))
                     for k, v in input_specs(cfg, shape).items()}
