@@ -134,7 +134,13 @@ result, when no CUDA card is present or the package is missing.
    ``DeltaPublisher(..., mesh=...)`` byte-identical to a publisher's
    without one (top-k and ``xla_add`` counted, the largest replayed); the
    sharded state saved, then restored onto its placements and onto plain
-   tensors, bitwise.
+   tensors, bitwise; then this script in a subprocess as rank 0 of the
+   16 x 16 production mesh under PyTorch's ``fake`` process group:
+   gemma3-27B at full width and depth on one rank's rows of ``train_4k``,
+   each layer gathered at use and the blocks on their ``model`` shards,
+   its step ms, its peak above resident against the same cell's dry-run
+   ``temp_bytes`` (run on the host meanwhile), and its counted FLOPs equal
+   to the dry-run's.
 13. ``tools`` (:func:`run_tools`): on the same mesh, SmolLM-135M's dense
    step under ``launch/hlo_analysis.py``'s ``analyze_step`` on the card
    and on fake tensors of the same shapes (the FLOP counts equal as
@@ -254,6 +260,8 @@ def nvidia_smi_line() -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sharding-rank0", metavar="OUT_JSON",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -267,6 +275,9 @@ def main() -> int:
               f"from the root of a checkout", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    if args.sharding_rank0:
+        sharding_rank0(torch, args.seed, args.sharding_rank0)
+        return 0
     try:
         return run(args, torch)
     except SmokeFailure as e:
@@ -3122,6 +3133,15 @@ SH_STEPS = 3
 SH_MOE_ARCH = "moonshot_v1_16b_a3b"
 SH_MOE_BATCH = (1, 4096)
 SH_EPOCHS = 2
+#: Phase ``sharding`` (e): rank 0 of the 16 x 16 production mesh under
+#: PyTorch's ``fake`` process group on the card, gemma3-27B at full depth
+#: on ``train_4k``'s rows for one rank (its dry-run count, 55.4 GiB, is
+#: under 72 GiB), in a subprocess of this script (one process holds one
+#: process group); beside it the same cell's dry-run on the host. Their
+#: time limit.
+SH_TP_ARCH = "gemma3_27b"
+SH_TP_SHAPE = "train_4k"
+SH_TP_TIMEOUT_S = 300
 
 
 def first_mismatch(torch, names, want, got) -> str:
@@ -3154,8 +3174,16 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
     trajectory, two epochs: frames byte-identical to a publisher without a
     mesh; its top-k and ``xla_add`` launches counted, the largest replayed.
     (d) (a)'s sharded state saved, then restored onto its placements and
-    onto plain tensors, both bitwise; save and restore ms. Two runs of
-    one path agree bitwise only on deterministic kernels, so (a) and (b)
+    onto plain tensors, both bitwise; save and restore ms. (e) One rank of
+    the production mesh (:func:`sharding_rank0`, a subprocess on the
+    card): gemma3-27B's dense step at full depth on one rank's rows of
+    ``train_4k``, each layer's weights gathered at use and its blocks on
+    their ``model`` shards; its ms, its peak above resident against the
+    fake ``temp_bytes`` of the same cell's dry-run (started on the host at
+    the phase's start, read last), and its counted FLOPs, which must equal
+    the dry-run's as integers. The fake collectives move nothing and hand
+    back uninitialized memory, so (e) holds no value to anything. Two runs
+    of one path agree bitwise only on deterministic kernels, so (a) and (b)
     run under ``torch.use_deterministic_algorithms(True, warn_only=True)``
     (the sorted ``index_put_`` accumulate of the embedding's and the MoE
     dispatch's backward). Returns the phase's numbers."""
@@ -3163,15 +3191,183 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
 
     from repro_torch.models.layers import use_full_precision
 
+    import tempfile
+
     use_full_precision()
     gc.collect()
     torch.cuda.empty_cache()
-    was_deterministic = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    # (e)'s fake count, on the host's CPU while (a)-(d) run on the card
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sharding_")
+    dry_json = os.path.join(out_dir, "dryrun.json")
+    env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         SH_TP_ARCH, "--shape", SH_TP_SHAPE, "--mesh", "single", "--out",
+         dry_json], env=dict(env, CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
-        return _run_sharding(torch, seed, dev, kernels, mesh)
+        was_deterministic = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            phase = _run_sharding(torch, seed, dev, kernels, mesh)
+        finally:
+            torch.use_deterministic_algorithms(was_deterministic)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase["rank0"] = _sharding_rank0_on_card(
+            torch, seed, env, os.path.join(out_dir, "rank0.json"), dry,
+            dry_json, t_dry)
+    except BaseException:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+        raise
+    phase["reduced"].append(
+        f"{SH_TP_ARCH} (e): one rank of 256 under a fake process group "
+        f"(the other ranks' work and the wire not run)")
+    return phase
+
+
+def _sharding_rank0_on_card(torch, seed, env, out_json, dry, dry_json,
+                            t_dry) -> dict:
+    """Part (e) of phase ``sharding``: :func:`sharding_rank0` in a
+    subprocess on the card, held to the host's dry-run of the same cell
+    (the FLOPs as integers; the peak above resident against
+    ``temp_bytes`` as a ratio, not gated)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--seed",
+         str(seed), "--sharding-rank0", out_json], env=env,
+        capture_output=True, text=True, timeout=SH_TP_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"phase sharding (e): the rank-0 process "
+          f"exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+          f"{proc.stderr[-2000:]}")
+    with open(out_json) as f:
+        e = json.load(f)
+    text, _ = dry.communicate(timeout=SH_TP_TIMEOUT_S)
+    check(dry.returncode == 0, f"phase sharding (e): the dry-run exited "
+          f"{dry.returncode}:\n{text[-2000:]}")
+    with open(dry_json) as f:
+        (rec,) = json.load(f)
+    check(rec["status"] == "ok", f"phase sharding (e): the dry-run cell "
+          f"says {rec['status']}")
+    check(int(e["flops"]) == int(rec["flops"]), f"phase sharding (e): the "
+          f"card counted {int(e['flops'])} FLOPs, the fake tensors "
+          f"{int(rec['flops'])}")
+    e.update(fake_flops=rec["flops"], fake_temp_bytes=rec["temp_bytes"],
+             fake_arg_bytes=rec["arg_bytes"],
+             fake_coll_bytes=rec["coll_bytes"],
+             peak_over_fake_temp=e["peak_above_resident_bytes"]
+             / rec["temp_bytes"],
+             useful_flops_ratio=rec["useful_flops_ratio"],
+             wall_s=wall_s, dry_wall_s=time.perf_counter() - t_dry,
+             card=nvidia_smi_line())
+    log(f"phase sharding (e): {e['arch']} depth {e['depth']} on rank 0 of "
+        f"{e['mesh']} ({e['rows']} x {e['seq']} tokens a rank), on "
+        f"{e['card']}: step {e['step_ms']:.1f} ms (the fake collectives "
+        f"move nothing); peak above resident "
+        f"{e['peak_above_resident_bytes'] / 2**30:.2f} GiB = "
+        f"{e['peak_over_fake_temp']:.4f} x the fake temp_bytes "
+        f"({rec['temp_bytes'] / 2**30:.2f} GiB; resident "
+        f"{e['resident_bytes'] / 2**30:.2f} GiB, fake arg_bytes "
+        f"{rec['arg_bytes'] / 2**30:.2f} GiB); counted FLOPs "
+        f"{int(e['flops'])} = the fake count; ({wall_s:.1f} s, the "
+        f"dry-run {e['dry_wall_s']:.1f} s on the host)")
+    return e
+
+
+def sharding_rank0(torch, seed: int, out_json: str) -> None:
+    """This process as rank 0 of the 16 x 16 production mesh under
+    PyTorch's ``fake`` process group, on the card: :data:`SH_TP_ARCH`'s
+    parameters (this rank's shards only, drawn on the card) and AdamW
+    state placed by ``params_shardings``, ``train_4k``'s global batch, one
+    dense step under ``analyze_step`` (its FLOPs and ``temp_bytes``), then
+    one step timed (host ms ending in a synchronize) with its peak above
+    resident. Writes the numbers to ``out_json``."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import compat
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.launch import hlo_analysis as HA
+    from repro_torch.launch.mesh import chips, production_mesh_shape
+    from repro_torch.launch.shard_memory import fake_params
+    from repro_torch.models import build_model
+    from repro_torch.models.common import SHAPES
+    from repro_torch.models.layers import use_full_precision
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.params import (batch_shardings, distribute,
+                                             local_region, params_shardings)
+    from repro_torch.train import TrainHParams, make_train_step
+
+    use_full_precision()
+    dev = torch.device("cuda")
+    torch.cuda.set_device(0)
+    shape = production_mesh_shape()
+    dist.init_process_group("fake", store=compat.fake_store()(), rank=0,
+                            world_size=chips(shape))
+    try:
+        mesh = init_device_mesh("cuda", tuple(shape.shape),
+                                mesh_dim_names=tuple(shape.axis_names))
+        cfg = get_config(SH_TP_ARCH)
+        cell = SHAPES[SH_TP_SHAPE]
+        model = build_model(cfg)
+        meta = fake_params(SH_TP_ARCH)
+        leaves, treedef = TR.flatten(meta)
+        shs = TR.flatten_up_to(treedef, params_shardings(meta, mesh))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        placed = []
+        for x, sh in zip(leaves, shs):
+            region = local_region(tuple(x.shape), mesh, sh.placements)
+            local = torch.randn(tuple(r.stop - r.start for r in region),
+                                generator=gen, device=dev) * 0.02
+            placed.append(DTensor.from_local(
+                local, mesh, sh.placements, run_check=False,
+                shape=x.shape, stride=x.stride()))
+        params = TR.unflatten(treedef, placed)
+        del meta, leaves
+        opt = adamw_init(params)
+        toks = torch.randint(0, cfg.vocab, (cell.global_batch,
+                                            cell.seq_len + 1),
+                             generator=gen, device=dev, dtype=torch.int32)
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "labels": toks[:, 1:].contiguous()}
+        batch = distribute(batch, batch_shardings(batch, mesh))
+        del toks
+        step = make_train_step(model, TrainHParams())
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        out, roof = HA.analyze_step(step, params, opt, batch)
+        del out
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = step(params, opt, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - resident
+        del out
+        rows = cell.global_batch // mesh.size(0)
+        res = {"arch": cfg.arch_id, "depth": cfg.n_layers,
+               "mesh": "x".join(str(n) for n in shape.shape),
+               "rows": rows, "seq": cell.seq_len, "step_ms": step_ms,
+               "resident_bytes": resident,
+               "peak_above_resident_bytes": peak, "flops": roof.flops,
+               "temp_bytes": roof.temp_bytes, "arg_bytes": roof.arg_bytes,
+               "coll_bytes": roof.coll_bytes}
     finally:
-        torch.use_deterministic_algorithms(was_deterministic)
+        dist.destroy_process_group()
+    with open(out_json, "w") as f:
+        json.dump(res, f)
 
 
 def _run_sharding(torch, seed, dev, kernels, mesh):

@@ -9,8 +9,11 @@ ranks, whose collectives move nothing, through the DTensor path of
 
 - ``train``: the f32 parameters placed by ``params_shardings``, AdamW state
   on their placements, the global batch by ``batch_shardings``, one
-  ``make_train_step`` step (cast, gather, local loss and gradients, reduce,
-  AdamW on shards).
+  ``make_train_step`` step: each layer casts and gathers its weights where
+  it uses them, the dense decoder's attention, MLP, embedding and loss on
+  their ``model`` shards (the reference's activation sums over ``model``
+  among the collectives), each use's gradient reduced into its leaf's
+  shard, AdamW on shards.
 - ``prefill`` / ``decode``: bf16 parameters (:func:`serve_param_sds`)
   placed by :func:`serve_shardings` (TP-only: no ``data`` axis), the batch
   and the caches (``cache_shardings``) on theirs. The step gathers each
@@ -25,8 +28,8 @@ operand bytes by kind, the arguments' bytes and the step's peak of its
 own), the analytic useful FLOPs (:func:`model_flops`) and ``trace_s``,
 the seconds the trace took (it stands for the reference's ``lower_s`` and
 ``compile_s``). ``--sp`` is accepted and recorded but changes nothing: the
-port's models carry none of the reference's GSPMD layout hints
-(``sharding.api.shard`` returns a plain tensor as it is).
+port's models split heads, ``d_ff`` and the vocabulary over ``model`` but
+not yet the residual stream's sequence (the reference's ``seq_sp``).
 
 One process holds one default process group: the dry-run starts its own
 fake world and refuses to run where one already exists (the counterpart of
@@ -269,8 +272,8 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--accum-dtype", default="float32")
     ap.add_argument("--sp", action="store_true",
-                    help="accepted; changes nothing in the port (no GSPMD "
-                         "hints)")
+                    help="accepted; changes nothing in the port (no "
+                         "sequence split of the residual stream yet)")
     ap.add_argument("--ce-chunk", type=int, default=512)
     ap.add_argument("--print-hlo-collectives", action="store_true",
                     help="print each cell's counted collectives by kind")

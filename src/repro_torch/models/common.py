@@ -29,6 +29,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as _tree
 from repro_torch.core.sparse import resolve_device
 from repro_torch.models.layers import rms_norm
+from repro_torch.sharding.api import (gather_at_use, model_split,
+                                      sum_over_model)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -252,6 +254,24 @@ def per_layer(stack: dict, lead: int = 1):
     cols = [x.flatten(0, lead - 1).unbind(0) if lead > 1 else x.unbind(0)
             for x in leaves]
     return [_tree.unflatten(treedef, vals) for vals in zip(*cols)]
+
+
+def embed_lookup(embed, tokens: torch.Tensor, dtype: torch.dtype
+                 ) -> torch.Tensor:
+    """``embed``'s rows at ``tokens`` in ``dtype``. An ``embed`` leaf the
+    spec splits over ``model`` (a ``sharding.api.Placed``) is
+    vocabulary-parallel: each rank looks up the tokens that fall in its
+    rows, zeros elsewhere, and the sum over ``model`` (one nonzero term a
+    token) gives every rank the whole lookup."""
+    split = model_split(embed, 0)
+    table = gather_at_use(embed, keep_model=split is not None).to(dtype)
+    if split is None:
+        return table[tokens.long()]
+    rows = table.shape[0]
+    i = tokens.long() - split.rank * rows
+    inside = (i >= 0) & (i < rows)
+    out = torch.where(inside[..., None], table[i.clamp(0, rows - 1)], 0.0)
+    return sum_over_model(out, split)
 
 
 def maybe_remat(fn, remat: bool):

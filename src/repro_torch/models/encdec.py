@@ -26,9 +26,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.sparse import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.common import (TreeModel, dense_init, maybe_remat,
-                                       per_layer, stacked)
+from repro_torch.models.common import (TreeModel, dense_init, embed_lookup,
+                                       maybe_remat, per_layer, stacked)
 from repro_torch.models.transformer import chunked_ce
+from repro_torch.sharding.api import at_use, gather_at_use
 
 
 class EncDecCaches(NamedTuple):
@@ -140,11 +141,11 @@ class EncDecLM(TreeModel):
         x = (frames.to(cfg.cdtype)
              + sinusoidal_positions(Fr, d, device=frames.device).to(
                  cfg.cdtype))
-        layer = maybe_remat(lambda p_l, xc: self._enc_layer(p_l, xc, chunk),
-                            remat)
+        layer = maybe_remat(
+            lambda p_l, xc: self._enc_layer(at_use(p_l), xc, chunk), remat)
         for p_l in per_layer(params["enc_layers"]):
             x = layer(p_l, x)
-        return L.rms_norm(x, params["enc_ln"])
+        return L.rms_norm(x, gather_at_use(params["enc_ln"]))
 
     def _dec_layer_full(self, p_l, x, enc, chunk: int):
         h = L.rms_norm(x, p_l["ln1"])
@@ -164,11 +165,12 @@ class EncDecLM(TreeModel):
         (cross k, v))] a layer, or None)."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = params["embed"].to(cfg.cdtype)[tokens.long()]
+        x = embed_lookup(params["embed"], tokens, cfg.cdtype)
         x = x + sinusoidal_positions(S, cfg.d_model,
                                      device=x.device).to(x.dtype)
         layer = maybe_remat(
-            lambda p_l, xc, e: self._dec_layer_full(p_l, xc, e, chunk),
+            lambda p_l, xc, e: self._dec_layer_full(at_use(p_l), xc, e,
+                                                    chunk),
             remat)
         kv = []
         for p_l in per_layer(params["dec_layers"]):
@@ -183,7 +185,7 @@ class EncDecLM(TreeModel):
                           chunk=attn_chunk)
         x, _ = self.decode_full(params, batch["tokens"], enc, remat=remat,
                                 chunk=attn_chunk)
-        x = L.rms_norm(x, params["final_ln"])
+        x = L.rms_norm(x, gather_at_use(params["final_ln"]))
         return chunked_ce(x, params["head"], batch["labels"], chunk=ce_chunk)
 
     # ------------------------------------------------------------------
@@ -243,7 +245,7 @@ class EncDecLM(TreeModel):
         cfg = self.cfg
         B = tokens.shape[0]
         length = caches.length
-        x = params["embed"].to(cfg.cdtype)[tokens[:, None].long()]
+        x = embed_lookup(params["embed"], tokens[:, None], cfg.cdtype)
         L.require_full_precision(x)
         x = x + sinusoidal_positions(1, cfg.d_model,
                                      offset=length).to(x.dtype)

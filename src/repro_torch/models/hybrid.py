@@ -28,11 +28,13 @@ from repro_torch import tree as _tree
 from repro_torch.core.sparse import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ModelConfig, TreeModel, dense_init,
-                                       maybe_remat, per_layer, stacked)
+                                       embed_lookup, maybe_remat, per_layer,
+                                       stacked)
 from repro_torch.models.ssm import (MambaCache, init_mamba_params,
                                     mamba_block_decode, mamba_block_full,
                                     stack_mamba_caches, zero_mamba_cache)
 from repro_torch.models.transformer import chunked_ce
+from repro_torch.sharding.api import at_use, gather_at_use
 
 
 class HybridCaches(NamedTuple):
@@ -133,10 +135,10 @@ class HybridLM(TreeModel):
         cfg = self.cfg
         G, ae = self.n_groups, cfg.attn_every
         shared = params["shared"]
-        block = maybe_remat(lambda p_l, xc: mamba_block_full(p_l, xc, cfg),
-                            remat)
-        site = maybe_remat(lambda p, xc: self._shared_full(p, xc, positions,
-                                                           chunk), remat)
+        block = maybe_remat(
+            lambda p_l, xc: mamba_block_full(at_use(p_l), xc, cfg), remat)
+        site = maybe_remat(lambda p, xc: self._shared_full(
+            at_use(p), xc, positions, chunk), remat)
         layers = per_layer(params["mamba_layers"], lead=2)
         mcaches, kvs = [], []
         for g in range(G):
@@ -157,10 +159,10 @@ class HybridLM(TreeModel):
         B, S = labels.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=labels.device).expand(B, S)
-        x = params["embed"].to(self.cfg.cdtype)[tokens.long()]
+        x = embed_lookup(params["embed"], tokens, self.cfg.cdtype)
         x, _ = self.backbone(params, x, positions, remat=remat,
                              chunk=attn_chunk)
-        x = L.rms_norm(x, params["final_ln"])
+        x = L.rms_norm(x, gather_at_use(params["final_ln"]))
         return chunked_ce(x, params["head"], labels, chunk=ce_chunk)
 
     # ------------------------------------------------------------------
@@ -180,7 +182,7 @@ class HybridLM(TreeModel):
         dev = tokens.device
         positions = torch.arange(S, dtype=torch.int32, device=dev).expand(
             B, S)
-        x = params["embed"].to(self.cfg.cdtype)[tokens.long()]
+        x = embed_lookup(params["embed"], tokens, self.cfg.cdtype)
         x, (mcaches, kvs) = self.backbone(params, x, positions,
                                           collect_cache=True,
                                           chunk=attn_chunk)
@@ -213,7 +215,7 @@ class HybridLM(TreeModel):
         cfg = self.cfg
         G, ae = self.n_groups, cfg.attn_every
         length = caches.length
-        x = params["embed"].to(cfg.cdtype)[tokens[:, None].long()]
+        x = embed_lookup(params["embed"], tokens[:, None], cfg.cdtype)
         L.require_full_precision(x)
         layers = per_layer(params["mamba_layers"], lead=2)
         mc, ac = caches.mamba, caches.attn

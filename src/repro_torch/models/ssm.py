@@ -35,8 +35,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.sparse import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ModelConfig, TreeModel, dense_init,
-                                       maybe_remat, per_layer, stacked)
+                                       embed_lookup, maybe_remat, per_layer,
+                                       stacked)
 from repro_torch.models.transformer import chunked_ce
+from repro_torch.sharding.api import at_use, gather_at_use
 
 
 class MambaCache(NamedTuple):
@@ -262,8 +264,8 @@ class MambaLM(TreeModel):
         """All layers; returns (x, stacked :class:`MambaCache` or None)."""
         L.require_full_precision(x)
         cfg = self.cfg
-        block = maybe_remat(lambda p_l, xc: mamba_block_full(p_l, xc, cfg),
-                            remat)
+        block = maybe_remat(
+            lambda p_l, xc: mamba_block_full(at_use(p_l), xc, cfg), remat)
         caches = []
         for p_l in per_layer(params["layers"]):
             x, cache = block(p_l, x)
@@ -276,9 +278,9 @@ class MambaLM(TreeModel):
     def loss(self, params, batch, *, remat: bool = True, ce_chunk: int = 512,
              **_):
         tokens, labels = batch["tokens"], batch["labels"]
-        x = params["embed"].to(self.cfg.cdtype)[tokens.long()]
+        x = embed_lookup(params["embed"], tokens, self.cfg.cdtype)
         x, _ = self.backbone(params, x, remat=remat)
-        x = L.rms_norm(x, params["final_ln"])
+        x = L.rms_norm(x, gather_at_use(params["final_ln"]))
         return chunked_ce(x, params["head"], labels, chunk=ce_chunk)
 
     @torch.no_grad()
@@ -288,7 +290,7 @@ class MambaLM(TreeModel):
         returns (last-position logits (B, vocab) f32, caches stacked
         (n_layers, ...)). ``max_len`` is ignored, as the reference
         ignores it: the state is O(1) in the sequence."""
-        x = params["embed"].to(self.cfg.cdtype)[tokens.long()]
+        x = embed_lookup(params["embed"], tokens, self.cfg.cdtype)
         x, caches = self.backbone(params, x, collect_cache=True)
         return self.logits_last(params, x), caches
 
@@ -302,7 +304,7 @@ class MambaLM(TreeModel):
         """One token for every sequence. tokens: (B,) integers. Returns
         (logits (B, vocab) f32, new caches)."""
         cfg = self.cfg
-        x = params["embed"].to(cfg.cdtype)[tokens[:, None].long()]
+        x = embed_lookup(params["embed"], tokens[:, None], cfg.cdtype)
         L.require_full_precision(x)
         new = []
         for i, p_l in enumerate(per_layer(params["layers"])):

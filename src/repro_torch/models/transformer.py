@@ -32,6 +32,19 @@ when ``remat`` (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` of its scanned body); sorts a recomputation repeats are
 not counted (``core.sparse.uncounted_sorts``). Cross-entropy is computed in
 sequence chunks so the (B, S, V) logits tensor never materializes.
+
+On the sharded train step's leaves (``sharding.api.Placed``) each layer
+gathers its weights where it uses them, inside the body a checkpoint
+recomputes, and the blocks split over the mesh's ``model`` dim as the
+reference's specs and GSPMD hints split them: attention on this rank's
+heads (``wq``/``wk``/``wv`` column-parallel, ``wo`` row-parallel, then a
+sum over ``model``), the MLP column-parallel on ``w1``/``w3`` and
+row-parallel on ``w2``, the embedding a masked lookup of this rank's
+vocabulary rows and the loss on its ``head`` columns. Where the split
+does not fall on a head boundary the attention runs on its weights
+gathered over ``model`` too; where there are fewer KV heads than ranks
+(``T % n_kv_heads == 0``) each rank takes KV head ``r // (T /
+n_kv_heads)`` of ``wk``/``wv`` gathered whole (Megatron's rule).
 """
 from __future__ import annotations
 
@@ -44,8 +57,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.sparse import resolve_device, uncounted_sorts
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ModelConfig, TreeModel, dense_init,
-                                       per_layer, stacked)
+                                       embed_lookup, per_layer, stacked)
 from repro_torch.models.moe import init_moe_params, moe_ffn
+from repro_torch.sharding.api import (at_use, copy_to_model, gather_at_use,
+                                      max_over_model, model_split,
+                                      sum_over_model)
 
 #: Families this module builds; ``models.build_model`` sends the others
 #: to their own classes.
@@ -151,15 +167,13 @@ class TransformerLM(TreeModel):
     # ------------------------------------------------------------------
     # blocks
     # ------------------------------------------------------------------
-    def _project_qkv(self, p, h, positions, mrope_positions):
+    def _project_qkv(self, wq, wk, wv, h, positions, mrope_positions):
+        """q, k, v of ``h`` on the heads the weights' columns hold."""
         cfg = self.cfg
         B, S, _ = h.shape
-        q = (h @ p["wq"].to(h.dtype)).reshape(B, S, cfg.n_heads,
-                                              cfg.head_dim)
-        k = (h @ p["wk"].to(h.dtype)).reshape(B, S, cfg.n_kv_heads,
-                                              cfg.head_dim)
-        v = (h @ p["wv"].to(h.dtype)).reshape(B, S, cfg.n_kv_heads,
-                                              cfg.head_dim)
+        q = (h @ wq.to(h.dtype)).reshape(B, S, -1, cfg.head_dim)
+        k = (h @ wk.to(h.dtype)).reshape(B, S, -1, cfg.head_dim)
+        v = (h @ wv.to(h.dtype)).reshape(B, S, -1, cfg.head_dim)
         if cfg.mrope_sections != (0, 0, 0) and mrope_positions is not None:
             q = L.apply_mrope(q, mrope_positions, cfg.mrope_sections,
                               cfg.rope_theta)
@@ -170,18 +184,49 @@ class TransformerLM(TreeModel):
             k = L.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
+    def _attn_split(self, p):
+        """``(split, kv)``: the ``model`` layout a layer's attention runs
+        on its heads with (``None``: on its weights gathered whole), and
+        ``kv``, the one KV head this rank takes of ``wk``/``wv`` gathered
+        whole when there are fewer KV heads than ranks (``None``: its own
+        KV heads, from its columns)."""
+        cfg = self.cfg
+        split = model_split(p["wq"], -1)
+        if (split is None or cfg.n_heads % split.size
+                or model_split(p["wo"], -2) is None):
+            return None, None
+        T = split.size
+        if (cfg.n_kv_heads % T == 0 and model_split(p["wk"], -1)
+                and model_split(p["wv"], -1)):
+            return split, None
+        if T % cfg.n_kv_heads == 0:
+            return split, split.rank // (T // cfg.n_kv_heads)
+        return None, None
+
     def _attn_full(self, p, x, positions, window, mrope_positions, chunk):
         """Full-sequence attention (train / prefill); returns (x, (k, v))."""
-        h = L.rms_norm(x, p["ln1"])
-        q, k, v = self._project_qkv(p, h, positions, mrope_positions)
+        split, kv = self._attn_split(p)
+        h = L.rms_norm(x, gather_at_use(p["ln1"]))
+        h = copy_to_model(h, split)
+        wq, wo = (gather_at_use(p[n], keep_model=split is not None)
+                  for n in ("wq", "wo"))
+        if kv is None:
+            wk, wv = (gather_at_use(p[n], keep_model=split is not None)
+                      for n in ("wk", "wv"))
+        else:
+            hd = self.cfg.head_dim
+            wk, wv = (gather_at_use(p[n], model_partial=True)
+                      [:, kv * hd:(kv + 1) * hd] for n in ("wk", "wv"))
+        q, k, v = self._project_qkv(wq, wk, wv, h, positions,
+                                    mrope_positions)
         if (window > 0 and self.cfg.local_attn_fast_path
                 and x.shape[1] > window):
             o = L.local_window_attention(q, k, v, window=window)
         else:
             o = L.blockwise_attention(q, k, v, causal=True, window=window,
                                       chunk=chunk)
-        o = o.reshape(*x.shape[:2], -1) @ p["wo"].to(x.dtype)
-        return x + o, (k, v)
+        o = o.reshape(*x.shape[:2], -1) @ wo.to(x.dtype)
+        return x + sum_over_model(o, split), (k, v)
 
     def _attn_decode(self, p, x, cache: L.KVCache, length, mrope, chunk):
         """Single-token attention against a cache (a ring for a local
@@ -192,7 +237,7 @@ class TransformerLM(TreeModel):
         if mrope:
             mpos = length.reshape(1, 1, 1).expand(3, B, 1).to(torch.int32)
         h = L.rms_norm(x, p["ln1"])
-        q, k, v = self._project_qkv(p, h, pos, mpos)
+        q, k, v = self._project_qkv(p["wq"], p["wk"], p["wv"], h, pos, mpos)
         new_cache = L.cache_update_decode(cache._replace(length=length), k, v)
         S_max = cache.k.shape[1]
         kv_len = torch.clamp(length + 1, max=S_max)
@@ -202,18 +247,22 @@ class TransformerLM(TreeModel):
         return x + o, new_cache
 
     def _ffn(self, p, x):
-        """The FFN block; returns (x, aux), aux ``None`` without MoE."""
+        """The FFN block; returns (x, aux), aux ``None`` without MoE. The
+        MLP is column-parallel on ``w1``/``w3`` and row-parallel on ``w2``
+        where the spec splits ``d_ff`` over ``model``."""
         cfg = self.cfg
-        h = L.rms_norm(x, p["ln2"])
+        h = L.rms_norm(x, gather_at_use(p["ln2"]))
         if cfg.family == "moe":
-            y, aux = moe_ffn(p["moe"], h, cfg)
+            y, aux = moe_ffn(at_use(p["moe"]), h, cfg)
             return x + y, aux
-        if cfg.act == "silu":
-            y = L.swiglu(h, p["w1"].to(x.dtype), p["w3"].to(x.dtype),
-                         p["w2"].to(x.dtype))
-        else:
-            y = L.gelu_mlp(h, p["w1"].to(x.dtype), p["w2"].to(x.dtype))
-        return x + y, None
+        names = ("w1", "w3", "w2") if cfg.act == "silu" else ("w1", "w2")
+        splits = [model_split(p[n], -2 if n == "w2" else -1) for n in names]
+        split = splits[0] if all(splits) else None
+        h = copy_to_model(h, split)
+        w = [gather_at_use(p[n], keep_model=split is not None).to(x.dtype)
+             for n in names]
+        y = L.swiglu(h, *w) if cfg.act == "silu" else L.gelu_mlp(h, *w)
+        return x + sum_over_model(y, split), None
 
     def _layer_full(self, p, x, positions, window, mrope_positions, chunk):
         x, kv = self._attn_full(p, x, positions, window, mrope_positions,
@@ -245,7 +294,7 @@ class TransformerLM(TreeModel):
     def _embed(self, params, tokens=None, embeds=None):
         if embeds is not None:
             return embeds.to(self.cfg.cdtype)
-        return params["embed"].to(self.cfg.cdtype)[tokens.long()]
+        return embed_lookup(params["embed"], tokens, self.cfg.cdtype)
 
     def backbone(self, params, x, positions, mrope_positions=None, *,
                  remat: bool = False, collect_kv: bool = False,
@@ -284,7 +333,7 @@ class TransformerLM(TreeModel):
         x, aux, _ = self.backbone(params, x, positions,
                                   batch.get("mrope_positions"), remat=remat,
                                   chunk=attn_chunk)
-        x = L.rms_norm(x, params["final_ln"])
+        x = L.rms_norm(x, gather_at_use(params["final_ln"]))
         ce = chunked_ce(x, params["head"], labels, chunk=ce_chunk)
         return ce + 0.01 * aux
 
@@ -445,18 +494,40 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
                chunk: int = 512) -> torch.Tensor:
     """Cross-entropy without materializing (B, S, V): a loop over S chunks,
     each recomputed in backward (a chunk's (B, c, V) logits are never kept
-    for backward)."""
+    for backward). A ``head`` leaf the spec splits over ``model`` (a
+    ``sharding.api.Placed``) is vocabulary-parallel: each rank's logits
+    are its columns', and the max, the sum of ``exp`` and the gold logit
+    are combined over ``model`` in f32."""
     B, S, d = x.shape
     n = max(1, S // chunk)
     chunk = S // n
     if S % chunk != 0:
         raise ValueError("seq len must divide ce chunk count")
+    split = model_split(head, -1)
+    head = gather_at_use(head, keep_model=split is not None)
 
-    def step(xb, lb):
-        logits = (xb @ head.to(xb.dtype)).to(torch.float32)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lb[..., None].long())[..., 0]
-        return (lse - gold).sum()
+    if split is None:
+        def step(xb, lb):
+            logits = (xb @ head.to(xb.dtype)).to(torch.float32)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lb[..., None].long())[..., 0]
+            return (lse - gold).sum()
+    else:
+        x = copy_to_model(x, split)
+        cols = head.shape[-1]
+        lo = split.rank * cols
+
+        def step(xb, lb):
+            logits = (xb @ head.to(xb.dtype)).to(torch.float32)
+            m = max_over_model(logits.amax(dim=-1), split)
+            se = torch.exp(logits - m[..., None]).sum(dim=-1)
+            lse = m + torch.log(sum_over_model(se, split))
+            i = lb.long() - lo
+            inside = (i >= 0) & (i < cols)
+            gold = torch.gather(logits, -1,
+                                i.clamp(0, cols - 1)[..., None])[..., 0]
+            gold = sum_over_model(torch.where(inside, gold, 0.0), split)
+            return (lse - gold).sum()
 
     remat = torch.is_grad_enabled() and (x.requires_grad
                                          or head.requires_grad)

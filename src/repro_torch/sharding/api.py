@@ -18,12 +18,22 @@ Default mapping (FSDP×TP, MaxText-style):
   fsdp     -> data (parameter second-dim sharding = ZeRO-3 gather-at-use)
   pod      -> composes with data (batch/fsdp shard over ('pod', 'data'))
 
-The port's models do not call :func:`shard` where the reference's call
-its ``shard``: those calls are GSPMD layout hints that change no value,
-and the port's sharded train step (``train/step.py``) computes on gathered
-local tensors, where a hint would do nothing. :func:`shard` is kept for
-code that holds DTensors: with no mesh, or on a plain tensor, it returns
-its input.
+The reference's models call its ``shard`` with GSPMD layout hints, and
+XLA then gathers each layer's weights over ``data`` where it uses them and
+splits heads, ``d_ff`` and the vocabulary over ``model``. The port says
+the same in its models' own code (the last section of this module): the
+sharded train step (``train/step.py``) hands a model each parameter leaf
+as a :class:`Placed` (this rank's shard and its placement); a layer
+gathers its leaves where it uses them (:func:`gather_at_use`: over the
+data axes, and over ``model`` too unless the block computes on its
+``model`` shard), and the gradient comes back as the mean over the data
+axes into the leaf's own shard when that use's backward ends. A block
+that computes on its ``model`` shard (the dense decoder's attention, MLP,
+embedding and loss) takes :func:`model_split`'s layout and brackets its
+products with the Megatron pair :func:`copy_to_model` and
+:func:`sum_over_model`. :func:`shard` itself is kept for code that holds
+DTensors: with no mesh, or on a plain tensor (every activation of the
+port's models), it returns its input.
 
 A statistic the reference takes over the whole batch under ``jit`` (the
 MoE's capacity and router load) needs the other ranks' rows when each
@@ -41,7 +51,9 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch import tree as _tree
 
 _state = threading.local()
 
@@ -176,7 +188,11 @@ def named_sharding(*logical: Optional[str]) -> Optional[NamedSharding]:
 
 def shard(x, *logical: Optional[str]):
     """``x`` redistributed to the logical spec when a mesh context is active
-    and ``x`` is a DTensor; ``x`` itself otherwise."""
+    and ``x`` is a DTensor; ``x`` itself otherwise. The port's models call
+    no ``shard``: on a mesh their blocks gather their weights where they
+    use them and split their products over ``model`` themselves
+    (:func:`gather_at_use`, :func:`model_split`), and every activation
+    they hold is a plain tensor, which this returns as it is."""
     sh = named_sharding(*logical)
     if sh is None or not isinstance(x, DTensor):
         return x
@@ -235,3 +251,225 @@ def row_split_context(split: Optional[RowSplit]):
         yield split
     finally:
         _row_split = prev
+
+
+# ---------------------------------------------------------------------------
+# compute on local shards: each leaf gathered at its use, and the Megatron
+# pair over ``model``
+# ---------------------------------------------------------------------------
+
+def _dim_of(mesh, name: str) -> Optional[int]:
+    names = tuple(mesh.mesh_dim_names or ())
+    return names.index(name) if name in names else None
+
+
+@_tree.register_leaf_type
+@dataclasses.dataclass(frozen=True, eq=False)
+class Placed:
+    """A parameter leaf as the sharded train step hands it to a model:
+    ``local``, this rank's shard (the tensor the step differentiates), of a
+    tensor of global ``shape`` placed on ``placements`` of the
+    ``DeviceMesh`` ``mesh``; ``mean_dims``, the mesh dims the batch rows
+    are split over (a gradient is the mean over them); ``dtype``, the
+    compute dtype an f32 shard is cast to before it is gathered. A layer
+    stack's leading dims are never sharded: :meth:`unbind` and
+    :meth:`flatten` give its layers (``models.common.per_layer``)."""
+    local: torch.Tensor
+    mesh: Any
+    placements: tuple
+    shape: tuple
+    mean_dims: tuple
+    dtype: torch.dtype
+
+    def _lead(self, n: int) -> tuple:
+        """The placements with ``n`` leading dims taken off (they must be
+        unsharded)."""
+        if any(isinstance(pl, Shard) and pl.dim < n
+               for pl in self.placements):
+            raise ValueError(f"a stack's leading dims are sharded: "
+                             f"{self.placements}")
+        return tuple(Shard(pl.dim - n) if isinstance(pl, Shard) else pl
+                     for pl in self.placements)
+
+    def unbind(self, dim: int = 0) -> list:
+        if dim != 0:
+            raise ValueError("a Placed leaf unbinds its leading dim only")
+        pls = self._lead(1)
+        return [dataclasses.replace(self, local=x, placements=pls,
+                                    shape=self.shape[1:])
+                for x in self.local.unbind(0)]
+
+    def flatten(self, start: int, end: int) -> "Placed":
+        if start != 0:
+            raise ValueError("a Placed leaf flattens its leading dims only")
+        n = end + 1
+        pls = self._lead(n)
+        lead = math.prod(self.shape[:n])
+        return dataclasses.replace(
+            self, local=self.local.flatten(0, end),
+            placements=tuple(Shard(pl.dim + 1) if isinstance(pl, Shard)
+                             else pl for pl in pls),
+            shape=(lead,) + tuple(self.shape[n:]))
+
+
+class ModelSplit(NamedTuple):
+    """This rank's place on the mesh's ``model`` dim: ``size`` ranks,
+    this one ``rank``, their process ``group``."""
+    size: int
+    rank: int
+    group: Any
+
+
+def model_split(x, dim: int) -> Optional[ModelSplit]:
+    """The ``model`` dim's layout when ``x`` is a :class:`Placed` leaf
+    whose tensor dim ``dim`` (negative from the end) that dim alone
+    shards over more than one rank; ``None`` otherwise (a plain tensor,
+    or a leaf the spec leaves whole over ``model``: its block computes on
+    the whole leaf)."""
+    if not isinstance(x, Placed):
+        return None
+    m = _dim_of(x.mesh, "model")
+    if m is None or x.mesh.size(m) == 1:
+        return None
+    d = dim % len(x.shape)
+    if x.placements[m] != Shard(d):
+        return None
+    if any(pl == Shard(d) for i, pl in enumerate(x.placements) if i != m):
+        return None
+    return ModelSplit(x.mesh.size(m), x.mesh.get_local_rank(m),
+                      x.mesh.get_group(m))
+
+
+def _moved(t: torch.Tensor, mesh, src, dst, shape) -> torch.Tensor:
+    """This rank's part of ``dst`` of a tensor of global ``shape`` whose
+    part on ``src`` is ``t`` (DTensor's redistribution: all-gathers,
+    reduce-scatters and all-reduces over the dims that change)."""
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(
+        t.contiguous(), mesh, src, run_check=False, shape=torch.Size(shape),
+        stride=stride).redistribute(mesh, dst).to_local()
+
+
+def _gathered(x: "Placed", y: torch.Tensor, dst: tuple) -> torch.Tensor:
+    """The forward all-gather of :func:`gather_at_use`."""
+    return _moved(y, x.mesh, x.placements, dst, x.shape)
+
+
+def _reduced(x: "Placed", g: torch.Tensor, src: tuple) -> torch.Tensor:
+    """The backward reduction of :func:`gather_at_use` into ``x``'s
+    shard."""
+    return _moved(g, x.mesh, src, x.placements, x.shape)
+
+
+class _GatherAtUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, x, dst, grad_src):
+        ctx.leaf, ctx.grad_src = x, grad_src
+        ctx.local_dtype = local.dtype
+        y = local.to(x.dtype) if local.dtype == torch.float32 else local
+        return y if dst == x.placements else _gathered(x, y, dst)
+
+    @staticmethod
+    def backward(ctx, g):
+        x = ctx.leaf
+        g = g.to(ctx.local_dtype)
+        if ctx.grad_src != x.placements:
+            g = _reduced(x, g, ctx.grad_src)
+        return g, None, None, None
+
+
+def gather_at_use(x, *, keep_model: bool = False,
+                  model_partial: bool = False):
+    """``x`` as its block uses it: a plain tensor as it is; a
+    :class:`Placed` leaf cast to the compute dtype (an f32 shard), then
+    all-gathered over every mesh dim that shards it but ``model`` when
+    ``keep_model`` (the block then computes on its ``model`` shard). In
+    backward the gradient, cast to the shard's dtype, is reduced into the
+    leaf's own shard: the mean over ``mean_dims``, the sum over ``model``
+    when ``model_partial`` (each rank's product used only its part of the
+    gathered leaf), else taken as equal there. Call it inside the body a
+    checkpoint recomputes: the gathered value is then not saved for
+    backward, and backward gathers again."""
+    if not isinstance(x, Placed):
+        return x
+    m = _dim_of(x.mesh, "model")
+    dst, src = [], []
+    for i, pl in enumerate(x.placements):
+        if x.mesh.size(i) == 1:
+            dst.append(pl)
+            src.append(pl)
+            continue
+        kept = keep_model and i == m
+        dst.append(pl if kept else Replicate())
+        if i in x.mean_dims:
+            src.append(Partial("avg"))
+        elif kept:
+            src.append(pl)
+        elif model_partial and i == m:
+            src.append(Partial("sum"))
+        else:
+            src.append(Replicate())
+    dst, src = tuple(dst), tuple(src)
+    if dst == x.placements and src == x.placements:
+        return (x.local.to(x.dtype) if x.local.dtype == torch.float32
+                else x.local)
+    return _GatherAtUse.apply(x.local, x, dst, src)
+
+
+def at_use(tree):
+    """Every :class:`Placed` leaf of ``tree`` gathered whole
+    (:func:`gather_at_use`); plain leaves as they are."""
+    return _tree.tree_map(gather_at_use, tree)
+
+
+def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
+                ) -> torch.Tensor:
+    """``t`` reduced over ``group`` (a new tensor). An all-reduce hands
+    every rank the same bits."""
+    out = t.contiguous().clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def sum_over_model(t: torch.Tensor, split: Optional[ModelSplit]
+                   ) -> torch.Tensor:
+    """The sum of ``t`` over ``split``'s ranks, after a row-parallel
+    product (identity in backward); ``t`` itself with no split."""
+    return t if split is None else _SumOverModel.apply(t, split.group)
+
+
+def copy_to_model(t: torch.Tensor, split: Optional[ModelSplit]
+                  ) -> torch.Tensor:
+    """``t`` at the input of a column-parallel block: itself in forward,
+    its gradient summed over ``split``'s ranks in backward."""
+    return t if split is None else _CopyToModel.apply(t, split.group)
+
+
+def max_over_model(t: torch.Tensor, split: Optional[ModelSplit]
+                   ) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``split``'s ranks (no
+    gradient)."""
+    t = t.detach()
+    return t if split is None else _all_reduce(t, split.group,
+                                               dist.ReduceOp.MAX)

@@ -14,12 +14,14 @@ parameter trees (``repro_torch.tree``) and a model from
   (``repro_torch.sharding.params``: FSDP×TP over a ``("data", "model")``
   or ``("pod", "data", "model")`` ``DeviceMesh``) the same step is the
   reference's ``jit`` of it over a mesh, made explicit
-  (:func:`sharded_loss_and_grads`): each leaf is cast, then gathered whole;
-  each rank takes its rows of the global batch; the model runs on plain
-  local tensors, its batch-wide statistics (the MoE's capacity and load)
-  taken over every rank's rows; each gradient is reduced as the mean over
-  the data axes into its leaf's placements; AdamW updates each rank's
-  shards.
+  (:func:`sharded_loss_and_grads`): each rank takes its rows of the global
+  batch and hands the model its shards (``sharding.api.Placed``); each
+  layer casts and gathers its weights where it uses them, the dense
+  decoder's blocks split over ``model``, and each use's gradient is
+  reduced as the mean over the data axes into its leaf's shard when that
+  use's backward ends; the model's batch-wide statistics (the MoE's
+  capacity and load) are taken over every rank's rows; AdamW updates each
+  rank's shards.
 - :func:`make_compressed_train_step` is the reference's ``shard_map`` body
   run on every rank of a ``torch.distributed`` world: each rank takes its
   slice of the global batch (the reference's ``batch_spec``: the batch split
@@ -50,8 +52,8 @@ from repro_torch.core.allreduce import (MIN_COMPRESS_ELEMS,
 from repro_torch.kernels import xla_float
 from repro_torch.models.common import torch_dtype
 from repro_torch.optim import adamw_update, cosine_schedule
-from repro_torch.sharding.api import RowSplit, row_split_context
-from repro_torch.sharding.params import local_of, placed_like
+from repro_torch.sharding.api import Placed, RowSplit, row_split_context
+from repro_torch.sharding.params import placed_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,18 +70,29 @@ class TrainHParams:
     accum_dtype: str = "float32"  # bfloat16 halves grad-reduce traffic
 
 
+def _local(x) -> torch.Tensor:
+    """The tensor a leaf's gradient is taken for: a
+    :class:`~repro_torch.sharding.api.Placed` leaf's shard, a plain leaf
+    itself."""
+    return x.local if isinstance(x, Placed) else x
+
+
 def _loss_and_grads(model, hp: TrainHParams, params, batch):
     """``(loss, grads)`` of ``model.loss`` at ``params`` (a tree of
-    tensors), the gradients a list in leaf order, each in its leaf's type."""
+    tensors or of :class:`~repro_torch.sharding.api.Placed` shards), the
+    gradients a list in leaf order, each in its leaf's (its shard's)
+    type."""
     leaves, treedef = _tree.flatten(params)
-    leaves = [x.detach().requires_grad_() for x in leaves]
+    wrt = [_local(x).detach().requires_grad_() for x in leaves]
+    leaves = [dataclasses.replace(x, local=w) if isinstance(x, Placed)
+              else w for x, w in zip(leaves, wrt)]
     with torch.enable_grad():
         loss = model.loss(_tree.unflatten(treedef, leaves), batch,
                           remat=hp.remat, ce_chunk=hp.ce_chunk,
                           attn_chunk=hp.attn_chunk)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(loss, wrt, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
-             for g, x in zip(grads, leaves)]
+             for g, x in zip(grads, wrt)]
     return loss.detach(), grads
 
 
@@ -103,7 +116,7 @@ def _accumulated_grads(model, hp: TrainHParams, params_c, batch):
         return loss, [g.to(torch.float32) for g in grads]
     n = hp.grad_accum
     adt = torch_dtype(hp.accum_dtype)
-    leaves = _tree.leaves(params_c)
+    leaves = [_local(x) for x in _tree.leaves(params_c)]
     loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     acc = [torch.zeros(p.shape, dtype=adt, device=p.device) for p in leaves]
     for b in _micro_batches(batch, n):
@@ -115,14 +128,7 @@ def _accumulated_grads(model, hp: TrainHParams, params_c, batch):
 
 
 def _to_compute(x, compute_dtype):
-    if x.dtype != torch.float32:
-        return x
-    return placed_like(x, local_of(x).to(compute_dtype))
-
-
-def _gather(x) -> torch.Tensor:
-    """A DTensor leaf's whole value on every rank (an all-gather)."""
-    return x.full_tensor()
+    return x.to(compute_dtype) if x.dtype == torch.float32 else x
 
 
 def _reduce(g: torch.Tensor, mesh, mean_dims, placements) -> DTensor:
@@ -190,37 +196,39 @@ def _local_rows(batch: dict, mesh, n_micro: int = 1):
 
 def sharded_loss_and_grads(model, hp: TrainHParams, params, batch):
     """``(loss, grads)`` of :func:`make_train_step` on a tree of DTensor
-    parameters (one ``DeviceMesh``): each f32 leaf is cast to the compute
-    dtype, then gathered whole (cast first: the same bits, half the bytes
-    in bf16); each rank takes its rows of the global ``batch``; the loss
-    and its gradients are taken on plain local tensors (no kernel sees a
-    DTensor), under a :class:`~repro_torch.sharding.api.RowSplit` that
-    lets the MoE take its capacity and load statistics over the whole
-    batch, as the reference's ``jit`` does; and each gradient is reduced as the mean over the mesh dims
-    the batch is split over into its leaf's placements. A batch that is
-    replicated takes no mean: every rank already holds the same value, and
-    a mean of equal f32 values need not give it back. ``loss`` is the mean
-    over the same dims (a plain tensor)."""
+    parameters (one ``DeviceMesh``): each rank takes its rows of the
+    global ``batch`` and hands the model each leaf as a
+    :class:`~repro_torch.sharding.api.Placed` (its shard and placement);
+    each layer casts its leaves to the compute dtype, then gathers them
+    where it uses them (cast first: the same bits, half the bytes in
+    bf16), the dense decoder's blocks on their ``model`` shards; and each
+    use's gradient is reduced as the mean over the mesh dims the batch is
+    split over into its leaf's shard as that use's backward ends, so the
+    gradients reach each leaf already placed. The loss and its gradients
+    are taken on plain local tensors (no kernel sees a DTensor), under a
+    :class:`~repro_torch.sharding.api.RowSplit` that lets the MoE take its
+    capacity and load statistics over the whole batch, as the reference's
+    ``jit`` does. A batch that is replicated takes no mean: every rank
+    already holds the same value, and a mean of equal f32 values need not
+    give it back. ``loss`` is the mean over the same dims (a plain
+    tensor)."""
     leaves, treedef = _tree.flatten(params)
     if not all(isinstance(x, DTensor) for x in leaves):
         raise ValueError("a sharded step needs every parameter leaf as a "
                          "DTensor")
     mesh = leaves[0].device_mesh
-    compute_dtype = model.cfg.cdtype
-    full_c = [_gather(_to_compute(x, compute_dtype)) for x in leaves]
     local, split = _local_rows(batch, mesh, hp.grad_accum)
+    placed = [Placed(x.to_local(), mesh, tuple(x.placements),
+                     tuple(x.shape), split, model.cfg.cdtype)
+              for x in leaves]
     with row_split_context(RowSplit(mesh, split) if split else None):
         loss, grads = _accumulated_grads(
-            model, hp, _tree.unflatten(treedef, full_c), local)
-    del full_c
-    reduced = []
-    for i, x in enumerate(leaves):
-        reduced.append(_reduce(grads[i], mesh, split, x.placements))
-        grads[i] = None
+            model, hp, _tree.unflatten(treedef, placed), local)
+    grads = [placed_like(x, g) for x, g in zip(leaves, grads)]
     if split:
         loss = _reduce(loss, mesh, split,
                        [Replicate()] * mesh.ndim).to_local()
-    return loss, _tree.unflatten(treedef, reduced)
+    return loss, _tree.unflatten(treedef, grads)
 
 
 def make_train_step(model, hp: TrainHParams = TrainHParams()) -> Callable:

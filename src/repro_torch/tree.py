@@ -11,9 +11,10 @@ delta-frame headers — the port must walk a tree exactly as
 - each leaf named by ``jax.tree_util.keystr`` of its path: ``['layers']``
   for a dict key (its ``repr``), ``[0]`` for a position, concatenated.
 
-A leaf is a tensor, a numpy array, a Python or numpy scalar, or any other
+A leaf is a tensor, a numpy array, a Python or numpy scalar, any other
 object with ``__array__`` (a ``jax.Array`` of a reference params tree is
-one; JAX is not imported). Any other node type (a namedtuple, a set, an
+one; JAX is not imported), or an instance of a type given to
+:func:`register_leaf_type`. Any other node type (a namedtuple, a set, an
 object) raises ``TypeError``: the reference may flatten it in an order
 this module cannot know.
 """
@@ -26,6 +27,8 @@ import torch
 
 _LEAF_TYPES = (torch.Tensor, np.ndarray, np.generic, bool, int, float,
                complex)
+#: Types registered as leaves (:func:`register_leaf_type`).
+_EXTRA_LEAF_TYPES: List[type] = []
 
 #: A tree's structure without its leaves: ``("leaf",)``, ``("none",)``,
 #: ``("dict", keys, children)``, ``("list", children)`` or
@@ -48,12 +51,22 @@ def _walk(tree, path: str, leaves: List[Any], names: List[str]) -> TreeDef:
         children = tuple(_walk(c, f"{path}[{i}]", leaves, names)
                          for i, c in enumerate(tree))
         return (kind.__name__, children)
-    if isinstance(tree, _LEAF_TYPES) or hasattr(tree, "__array__"):
+    if (isinstance(tree, _LEAF_TYPES) or hasattr(tree, "__array__")
+            or isinstance(tree, tuple(_EXTRA_LEAF_TYPES))):
         leaves.append(tree)
         names.append(path)
         return ("leaf",)
     raise TypeError(f"tree node {path or '<root>'} of type {kind.__name__} "
                     f"is not a dict, list, tuple, None or array leaf")
+
+
+def register_leaf_type(cls: type) -> type:
+    """Walk instances of ``cls`` as leaves (a class that holds a tensor
+    with more than a tensor's data, such as a parameter's shard and its
+    placement); returns ``cls``."""
+    if cls not in _EXTRA_LEAF_TYPES:
+        _EXTRA_LEAF_TYPES.append(cls)
+    return cls
 
 
 def flatten_with_names(tree) -> Tuple[List[Any], List[str], TreeDef]:

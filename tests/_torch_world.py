@@ -336,22 +336,30 @@ def case_config(name: str, get_smoke_config):
 
 
 def _count_dense_bytes(ST):
-    """Wrap the sharded step's gather and reduce to count the bytes each
-    collective is handed (its operand, as an HLO op counts it): a
-    gather's local shard, a reduction's whole f32 gradient."""
-    tally = {"gather": 0, "reduce": 0}
-    gather, reduce = ST._gather, ST._reduce
+    """Wrap the sharded step's collectives on parameters to count the
+    bytes each is handed (its operand, as an HLO op counts it): a use's
+    forward gather of its leaf's local shard (``gather``), a use's
+    backward reduction of its f32 gradient into the leaf's shard, and the
+    loss's mean (``reduce``)."""
+    from repro_torch.sharding import api as A
 
-    def counted_gather(x):
-        loc = x.to_local()
-        tally["gather"] += loc.numel() * loc.element_size()
-        return gather(x)
+    tally = {"gather": 0, "reduce": 0}
+    gathered, reduced, reduce = A._gathered, A._reduced, ST._reduce
+
+    def counted_gathered(x, y, dst):
+        tally["gather"] += y.numel() * y.element_size()
+        return gathered(x, y, dst)
+
+    def counted_reduced(x, g, src):
+        tally["reduce"] += g.numel() * g.element_size()
+        return reduced(x, g, src)
 
     def counted_reduce(g, mesh, dims, placements):
         tally["reduce"] += g.numel() * g.element_size()
         return reduce(g, mesh, dims, placements)
 
-    ST._gather, ST._reduce = counted_gather, counted_reduce
+    A._gathered, A._reduced = counted_gathered, counted_reduced
+    ST._reduce = counted_reduce
     return tally
 
 
@@ -689,3 +697,214 @@ def cost_rank(rank: int, world: int, params_np) -> dict:
                    {k: torch.empty(v.shape, dtype=torch.int32)
                     for k, v in train_batch(0).items()})
     return {"real": real.to_dict(), "fake": fake.to_dict()}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism in the dense step (tests/test_torch_tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+#: The cases: name -> (arch, (data, model) mesh). The dense smoke configs
+#: on their model shards over 2 and 4 ranks (gemma3, InternLM2 and
+#: Qwen2-VL have 4 heads and 2 KV heads: at model = 4 their KV heads are
+#: replicated in pairs), and on (2, 2) the families that gather their
+#: layers at use and split only the vocabulary: Moonshot's MoE, Mamba2,
+#: Zamba2 (its shared block at each site) and Whisper.
+TP_ARCHS = ("gemma3_27b", "qwen2_vl_72b", "stablelm_3b", "internlm2_1_8b")
+TP_MESHES = {"tp2": (1, 2), "dp2xtp2": (2, 2), "tp4": (1, 4)}
+TP_GATHER_ARCHS = ("moonshot_v1_16b_a3b", "mamba2_370m", "zamba2_2_7b",
+                   "whisper_medium")
+TP_CASES = {**{f"{a}/{m}": (a, shape) for a in TP_ARCHS
+               for m, shape in TP_MESHES.items()},
+            **{f"{a}/dp2xtp2": (a, (2, 2)) for a in TP_GATHER_ARCHS},
+            # a ("pod", "data", "model") mesh: the data axes are two dims
+            "gemma3_27b/pod2xtp2": ("gemma3_27b", (2, 1, 2))}
+TP_STEPS = 2
+
+
+def tp_cases(world: int) -> list:
+    return [k for k, (_, m) in TP_CASES.items()
+            if int(np.prod(m)) == world]
+
+
+def tp_batch(step: int, cfg) -> dict:
+    """The global batch of ``step`` for ``cfg`` as numpy arrays: tokens
+    and labels (the encoder-decoder's frame embeddings too), or for the
+    VLM patch embeddings, M-RoPE positions of three distinct streams and
+    labels."""
+    B, S = TRAIN_BATCH
+    rng = np.random.default_rng(200 + step)
+    toks = rng.integers(0, cfg.vocab, (B, S + 1), dtype=np.int32)
+    out = {"labels": toks[:, 1:].copy()}
+    if cfg.family == "vlm":
+        out["embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)
+        pos = np.broadcast_to(np.arange(S, dtype=np.int32), (3, B, S)).copy()
+        pos[1] //= 3
+        pos[2] %= 5
+        out["mrope_positions"] = pos
+    else:
+        out["tokens"] = toks[:, :-1].copy()
+    if cfg.family == "encdec":
+        out["embeds"] = rng.standard_normal(
+            (B, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    return out
+
+
+#: The vocabulary-parallel CE's inputs: (B, S, d), a vocabulary of V; and
+#: a vocabulary no model size divides, whose head the spec leaves whole.
+CE_SHAPE = (2, 8, 16)
+CE_VOCAB = 32
+CE_VOCAB_ODD = 33
+
+
+def ce_inputs(T: int, vocab: int = CE_VOCAB):
+    """``(x, head, labels)`` of the CE check at ``T`` model ranks: the
+    labels take the first and last column of every rank's block of the
+    vocabulary, and the rest at random."""
+    B, S, d = CE_SHAPE
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((B, S, d)).astype(np.float32)
+    head = rng.standard_normal((d, vocab)).astype(np.float32)
+    cols = vocab // T
+    edges = sorted({c for r in range(T)
+                    for c in (r * cols, (r + 1) * cols - 1)})
+    labels = rng.integers(0, vocab, (B, S), dtype=np.int32)
+    flat = labels.reshape(-1)
+    flat[:len(edges)] = edges
+    return x, head, labels
+
+
+def _ce_on_model_shards(T: int, vocab: int) -> dict:
+    """``chunked_ce`` with ``head`` placed by its spec on a (1, ``T``)
+    mesh (split over the model dim when ``vocab`` divides): the loss, the
+    input's gradient and the head's gathered whole."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.transformer import chunked_ce
+    from repro_torch.sharding.api import Placed
+    from repro_torch.sharding.params import distribute, params_shardings
+
+    mesh = init_device_mesh("cpu", (1, T), mesh_dim_names=("data", "model"))
+    x, head, labels = (torch.from_numpy(a) for a in ce_inputs(T, vocab))
+    placed = distribute({"head": head}, params_shardings({"head": head},
+                                                         mesh))["head"]
+    local = placed.to_local().detach().requires_grad_()
+    x = x.detach().requires_grad_()
+    leaf = Placed(local, mesh, tuple(placed.placements), tuple(head.shape),
+                  (), torch.float32)
+    loss = chunked_ce(x, leaf, labels, chunk=4)
+    gx, gh = torch.autograd.grad(loss, (x, local))
+    whole = DTensor.from_local(gh, mesh, placed.placements).full_tensor()
+    return {"loss": float(loss), "dx": gx.numpy(), "dhead": whole.numpy(),
+            "placements": [str(p) for p in placed.placements]}
+
+
+def _live_gathered_bytes() -> dict:
+    """On a (2, 1) mesh, one dense step of gemma3's smoke config on fake
+    tensors: the peak of the bytes the step's gathers hold at once, beside
+    one layer's leaves, the top leaves and the whole tree."""
+    import weakref
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import tree as TR
+    from repro_torch.compat import fake_tensor_mode
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import api as A
+    from repro_torch.sharding.params import distribute, params_shardings
+    from repro_torch.train import TrainHParams, make_train_step
+
+    cfg = get_smoke_config("gemma3_27b")
+    model = build_model(cfg)
+    mesh = init_device_mesh("cpu", (2, 1), mesh_dim_names=("data", "model"))
+    state = {"live": 0, "peak": 0, "calls": 0}
+    real = A._gathered
+
+    def freed(n):
+        state["live"] -= n
+
+    def tracked(x, y, dst):
+        out = real(x, y, dst)
+        st = out.untyped_storage()
+        state["live"] += st.nbytes()
+        state["calls"] += 1
+        state["peak"] = max(state["peak"], state["live"])
+        weakref.finalize(st, freed, st.nbytes())
+        return out
+
+    def nbytes(x):
+        return x.numel() * x.element_size()
+
+    A._gathered = tracked
+    try:
+        with fake_tensor_mode()():
+            params = model.init(0, device="cpu")
+            layer = sum(nbytes(x[0]) for x in TR.leaves(params["extra_local"])
+                        if x.dim() > 2)
+            top = nbytes(params["embed"]) + nbytes(params["head"])
+            tree = sum(nbytes(x) for x in TR.leaves(params))
+            params = distribute(params, params_shardings(params, mesh))
+            batch = {k: torch.empty(v.shape, dtype=torch.int32)
+                     for k, v in tp_batch(0, cfg).items()}
+            step = make_train_step(model, TrainHParams(**TRAIN_HP))
+            step(params, adamw_init(params), batch)
+    finally:
+        A._gathered = real
+    return {"peak": state["peak"], "calls": state["calls"], "layer": layer,
+            "top": top, "tree": tree}
+
+
+def tensor_parallel_rank(rank: int, world: int, params_by_arch: dict
+                         ) -> dict:
+    """This world's :data:`TP_CASES`: the params and moments after
+    :data:`TP_STEPS` dense steps from the arch's tree, gathered whole,
+    and the metrics (the grad norm's bits too); the vocabulary-parallel
+    CE over the world's ranks; at world 2 the live gathered bytes of a
+    (2, 1) step on fake tensors."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import interop
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.params import (distribute, gathered,
+                                             params_shardings)
+    from repro_torch.train import TrainHParams, make_train_step
+
+    def leaves_np(tree):
+        return [x.numpy().copy() for x in TR.leaves(gathered(tree))]
+
+    out = {}
+    for name in tp_cases(world):
+        arch, shape = TP_CASES[name]
+        cfg = get_smoke_config(arch)
+        model = build_model(cfg)
+        names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                           "model")
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        plain = interop.params_from_numpy(params_by_arch[arch], "cpu")
+        params = distribute(plain, params_shardings(plain, mesh))
+        opt = adamw_init(params)
+        step = make_train_step(model, TrainHParams(**TRAIN_HP))
+        mets = []
+        for s in range(TP_STEPS):
+            batch = {k: torch.from_numpy(v)
+                     for k, v in tp_batch(s, cfg).items()}
+            params, opt, met = step(params, opt, batch)
+            mets.append({k: float(v) for k, v in met.items()}
+                        | {"grad_norm_bits": met["grad_norm"].numpy()
+                           .tobytes()})
+        out[name] = {"params": leaves_np(params), "mu": leaves_np(opt.mu),
+                     "nu": leaves_np(opt.nu), "metrics": mets}
+    out["ce"] = _ce_on_model_shards(world, CE_VOCAB)
+    out["ce_odd"] = _ce_on_model_shards(world, CE_VOCAB_ODD)
+    if world == 2:
+        out["live"] = _live_gathered_bytes()
+    return out

@@ -12,17 +12,23 @@ the reference's, on the CPU.
   product too, whose value no gradient needs; XLA drops that dead product
   from its rematerialized forward (2 layers × 2 key chunks × 2·B·S·Hq·D·C
   FLOPs, the whole gap).
-- Collectives: one smoke step on a (2, 2) gloo world. The reductions hand
-  209,860 B a rank to their collectives (a reduce-scatter or all-reduce of
-  each whole f32 gradient, and the loss's all-reduce: the count
-  ``tests/test_torch_sharded_step.py`` takes at the step's ``_reduce``). The
-  gathers hand 156,720 B in 19 all-gathers: each leaf's local shard
-  (52,224 B; the count taken at the step's ``_gather``, 53,184 B, took the
-  replicated norms' 960 B too, which no collective moves), again each
-  half-gathered block of the leaves sharded over both axes (DTensor
-  gathers them one mesh dim at a time; GSPMD's one all-gather over the
-  combined axes has no second stage), and the grad norm's table of
-  partial sums (4 B a leaf).
+- Collectives: one smoke step on a (2, 2) gloo world, worked out from the
+  leaves' specs and the activations' shapes. Each layer gathers its
+  leaves where it uses them (twice: the forward and the checkpoint's
+  recompute), the embedding, ``head`` and the MLP on their ``model``
+  shards (gathered over ``data`` only; the smoke config's 3 heads do not
+  split over 2 ranks, so the attention's weights are gathered whole, one
+  all-gather a sharded mesh dim: DTensor gathers one mesh dim at a time),
+  and each use's gradient is reduced into its leaf's shard as its
+  backward ends: 141,360 B in 47 all-gathers (the grad norm's table of
+  partial sums, 4 B a leaf, among them), 129,024 B in 16
+  reduce-scatters, and 150,980 B in 22 all-reduces: the replicated
+  norms' gradients, the loss, and the sums over ``model`` of the
+  activations (the lookup's, each split MLP's in forward and of its
+  input's gradient in backward, the loss's input gradient, and each CE
+  chunk's max, sum of ``exp`` and gold logit; the checkpoint's recompute
+  stops at the last product whose inputs backward needs, so it repeats
+  no sum after that).
 - Fake and real CPU tensors give the same counts, to the byte.
 """
 import math
@@ -42,6 +48,7 @@ from repro.optim import adamw_init as ref_adamw_init
 from repro.train import TrainHParams as RefHP
 from repro.train import make_train_step as ref_make_train_step
 from repro_torch import interop
+from repro_torch import tree as TR
 from repro_torch.compat import fake_tensor_mode
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import hlo_analysis as PH
@@ -169,45 +176,61 @@ def world_counts(params_np):
 
 def expected_collectives(params_np) -> dict:
     """The operand bytes and calls of one step's collectives on (2, 2), a
-    rank, worked out from the leaves' placements."""
+    rank, worked out from the leaves' placements, which blocks split over
+    ``model``, and the activations' shapes."""
+    cfg = get_smoke_config(W.TRAIN_ARCH)
     mesh = MeshShape(("data", "model"), (2, 2))
-    leaves = jax.tree.leaves(params_np)
-    specs = jax.tree.leaves(params_shardings(params_np, mesh),
-                            is_leaf=lambda x: hasattr(x, "spec"))
-    out = {"shards": 0, "replicated": 0, "gather": 0, "gathers": 0, "scatter": 0,
-           "scatters": 0, "allreduce": 4, "allreduces": 1}  # + the loss
-    for leaf, sh in zip(leaves, specs):
+    leaves, names, treedef = TR.flatten_with_names(params_np)
+    specs = TR.flatten_up_to(treedef, params_shardings(params_np, mesh))
+    # the blocks on their model shards: the vocabulary and d_ff divide,
+    # the 3 heads do not
+    kept = {"embed", "head", "w1", "w3", "w2"}
+    assert cfg.vocab % 2 == 0 and cfg.d_ff % 2 == 0 and cfg.n_heads % 2
+    out = {"gather": 0, "gathers": 0, "scatter": 0, "scatters": 0,
+           "allreduce": 4, "allreduces": 1}  # + the loss's mean
+    for leaf, name, sh in zip(leaves, names, specs):
+        short = name.split("'")[-2]
+        stacked = leaf.shape[0] if name.startswith("['layers']") else 1
+        whole = leaf.size // stacked * 4         # one layer, f32
         pl = spec_placements(sh.spec, mesh)
-        split = [i for i, p in enumerate(pl) if p.is_shard()]
-        whole = leaf.size * 4
-        local = whole // (2 ** len(split))
-        out["shards" if split else "replicated"] += local
-        # one all-gather a sharded mesh dim: the local shard, then the
-        # block the first gather made
-        for stage in range(len(split)):
-            out["gather"] += local * 2 ** stage
-            out["gathers"] += 1
-        if 0 in split:      # sharded over data: the mean reduce-scatters
-            out["scatter"] += whole
-            out["scatters"] += 1
+        uses = stacked * (2 if stacked > 1 else 1)  # + the recompute
+        local = whole // 2 ** sum(p.is_shard() for p in pl)
+        if short in kept:          # over data only: one all-gather
+            stages, grad = [local], whole // 2
+        else:                      # one a sharded mesh dim
+            stages = [local * 2 ** i for i in range(sum(p.is_shard()
+                                                        for p in pl))]
+            grad = whole
+        out["gather"] += uses * sum(stages)
+        out["gathers"] += uses * len(stages)
+        if pl[0].is_shard():       # sharded over data: reduce-scatter
+            out["scatter"] += stacked * grad
+            out["scatters"] += stacked
         else:
-            out["allreduce"] += whole
-            out["allreduces"] += 1
+            out["allreduce"] += stacked * grad
+            out["allreduces"] += stacked
     # the grad norm: one all-gather of a partial sum a leaf
     out["gather"] += 4 * len(leaves)
     out["gathers"] += 1
+    # the sums over model of (4 rows, 32 positions, d) activations: the
+    # lookup; each layer's MLP output in forward and its input's gradient
+    # in backward (the recompute stops at the w2 product); the loss's
+    # input gradient; each CE chunk's (4, 16) max, sum of exp and gold in
+    # forward, the first two again in the recompute
+    B, S = W.TRAIN_BATCH
+    act = B // 2 * S * cfg.d_model * 4
+    chunks = S // W.TRAIN_HP["ce_chunk"]
+    row = B // 2 * W.TRAIN_HP["ce_chunk"] * 4
+    out["allreduce"] += (1 + 2 * cfg.n_layers + 1) * act + chunks * 5 * row
+    out["allreduces"] += 1 + 2 * cfg.n_layers + 1 + chunks * 5
     return out
 
 
 def test_collectives_of_a_smoke_step_on_two_by_two(world_counts, params_np):
     want = expected_collectives(params_np)
-    n = sum(x.size for x in jax.tree.leaves(params_np))
-    # the count taken at the step's _gather (test_torch_sharded_step.py)
-    # took every leaf's local shard, the replicated norms' too, which no
-    # collective moves
-    assert want["shards"] + want["replicated"] == 53_184
-    assert want["scatter"] + want["allreduce"] == 4 * n + 4 == 209_860
-    assert want["gather"] == 156_720
+    assert (want["gather"], want["gathers"]) == (141_360, 47)
+    assert (want["scatter"], want["scatters"]) == (129_024, 16)
+    assert (want["allreduce"], want["allreduces"]) == (150_980, 22)
     for r in world_counts:
         real = r["real"]
         assert real["coll_by_kind"] == {
@@ -216,7 +239,8 @@ def test_collectives_of_a_smoke_step_on_two_by_two(world_counts, params_np):
         assert real["coll_counts"] == {
             "all-gather": want["gathers"], "reduce-scatter": want["scatters"],
             "all-reduce": want["allreduces"]}
-        assert real["coll_bytes"] == want["gather"] + 209_860
+        assert real["coll_bytes"] == (want["gather"] + want["scatter"]
+                                      + want["allreduce"])
         assert r["fake"] == real
 
 

@@ -163,19 +163,49 @@ def test_world_of_one_is_bitwise_the_plain_step(sharded):
         assert a == b
 
 
+def param_collective_bytes(params_np) -> dict:
+    """The bytes one dense step on (2, 2) hands its collectives on
+    parameters, a rank, from the specs: each use's gather of its leaf's
+    local shard (a layer's leaves twice, in the forward and in the
+    checkpoint's recompute; none for a replicated leaf), each use's
+    reduction of its f32 gradient (the leaf's whole layer, half of it for
+    the leaves the blocks keep on their ``model`` shards: the vocabulary
+    and the MLP; the smoke config's 3 heads do not split over 2), and the
+    loss's mean."""
+    from repro_torch import tree as TR
+    from repro_torch.sharding.api import MeshShape, spec_placements
+    from repro_torch.sharding.params import params_shardings
+
+    mesh = MeshShape(("data", "model"), (2, 2))
+    leaves, names, treedef = TR.flatten_with_names(params_np)
+    specs = TR.flatten_up_to(treedef, params_shardings(params_np, mesh))
+    kept = {"embed", "head", "w1", "w3", "w2"}
+    out = {"gather": 0, "reduce": 4}
+    for leaf, name, sh in zip(leaves, names, specs):
+        stacked = leaf.shape[0] if name.startswith("['layers']") else 1
+        whole = leaf.size // stacked * 4
+        n_shard = sum(p.is_shard() for p in spec_placements(sh.spec, mesh))
+        if n_shard:
+            out["gather"] += (stacked * (2 if stacked > 1 else 1)
+                              * whole // 2 ** n_shard)
+        out["reduce"] += stacked * (whole // 2 if name.split("'")[-2]
+                                    in kept else whole)
+    return out
+
+
 def test_collective_bytes_of_a_dense_and_a_compressed_step(sharded,
                                                            params_np):
-    """The bytes one step hands to its collectives on (2, 2): each
-    gather's local shard (f32 here: the smoke config computes in f32) and
-    each reduction's whole f32 gradient (and the f32 loss, as the
-    reference's HLO count has it); beside them the bytes one
-    compressed step (k 0.05) lands in a rank's receive buffers on two
-    ranks. Printed (``-s``) for PERF.md; the reduction's count is exact."""
+    """The bytes one step hands to its collectives on parameters on (2,
+    2) (f32 here: the smoke config computes in f32), exactly as
+    :func:`param_collective_bytes` works them out; beside them the bytes
+    one compressed step (k 0.05) lands in a rank's receive buffers on two
+    ranks. Printed (``-s``) for PERF.md."""
     n = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(params_np))
+    want = param_collective_bytes(params_np)
+    assert (want["gather"], want["reduce"]) == (92_160, 129_988)
     dense = [r["bytes"] for r in sharded[0]["dp2xtp2"]]
     for b in dense:
-        assert b["reduce"] == 4 * n + 4  # every gradient, and the loss
-        assert 0 < b["gather"] < 4 * n
+        assert b == want
     comp = sharded[1]["compressed_bytes"]
     assert all(0 < c < 4 * n for c in comp)
     print(f"\nsmoke {W.TRAIN_ARCH}: {n} params; dense step on (2, 2), per "
