@@ -140,7 +140,10 @@ result, when no CUDA card is present or the package is missing.
    each layer gathered at use and the blocks on their ``model`` shards,
    its step ms, its peak above resident against the same cell's dry-run
    ``temp_bytes`` (run on the host meanwhile), and its counted FLOPs equal
-   to the dry-run's.
+   to the dry-run's; then (f) the same for Moonshot-16B-A3B at full depth,
+   its experts on their ``model`` shards over the rank's block of the
+   dispatch buffer's capacity, the combine's segment fold launched and its
+   largest call replayed bitwise through the plain fold.
 13. ``tools`` (:func:`run_tools`): on the same mesh, SmolLM-135M's dense
    step under ``launch/hlo_analysis.py``'s ``analyze_step`` on the card
    and on fake tensors of the same shapes (the FLOP counts equal as
@@ -262,6 +265,8 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sharding-rank0", metavar="OUT_JSON",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--rank0-arch", default=SH_TP_ARCH,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -276,7 +281,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, SRC)
     if args.sharding_rank0:
-        sharding_rank0(torch, args.seed, args.sharding_rank0)
+        sharding_rank0(torch, args.seed, args.sharding_rank0,
+                       args.rank0_arch)
         return 0
     try:
         return run(args, torch)
@@ -3142,6 +3148,11 @@ SH_EPOCHS = 2
 SH_TP_ARCH = "gemma3_27b"
 SH_TP_SHAPE = "train_4k"
 SH_TP_TIMEOUT_S = 300
+#: Phase ``sharding`` (f): the same for Moonshot-16B-A3B, its experts on
+#: their ``model`` shards (4 of 64 a rank) over this rank's block of the
+#: capacity (7,680 of 122,880 slots): at its full depth of 48, since its
+#: dry-run count (27.4 GiB) is under a card's 74.5 GiB.
+SH_EP_ARCH = "moonshot_v1_16b_a3b"
 
 
 def first_mismatch(torch, names, want, got) -> str:
@@ -3181,8 +3192,14 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
     their ``model`` shards; its ms, its peak above resident against the
     fake ``temp_bytes`` of the same cell's dry-run (started on the host at
     the phase's start, read last), and its counted FLOPs, which must equal
-    the dry-run's as integers. The fake collectives move nothing and hand
-    back uninitialized memory, so (e) holds no value to anything. Two runs
+    the dry-run's as integers. (f) The same for Moonshot-16B-A3B at full
+    depth (:data:`SH_EP_ARCH`): the MoE's experts on their ``model``
+    shards over this rank's block of the capacity; the combine's segment
+    fold must launch (its launches join the phase's), and its largest
+    call is replayed through the plain fold on its ``gid`` and size with
+    values drawn on the card. The fake collectives move nothing and hand
+    back uninitialized memory, so (e) and (f) hold no value of the step
+    to anything. Two runs
     of one path agree bitwise only on deterministic kernels, so (a) and (b)
     run under ``torch.use_deterministic_algorithms(True, warn_only=True)``
     (the sorted ``index_put_`` accumulate of the embedding's and the MoE
@@ -3196,67 +3213,85 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
     use_full_precision()
     gc.collect()
     torch.cuda.empty_cache()
-    # (e)'s fake count, on the host's CPU while (a)-(d) run on the card
+    # (e)'s and (f)'s fake counts, on the host's CPU while (a)-(d) run on
+    # the card
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_sharding_")
-    dry_json = os.path.join(out_dir, "dryrun.json")
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    t_dry = time.perf_counter()
-    dry = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         SH_TP_ARCH, "--shape", SH_TP_SHAPE, "--mesh", "single", "--out",
-         dry_json], env=dict(env, CUDA_VISIBLE_DEVICES=""),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    drys = {}
     try:
+        for part, arch in (("e", SH_TP_ARCH), ("f", SH_EP_ARCH)):
+            dry_json = os.path.join(out_dir, f"dryrun_{part}.json")
+            drys[part] = (arch, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", SH_TP_SHAPE, "--mesh", "single",
+                 "--out", dry_json], env=dict(env, CUDA_VISIBLE_DEVICES=""),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                dry_json, time.perf_counter())
         was_deterministic = torch.are_deterministic_algorithms_enabled()
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             phase = _run_sharding(torch, seed, dev, kernels, mesh)
         finally:
             torch.use_deterministic_algorithms(was_deterministic)
-        gc.collect()
-        torch.cuda.empty_cache()
-        phase["rank0"] = _sharding_rank0_on_card(
-            torch, seed, env, os.path.join(out_dir, "rank0.json"), dry,
-            dry_json, t_dry)
-    except BaseException:
-        if dry.poll() is None:
-            dry.kill()
-            dry.communicate()
-        raise
-    phase["reduced"].append(
-        f"{SH_TP_ARCH} (e): one rank of 256 under a fake process group "
-        f"(the other ranks' work and the wire not run)")
+        for part, key in (("e", "rank0"), ("f", "rank0_moe")):
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase[key] = _sharding_rank0_on_card(
+                torch, seed, env, os.path.join(out_dir, f"rank0_{part}.json"),
+                part, *drys[part])
+    finally:
+        for _, dry, _, _ in drys.values():
+            if dry.poll() is None:
+                dry.kill()
+                dry.communicate()
+    moe = phase["rank0_moe"]
+    check(moe["launches"].get("segment_fold", 0) > 0, "phase sharding (f): "
+          "the MoE combine's segment fold did not launch")
+    check("segment_fold" in moe["plain_replays"], "phase sharding (f): the "
+          "MoE combine's largest fold was not replayed")
+    for name, n in moe["launches"].items():
+        phase["launches"][name] = phase["launches"].get(name, 0) + n
+    for name, r in moe["plain_replays"].items():
+        prev = phase["plain_replays"].get(name)
+        if prev is not None:  # one kernel replayed twice
+            r = {"what": f"{prev['what']}; {r['what']}",
+                 "each": prev.get("each", [prev]) + [r],
+                 "max_abs_err": max(prev["max_abs_err"], r["max_abs_err"])}
+        phase["plain_replays"][name] = r
+    for part, arch in (("e", SH_TP_ARCH), ("f", SH_EP_ARCH)):
+        phase["reduced"].append(
+            f"{arch} ({part}): one rank of 256 under a fake process group "
+            f"(the other ranks' work and the wire not run)")
     return phase
 
 
-def _sharding_rank0_on_card(torch, seed, env, out_json, dry, dry_json,
-                            t_dry) -> dict:
-    """Part (e) of phase ``sharding``: :func:`sharding_rank0` in a
-    subprocess on the card, held to the host's dry-run of the same cell
-    (the FLOPs as integers; the peak above resident against
-    ``temp_bytes`` as a ratio, not gated)."""
+def _sharding_rank0_on_card(torch, seed, env, out_json, part, arch, dry,
+                            dry_json, t_dry) -> dict:
+    """Part ``part`` ((e) or (f)) of phase ``sharding``:
+    :func:`sharding_rank0` on ``arch`` in a subprocess on the card, held
+    to the host's dry-run of the same cell (the FLOPs as integers; the
+    peak above resident against ``temp_bytes`` as a ratio, not gated)."""
+    what = f"phase sharding ({part})"
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--seed",
-         str(seed), "--sharding-rank0", out_json], env=env,
-        capture_output=True, text=True, timeout=SH_TP_TIMEOUT_S)
+         str(seed), "--sharding-rank0", out_json, "--rank0-arch", arch],
+        env=env, capture_output=True, text=True, timeout=SH_TP_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"phase sharding (e): the rank-0 process "
-          f"exited {proc.returncode}:\n{proc.stdout[-2000:]}"
-          f"{proc.stderr[-2000:]}")
+    check(proc.returncode == 0, f"{what}: the rank-0 process exited "
+          f"{proc.returncode}:\n{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
     with open(out_json) as f:
         e = json.load(f)
     text, _ = dry.communicate(timeout=SH_TP_TIMEOUT_S)
-    check(dry.returncode == 0, f"phase sharding (e): the dry-run exited "
+    check(dry.returncode == 0, f"{what}: the dry-run exited "
           f"{dry.returncode}:\n{text[-2000:]}")
     with open(dry_json) as f:
         (rec,) = json.load(f)
-    check(rec["status"] == "ok", f"phase sharding (e): the dry-run cell "
-          f"says {rec['status']}")
-    check(int(e["flops"]) == int(rec["flops"]), f"phase sharding (e): the "
-          f"card counted {int(e['flops'])} FLOPs, the fake tensors "
-          f"{int(rec['flops'])}")
+    check(rec["status"] == "ok", f"{what}: the dry-run cell says "
+          f"{rec['status']}")
+    check(int(e["flops"]) == int(rec["flops"]), f"{what}: the card counted "
+          f"{int(e['flops'])} FLOPs, the fake tensors {int(rec['flops'])}")
     e.update(fake_flops=rec["flops"], fake_temp_bytes=rec["temp_bytes"],
              fake_arg_bytes=rec["arg_bytes"],
              fake_coll_bytes=rec["coll_bytes"],
@@ -3265,7 +3300,7 @@ def _sharding_rank0_on_card(torch, seed, env, out_json, dry, dry_json,
              useful_flops_ratio=rec["useful_flops_ratio"],
              wall_s=wall_s, dry_wall_s=time.perf_counter() - t_dry,
              card=nvidia_smi_line())
-    log(f"phase sharding (e): {e['arch']} depth {e['depth']} on rank 0 of "
+    log(f"{what}: {e['arch']} depth {e['depth']} on rank 0 of "
         f"{e['mesh']} ({e['rows']} x {e['seq']} tokens a rank), on "
         f"{e['card']}: step {e['step_ms']:.1f} ms (the fake collectives "
         f"move nothing); peak above resident "
@@ -3274,19 +3309,23 @@ def _sharding_rank0_on_card(torch, seed, env, out_json, dry, dry_json,
         f"({rec['temp_bytes'] / 2**30:.2f} GiB; resident "
         f"{e['resident_bytes'] / 2**30:.2f} GiB, fake arg_bytes "
         f"{rec['arg_bytes'] / 2**30:.2f} GiB); counted FLOPs "
-        f"{int(e['flops'])} = the fake count; ({wall_s:.1f} s, the "
-        f"dry-run {e['dry_wall_s']:.1f} s on the host)")
+        f"{int(e['flops'])} = the fake count; launches {e['launches']} "
+        f"({wall_s:.1f} s, the dry-run {e['dry_wall_s']:.1f} s on the "
+        f"host)")
     return e
 
 
-def sharding_rank0(torch, seed: int, out_json: str) -> None:
+def sharding_rank0(torch, seed: int, out_json: str,
+                   arch: str = SH_TP_ARCH) -> None:
     """This process as rank 0 of the 16 x 16 production mesh under
-    PyTorch's ``fake`` process group, on the card: :data:`SH_TP_ARCH`'s
-    parameters (this rank's shards only, drawn on the card) and AdamW
-    state placed by ``params_shardings``, ``train_4k``'s global batch, one
-    dense step under ``analyze_step`` (its FLOPs and ``temp_bytes``), then
-    one step timed (host ms ending in a synchronize) with its peak above
-    resident. Writes the numbers to ``out_json``."""
+    PyTorch's ``fake`` process group, on the card: ``arch``'s parameters
+    (this rank's shards only, drawn on the card) and AdamW state placed by
+    ``params_shardings``, ``train_4k``'s global batch, one dense step
+    under ``analyze_step`` (its FLOPs and ``temp_bytes``), then one step
+    timed (host ms ending in a synchronize) with its peak above resident
+    and the kernels' launches, each count set to 0 just before it. The
+    timed step's largest MoE combine fold, if any, is replayed through the
+    plain fold afterwards, bitwise. Writes the numbers to ``out_json``."""
     import gc
 
     import torch.distributed as dist
@@ -3296,10 +3335,12 @@ def sharding_rank0(torch, seed: int, out_json: str) -> None:
     from repro_torch import compat
     from repro_torch import tree as TR
     from repro_torch.configs import get_config
+    from repro_torch.kernels import segment
     from repro_torch.launch import hlo_analysis as HA
     from repro_torch.launch.mesh import chips, production_mesh_shape
     from repro_torch.launch.shard_memory import fake_params
     from repro_torch.models import build_model
+    from repro_torch.models import moe as MOE
     from repro_torch.models.common import SHAPES
     from repro_torch.models.layers import use_full_precision
     from repro_torch.optim import adamw_init
@@ -3316,10 +3357,10 @@ def sharding_rank0(torch, seed: int, out_json: str) -> None:
     try:
         mesh = init_device_mesh("cuda", tuple(shape.shape),
                                 mesh_dim_names=tuple(shape.axis_names))
-        cfg = get_config(SH_TP_ARCH)
+        cfg = get_config(arch)
         cell = SHAPES[SH_TP_SHAPE]
         model = build_model(cfg)
-        meta = fake_params(SH_TP_ARCH)
+        meta = fake_params(arch)
         leaves, treedef = TR.flatten(meta)
         shs = TR.flatten_up_to(treedef, params_shardings(meta, mesh))
         gen = torch.Generator(device=dev)
@@ -3350,12 +3391,40 @@ def sharding_rank0(torch, seed: int, out_json: str) -> None:
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        out = step(params, opt, batch)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3
+        # the largest combine fold's gid and size, not its values: those
+        # come over the fake collectives, uninitialized
+        largest, fold = {}, MOE.segment_fold
+
+        def keeping_fold(vals, gid, num_segments):
+            if vals.numel() > largest.get("numel", 0):
+                largest.update(numel=vals.numel(), shape=tuple(vals.shape),
+                               dtype=vals.dtype, gid=gid, n=num_segments)
+            return fold(vals, gid, num_segments)
+
+        MOE.segment_fold = keeping_fold
+        segment.segment_fold.launches = 0
+        try:
+            t0 = time.perf_counter()
+            out = step(params, opt, batch)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            MOE.segment_fold = fold
         peak = torch.cuda.max_memory_allocated(dev) - resident
-        del out
+        launches = {"segment_fold": segment.segment_fold.launches}
+        del out, params, opt, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain_replays = {}
+        if largest:  # values drawn on the card, replayed outside the count
+            vals = torch.randn(largest["shape"], generator=gen,
+                               device=dev).to(largest["dtype"])
+            plain_replays["segment_fold"] = replay_through_plain(
+                torch, segment.segment_fold, segment.segment_fold_plain,
+                ((vals, largest["gid"], largest["n"]), {}),
+                f"phase sharding: {cfg.arch_id}'s largest MoE combine fold "
+                f"on rank 0 (its gid and size; values drawn)")
+            del vals
         rows = cell.global_batch // mesh.size(0)
         res = {"arch": cfg.arch_id, "depth": cfg.n_layers,
                "mesh": "x".join(str(n) for n in shape.shape),
@@ -3363,7 +3432,8 @@ def sharding_rank0(torch, seed: int, out_json: str) -> None:
                "resident_bytes": resident,
                "peak_above_resident_bytes": peak, "flops": roof.flops,
                "temp_bytes": roof.temp_bytes, "arg_bytes": roof.arg_bytes,
-               "coll_bytes": roof.coll_bytes}
+               "coll_bytes": roof.coll_bytes, "launches": launches,
+               "plain_replays": plain_replays}
     finally:
         dist.destroy_process_group()
     with open(out_json, "w") as f:

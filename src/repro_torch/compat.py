@@ -59,3 +59,24 @@ def torch_dispatch_mode():
         raise _missing("TorchDispatchMode", e) from None
     return TorchDispatchMode
 
+
+def is_fake(t) -> bool:
+    """``torch._subclasses.fake_tensor.is_fake``: ``t`` is a fake tensor
+    (a shape and a dtype, no values to read)."""
+    try:
+        from torch._subclasses.fake_tensor import is_fake as _is_fake
+    except ImportError as e:
+        raise _missing("is_fake", e) from None
+    return _is_fake(t)
+
+
+def beneath_dispatch_modes():
+    """``torch.utils._python_dispatch._disable_current_modes()``: a block
+    whose operations run beneath every active dispatch mode, so that a
+    check that reads a tensor's values on the host is not counted as a
+    step's work by the cost analysis (``launch/hlo_analysis.py``)."""
+    try:
+        from torch.utils._python_dispatch import _disable_current_modes
+    except ImportError as e:
+        raise _missing("_disable_current_modes", e) from None
+    return _disable_current_modes()

@@ -12,8 +12,10 @@ ranks, whose collectives move nothing, through the DTensor path of
   ``make_train_step`` step: each layer casts and gathers its weights where
   it uses them, the dense decoder's attention, MLP, embedding and loss on
   their ``model`` shards (the reference's activation sums over ``model``
-  among the collectives), each use's gradient reduced into its leaf's
-  shard, AdamW on shards.
+  among the collectives), the MoE's experts on theirs over this rank's
+  block of the dispatch buffer's capacity (its tokens moved by a
+  reduce-scatter and an all-gather over ``data``), each use's gradient
+  reduced into its leaf's shard, AdamW on shards.
 - ``prefill`` / ``decode``: bf16 parameters (:func:`serve_param_sds`)
   placed by :func:`serve_shardings` (TP-only: no ``data`` axis), the batch
   and the caches (``cache_shardings``) on theirs. The step gathers each

@@ -44,7 +44,10 @@ vocabulary rows and the loss on its ``head`` columns. Where the split
 does not fall on a head boundary the attention runs on its weights
 gathered over ``model`` too; where there are fewer KV heads than ranks
 (``T % n_kv_heads == 0``) each rank takes KV head ``r // (T /
-n_kv_heads)`` of ``wk``/``wv`` gathered whole (Megatron's rule).
+n_kv_heads)`` of ``wk``/``wv`` gathered whole (Megatron's rule). The MoE
+layer takes its router gathered whole and its experts on their ``model``
+shards, over this rank's block of the dispatch buffer's capacity
+(``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -54,12 +57,13 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import compat
 from repro_torch.core.sparse import resolve_device, uncounted_sorts
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ModelConfig, TreeModel, dense_init,
                                        embed_lookup, per_layer, stacked)
 from repro_torch.models.moe import init_moe_params, moe_ffn
-from repro_torch.sharding.api import (at_use, copy_to_model, gather_at_use,
+from repro_torch.sharding.api import (copy_to_model, gather_at_use,
                                       max_over_model, model_split,
                                       sum_over_model)
 
@@ -249,11 +253,12 @@ class TransformerLM(TreeModel):
     def _ffn(self, p, x):
         """The FFN block; returns (x, aux), aux ``None`` without MoE. The
         MLP is column-parallel on ``w1``/``w3`` and row-parallel on ``w2``
-        where the spec splits ``d_ff`` over ``model``."""
+        where the spec splits ``d_ff`` over ``model``; the MoE gathers its
+        own leaves (its experts kept on their ``model`` shards)."""
         cfg = self.cfg
         h = L.rms_norm(x, gather_at_use(p["ln2"]))
         if cfg.family == "moe":
-            y, aux = moe_ffn(at_use(p["moe"]), h, cfg)
+            y, aux = moe_ffn(p["moe"], h, cfg)
             return x + y, aux
         names = ("w1", "w3", "w2") if cfg.act == "silu" else ("w1", "w2")
         splits = [model_split(p[n], -2 if n == "w2" else -1) for n in names]
@@ -490,6 +495,20 @@ class TransformerLM(TreeModel):
                                     length=length + 1)
 
 
+def _check_labels(labels: torch.Tensor, vocab: int) -> None:
+    """Refuse a label outside ``[0, vocab)`` (one host sync). The read
+    runs beneath the dispatch modes, so the cost analysis counts the same
+    step on real and on fake tensors; fake tensors (the dry-run) have no
+    values to read and are let through."""
+    if compat.is_fake(labels) or labels.device.type == "meta":
+        return
+    with compat.beneath_dispatch_modes():
+        bad = (labels < 0) | (labels >= vocab)
+        if bool(bad.any()):
+            raise ValueError(f"a label lies outside [0, {vocab}): "
+                             f"{int(labels[bad][0])}")
+
+
 def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
                chunk: int = 512) -> torch.Tensor:
     """Cross-entropy without materializing (B, S, V): a loop over S chunks,
@@ -497,12 +516,14 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     for backward). A ``head`` leaf the spec splits over ``model`` (a
     ``sharding.api.Placed``) is vocabulary-parallel: each rank's logits
     are its columns', and the max, the sum of ``exp`` and the gold logit
-    are combined over ``model`` in f32."""
+    are combined over ``model`` in f32. A label outside ``[0, vocab)``
+    raises ``ValueError`` on either path, before any chunk."""
     B, S, d = x.shape
     n = max(1, S // chunk)
     chunk = S // n
     if S % chunk != 0:
         raise ValueError("seq len must divide ce chunk count")
+    _check_labels(labels, head.shape[-1])
     split = model_split(head, -1)
     head = gather_at_use(head, keep_model=split is not None)
 

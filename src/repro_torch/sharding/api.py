@@ -39,7 +39,9 @@ A statistic the reference takes over the whole batch under ``jit`` (the
 MoE's capacity and router load) needs the other ranks' rows when each
 rank computes on its own: the sharded step says where they are with
 :func:`row_split_context`, and the model reads it with
-:func:`get_row_split`.
+:func:`get_row_split`. A movement whose output each rank uses for rows of
+its own (the MoE's tokens to their slot's owner and back) is
+:func:`redistributed`, whose backward placements are stated.
 """
 from __future__ import annotations
 
@@ -420,6 +422,30 @@ def at_use(tree):
     """Every :class:`Placed` leaf of ``tree`` gathered whole
     (:func:`gather_at_use`); plain leaves as they are."""
     return _tree.tree_map(gather_at_use, tree)
+
+
+class _Redistributed(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, shape, places, grad_places):
+        ctx.mesh, ctx.shape, ctx.grad_places = mesh, shape, grad_places
+        return _moved(t, mesh, *places, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_moved(g, ctx.mesh, *ctx.grad_places, ctx.shape), None, None,
+                None, None)
+
+
+def redistributed(t: torch.Tensor, mesh, shape, places: tuple,
+                  grad_places: tuple) -> torch.Tensor:
+    """This rank's part of a tensor of global ``shape`` moved from
+    placements ``places[0]`` (``t`` its part there) to ``places[1]``, and
+    in backward its gradient from ``grad_places[0]`` to
+    ``grad_places[1]``. For a movement whose output each rank uses for
+    rows of its own: the output's gradients then differ between ranks
+    that hold the same block, which DTensor's own backward of a
+    replicated output takes as equal."""
+    return _Redistributed.apply(t, mesh, tuple(shape), places, grad_places)
 
 
 def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM

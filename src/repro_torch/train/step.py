@@ -208,10 +208,10 @@ def sharded_loss_and_grads(model, hp: TrainHParams, params, batch):
     are taken on plain local tensors (no kernel sees a DTensor), under a
     :class:`~repro_torch.sharding.api.RowSplit` that lets the MoE take its
     capacity and load statistics over the whole batch, as the reference's
-    ``jit`` does. A batch that is replicated takes no mean: every rank
-    already holds the same value, and a mean of equal f32 values need not
-    give it back. ``loss`` is the mean over the same dims (a plain
-    tensor)."""
+    ``jit`` does, and place its capacity blocks over ``data``. A batch
+    that is replicated takes no mean: every rank already holds the same
+    value, and a mean of equal f32 values need not give it back. ``loss``
+    is the mean over the same dims (a plain tensor)."""
     leaves, treedef = _tree.flatten(params)
     if not all(isinstance(x, DTensor) for x in leaves):
         raise ValueError("a sharded step needs every parameter leaf as a "

@@ -306,7 +306,8 @@ SHARDED_CASES = {"dp2": ((2, 1), 8, 1), "tp2": ((1, 2), 8, 1),
                  "dp2_b3": ((2, 1), 3, 1), "dp2xtp2": ((2, 2), 8, 1),
                  "dp2xtp2_accum2": ((2, 2), 8, 2), "one": ((1, 1), 8, 1),
                  "moe_dp2": ((2, 1), 8, 1), "moe_cap1_dp2": ((2, 1), 8, 1),
-                 "moe_cap1_dp2xtp2_accum2": ((2, 2), 8, 2)}
+                 "moe_cap1_dp2xtp2_accum2": ((2, 2), 8, 2),
+                 "moe_cap1_one": ((1, 1), 8, 1)}
 SHARDED_STEPS = 2
 #: The MoE cases' model: moonshot's smoke config, with ``capacity_factor``
 #: 1.0 in the ``cap1`` cases (its own 8.0 drops nothing), so that the
@@ -314,7 +315,7 @@ SHARDED_STEPS = 2
 #: runs :data:`TRAIN_ARCH`'s smoke config.
 MOE_ARCH = "moonshot_v1_16b_a3b"
 MOE_CAPACITY = {"moe_dp2": None, "moe_cap1_dp2": 1.0,
-                "moe_cap1_dp2xtp2_accum2": 1.0}
+                "moe_cap1_dp2xtp2_accum2": 1.0, "moe_cap1_one": 1.0}
 
 
 def sharded_cases(world: int) -> list:
@@ -707,8 +708,13 @@ def cost_rank(rank: int, world: int, params_np) -> dict:
 #: on their model shards over 2 and 4 ranks (gemma3, InternLM2 and
 #: Qwen2-VL have 4 heads and 2 KV heads: at model = 4 their KV heads are
 #: replicated in pairs), and on (2, 2) the families that gather their
-#: layers at use and split only the vocabulary: Moonshot's MoE, Mamba2,
-#: Zamba2 (its shared block at each site) and Whisper.
+#: layers at use and split only the vocabulary: Mamba2, Zamba2 (its shared
+#: block at each site) and Whisper. The MoE smoke configs compute their
+#: experts on this rank's block of the dispatch buffer: Moonshot's (8
+#: experts, top-2) on (2, 2), and at capacity factor 1.0 (the ``cap1``
+#: cases, :data:`TP_CAPACITY`) on (2, 2), (1, 4), (4, 1) and (2, 1, 2)
+#: (the buffer replicated over ``pod``); Llama4-Scout's (4 experts, top-1)
+#: on (1, 4).
 TP_ARCHS = ("gemma3_27b", "qwen2_vl_72b", "stablelm_3b", "internlm2_1_8b")
 TP_MESHES = {"tp2": (1, 2), "dp2xtp2": (2, 2), "tp4": (1, 4)}
 TP_GATHER_ARCHS = ("moonshot_v1_16b_a3b", "mamba2_370m", "zamba2_2_7b",
@@ -717,13 +723,69 @@ TP_CASES = {**{f"{a}/{m}": (a, shape) for a in TP_ARCHS
                for m, shape in TP_MESHES.items()},
             **{f"{a}/dp2xtp2": (a, (2, 2)) for a in TP_GATHER_ARCHS},
             # a ("pod", "data", "model") mesh: the data axes are two dims
-            "gemma3_27b/pod2xtp2": ("gemma3_27b", (2, 1, 2))}
+            "gemma3_27b/pod2xtp2": ("gemma3_27b", (2, 1, 2)),
+            **{f"moonshot_v1_16b_a3b/cap1_{m}": ("moonshot_v1_16b_a3b",
+                                                 shape)
+               for m, shape in (("dp2xtp2", (2, 2)), ("tp4", (1, 4)),
+                                ("dp4", (4, 1)), ("pod2xtp2", (2, 1, 2)))},
+            "llama4_scout_17b_a16e/tp4": ("llama4_scout_17b_a16e", (1, 4))}
+#: The cases whose config takes another capacity factor: 1.0, at which
+#: the whole batch's capacity binds and assignments drop (the smoke
+#: configs' 8.0 drops nothing).
+TP_CAPACITY = {k: 1.0 for k in TP_CASES if "/cap1_" in k}
 TP_STEPS = 2
 
 
 def tp_cases(world: int) -> list:
     return [k for k, (_, m) in TP_CASES.items()
             if int(np.prod(m)) == world]
+
+
+def tp_config(name: str, get_smoke_config):
+    """The smoke config of the :data:`TP_CASES` case ``name``, from either
+    package's ``get_smoke_config``."""
+    import dataclasses
+
+    cfg = get_smoke_config(TP_CASES[name][0])
+    if name in TP_CAPACITY:
+        cfg = dataclasses.replace(cfg, capacity_factor=TP_CAPACITY[name])
+    return cfg
+
+
+#: Fault G's inputs: a (1, 4, 16) ``x`` and a (16, 32) head from seed 7,
+#: the labels ``[[1, 2, bad, 3]]`` with each bad label, CE chunk 4.
+CE_REFUSED = (-1, 32)
+
+
+def _ce_refusals(T: int) -> dict:
+    """``{(path, bad label): what chunked_ce did}`` on a (1, ``T``) mesh:
+    the exception's type name, or ``"returned"``; ``path`` is ``"whole"``
+    (a plain head) or ``"split"`` (the head placed over ``model``)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models.transformer import chunked_ce
+    from repro_torch.sharding.api import Placed
+    from repro_torch.sharding.params import distribute, params_shardings
+
+    mesh = init_device_mesh("cpu", (1, T), mesh_dim_names=("data", "model"))
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((1, 4, 16)).astype(np.float32))
+    head = torch.from_numpy(rng.standard_normal((16, 32)).astype(np.float32))
+    placed = distribute({"head": head}, params_shardings({"head": head},
+                                                         mesh))["head"]
+    split = Placed(placed.to_local(), mesh, tuple(placed.placements),
+                   tuple(head.shape), (), torch.float32)
+    out = {}
+    for path, h in (("whole", head), ("split", split)):
+        for bad in CE_REFUSED:
+            labels = torch.tensor([[1, 2, bad, 3]], dtype=torch.int32)
+            try:
+                chunked_ce(x, h, labels, chunk=4)
+                out[path, bad] = "returned"
+            except Exception as e:  # what it raised is the result
+                out[path, bad] = type(e).__name__
+    return out
 
 
 def tp_batch(step: int, cfg) -> dict:
@@ -863,9 +925,11 @@ def tensor_parallel_rank(rank: int, world: int, params_by_arch: dict
                          ) -> dict:
     """This world's :data:`TP_CASES`: the params and moments after
     :data:`TP_STEPS` dense steps from the arch's tree, gathered whole,
-    and the metrics (the grad norm's bits too); the vocabulary-parallel
-    CE over the world's ranks; at world 2 the live gathered bytes of a
-    (2, 1) step on fake tensors."""
+    and the metrics (the grad norm's bits too), the MoE assignments
+    dropped and the shapes of every dispatch buffer and ``we1`` the
+    experts' SwiGLU took; the vocabulary-parallel CE over the world's
+    ranks; at world 2 the live gathered bytes of a (2, 1) step on fake
+    tensors and fault G's refusals on (1, 2)."""
     import torch
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -881,11 +945,24 @@ def tensor_parallel_rank(rank: int, world: int, params_by_arch: dict
     def leaves_np(tree):
         return [x.numpy().copy() for x in TR.leaves(gathered(tree))]
 
+    from repro_torch.models import moe as MOE
+
+    drops = _count_drops(MOE)
+    buffers = set()
+    swiglu = MOE.experts_swiglu
+
+    def recorded(buf, we1, we3, we2):
+        buffers.add((tuple(buf.shape), tuple(we1.shape)))
+        return swiglu(buf, we1, we3, we2)
+
+    MOE.experts_swiglu = recorded
     out = {}
     for name in tp_cases(world):
         arch, shape = TP_CASES[name]
-        cfg = get_smoke_config(arch)
+        cfg = tp_config(name, get_smoke_config)
         model = build_model(cfg)
+        drops[0] = 0
+        buffers.clear()
         names = ("data", "model") if len(shape) == 2 else ("pod", "data",
                                                            "model")
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
@@ -902,8 +979,12 @@ def tensor_parallel_rank(rank: int, world: int, params_by_arch: dict
                         | {"grad_norm_bits": met["grad_norm"].numpy()
                            .tobytes()})
         out[name] = {"params": leaves_np(params), "mu": leaves_np(opt.mu),
-                     "nu": leaves_np(opt.nu), "metrics": mets}
+                     "nu": leaves_np(opt.nu), "metrics": mets,
+                     "dropped": drops[0], "buffers": sorted(buffers)}
+    MOE.experts_swiglu = swiglu
     out["ce"] = _ce_on_model_shards(world, CE_VOCAB)
+    if world == 2:
+        out["ce_refused"] = _ce_refusals(world)
     out["ce_odd"] = _ce_on_model_shards(world, CE_VOCAB_ODD)
     if world == 2:
         out["live"] = _live_gathered_bytes()

@@ -12,9 +12,10 @@
   the moments DTensors with the params' placements; at world 1 the DTensor
   path bitwise the plain path; the bytes one dense and one compressed step
   hand to their collectives. The MoE cases run moonshot's smoke config,
-  twice with a capacity that binds, on (2, 1) and (2, 2) with
-  ``grad_accum=2``: the capacity and the load-balance loss are the whole
-  batch's, as under the reference's ``jit``.
+  three times with a capacity that binds, on (2, 1), on (2, 2) with
+  ``grad_accum=2`` and at world 1 (bitwise the plain step): the capacity
+  and the load-balance loss are the whole batch's, as under the
+  reference's ``jit``.
 - Elastic checkpoints (the twin of
   ``tests/test_substrate.py::test_elastic_reshard_multidevice``): saved on
   a 4-rank data mesh, restored onto (2, 2) ``P('data', 'model')`` and (4,
@@ -156,6 +157,19 @@ def test_batch_rows_split_over_data_or_replicate(sharded):
 def test_world_of_one_is_bitwise_the_plain_step(sharded):
     (res,) = sharded[0]["one"]
     plain = res["plain"]
+    for kind in ("params", "mu", "nu"):
+        for a, b in zip(res[kind], plain[kind]):
+            assert a.tobytes() == b.tobytes(), kind
+    for a, b in zip(res["metrics"], plain["metrics"]):
+        assert a == b
+
+
+def test_world_of_one_moe_is_bitwise_the_plain_step(sharded):
+    """At world 1 the MoE keeps its whole buffer and the plain step's
+    bits, with assignments dropped."""
+    (res,) = sharded[0]["moe_cap1_one"]
+    plain = res["plain"]
+    assert res["dropped"] == plain["dropped"] > 0
     for kind in ("params", "mu", "nu"):
         for a, b in zip(res[kind], plain[kind]):
             assert a.tobytes() == b.tobytes(), kind

@@ -13,16 +13,24 @@ and (1, 4), and gemma3's also on a ``("pod", "data", "model")`` mesh
 - the smoke configs of gemma3 (local:global groups; 4 heads and 2 KV
   heads, which at model = 4 are replicated in pairs), Qwen2-VL (patch
   embeddings and M-RoPE positions of three distinct streams), StableLM
-  and InternLM2, and on (2, 2) those of Moonshot's MoE, Mamba2, Zamba2
-  (one shared block gathered at each of its sites) and Whisper, whose
-  layers are gathered at use and only their vocabulary split, two steps
-  each: params,
+  and InternLM2, and on (2, 2) those of Mamba2, Zamba2 (one shared block
+  gathered at each of its sites) and Whisper, whose layers are gathered
+  at use and only their vocabulary split, two steps each: params,
   moments, loss and grad norm within ``tests/test_torch_train_step.py``'s
   tolerances of the reference's unsharded ``jit`` step, and the same bits
   on every rank;
+- the MoE's experts on their ``model`` shards over this rank's block of
+  the capacity (``models/moe.py``): Moonshot's smoke config on (2, 2),
+  and at capacity factor 1.0 (the capacity binds and drops) on (2, 2),
+  (1, 4), (4, 1) and (2, 1, 2) (``pod``: the buffer replicated there),
+  Llama4-Scout's on (1, 4), held as above; each
+  rank's dispatch buffer (E / model, ceil(C / data), d) and its ``we1``
+  (E / model, d, d_ff);
 - the vocabulary-parallel cross-entropy against ``chunked_ce`` on the
   whole head, with labels on the first and last column of every rank's
-  block of the vocabulary;
+  block of the vocabulary; fault G: a label outside the vocabulary
+  raises ``ValueError`` on the whole head and on the head split over
+  ``model`` (1, 2);
 - on a (2, 1) mesh, one step of gemma3's smoke config on fake tensors:
   the gathers never hold more than one layer's leaves and the top leaves
   at once.
@@ -42,6 +50,7 @@ from repro.train import TrainHParams as RefHP
 from repro.train import make_train_step as ref_make_train_step
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.world import spawn_world
+from repro_torch.models.moe import capacity_for
 from repro_torch.models.transformer import chunked_ce
 from repro_torch.optim import cosine_schedule
 from repro_torch.train import TrainHParams
@@ -72,11 +81,13 @@ def ranks_of(worlds, case):
 _REF = {}
 
 
-def ref_steps(arch: str):
-    """The reference's unsharded step on ``arch``'s smoke config: params,
+def ref_steps(case: str):
+    """The reference's unsharded step on ``case``'s smoke config: params,
     moments and metrics after :data:`W.TP_STEPS` steps."""
-    if arch not in _REF:
-        cfg = ref_smoke(arch)
+    arch, _ = W.TP_CASES[case]
+    cfg = W.tp_config(case, ref_smoke)
+    key = (arch, cfg.capacity_factor)
+    if key not in _REF:
         step = jax.jit(ref_make_train_step(ref_build_model(cfg),
                                            RefHP(**W.TRAIN_HP)))
         p = ref_params(arch)
@@ -86,9 +97,9 @@ def ref_steps(arch: str):
             b = {k: jnp.asarray(v) for k, v in W.tp_batch(s, cfg).items()}
             p, o, met = step(p, o, b)
             mets.append({k: float(v) for k, v in met.items()})
-        _REF[arch] = (jax.tree.leaves(p), jax.tree.leaves(o.mu),
-                      jax.tree.leaves(o.nu), mets)
-    return _REF[arch]
+        _REF[key] = (jax.tree.leaves(p), jax.tree.leaves(o.mu),
+                     jax.tree.leaves(o.nu), mets)
+    return _REF[key]
 
 
 def lr_sum() -> float:
@@ -100,8 +111,9 @@ def lr_sum() -> float:
 
 @pytest.mark.parametrize("case", CASES)
 def test_model_split_step_matches_reference(worlds, case):
-    arch, _ = W.TP_CASES[case]
-    rp, rmu, rnu, rmets = ref_steps(arch)
+    rp, rmu, rnu, rmets = ref_steps(case)
+    if case in W.TP_CAPACITY:
+        assert sum(res["dropped"] for res in ranks_of(worlds, case)) > 0
     for rank, res in enumerate(ranks_of(worlds, case)):
         what = f"{case} rank {rank}"
         assert_leaves_close(rp, res["params"], what=what + " params",
@@ -124,6 +136,36 @@ def test_model_split_step_is_bit_identical_on_every_rank(worlds, case):
         for kind in ("params", "mu", "nu"):
             for a, b in zip(ranks[0][kind], res[kind]):
                 assert a.tobytes() == b.tobytes(), kind
+
+
+MOE_CASES = [k for k in CASES if get_smoke_config(W.TP_CASES[k][0]).family
+             == "moe"]
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_moe_buffer_is_this_ranks_block(worlds, case):
+    """A rank gathers only its ``model`` rank's experts (over the data
+    axes) and runs them over its block of the capacity: the buffer is
+    (E / model, ceil(C / data), d), C the whole batch's capacity."""
+    cfg = W.tp_config(case, get_smoke_config)
+    shape = W.TP_CASES[case][1]
+    data, model = shape[-2], shape[-1]
+    B, S = W.TRAIN_BATCH
+    C = capacity_for(B * S, cfg)
+    E = cfg.n_experts // model
+    want = [((E, -(-C // data), cfg.d_model), (E, cfg.d_model, cfg.d_ff))]
+    for res in ranks_of(worlds, case):
+        assert res["buffers"] == want
+
+
+@pytest.mark.parametrize("path", ["whole", "split"])
+@pytest.mark.parametrize("bad", W.CE_REFUSED)
+def test_ce_refuses_a_label_outside_the_vocabulary(worlds, path, bad):
+    """Fault G: with the head split over ``model`` a label outside
+    ``[0, vocab)`` used to count as a gold logit of 0; whole, ``gather``
+    raised a ``RuntimeError``. Both now raise ``ValueError``."""
+    for res in worlds[2]:
+        assert res["ce_refused"][path, bad] == "ValueError"
 
 
 @pytest.mark.parametrize("vocab", [W.CE_VOCAB, W.CE_VOCAB_ODD])
