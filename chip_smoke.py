@@ -143,7 +143,10 @@ result, when no CUDA card is present or the package is missing.
    to the dry-run's; then (f) the same for Moonshot-16B-A3B at full depth,
    its experts on their ``model`` shards over the rank's block of the
    dispatch buffer's capacity, the combine's segment fold launched and its
-   largest call replayed bitwise through the plain fold.
+   largest call replayed bitwise through the plain fold; (g) the same for
+   Zamba2-2.7B at full depth, its Mamba blocks on their SSM heads and its
+   shared block on its heads and ``d_ff`` columns; (h) for Whisper-medium
+   at 24 + 24 layers, every attention and MLP on its ``model`` shard.
 13. ``tools`` (:func:`run_tools`): on the same mesh, SmolLM-135M's dense
    step under ``launch/hlo_analysis.py``'s ``analyze_step`` on the card
    and on fake tensors of the same shapes (the FLOP counts equal as
@@ -3153,6 +3156,17 @@ SH_TP_TIMEOUT_S = 300
 #: capacity (7,680 of 122,880 slots): at its full depth of 48, since its
 #: dry-run count (27.4 GiB) is under a card's 74.5 GiB.
 SH_EP_ARCH = "moonshot_v1_16b_a3b"
+#: Phase ``sharding`` (g): the same for Zamba2-2.7B at its full depth of
+#: 54, its Mamba blocks on 5 of 80 SSM heads a rank and its shared block
+#: on 2 of 32 heads and 640 of 10,240 ``d_ff`` columns at each of its 9
+#: sites; (h) for Whisper-medium at 24 + 24 layers, 1 of 16 heads and 256
+#: of 4,096 GELU columns a rank in every attention and MLP.
+SH_SSM_ARCH = "zamba2_2_7b"
+SH_ED_ARCH = "whisper_medium"
+#: The rank-0 parts of phase ``sharding``: (part, arch, the phase's key).
+SH_RANK0_PARTS = (("e", SH_TP_ARCH, "rank0"), ("f", SH_EP_ARCH, "rank0_moe"),
+                  ("g", SH_SSM_ARCH, "rank0_hybrid"),
+                  ("h", SH_ED_ARCH, "rank0_encdec"))
 
 
 def first_mismatch(torch, names, want, got) -> str:
@@ -3197,9 +3211,13 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
     shards over this rank's block of the capacity; the combine's segment
     fold must launch (its launches join the phase's), and its largest
     call is replayed through the plain fold on its ``gid`` and size with
-    values drawn on the card. The fake collectives move nothing and hand
-    back uninitialized memory, so (e) and (f) hold no value of the step
-    to anything. Two runs
+    values drawn on the card. (g) and (h) the same for Zamba2-2.7B at
+    full depth (:data:`SH_SSM_ARCH`: its Mamba blocks on their SSM heads,
+    its shared block on its heads and ``d_ff`` columns at each site) and
+    Whisper-medium (:data:`SH_ED_ARCH`, 24 + 24 layers on ``train_4k``'s
+    frame embeddings too: every attention and MLP on its ``model``
+    shard). The fake collectives move nothing and hand back uninitialized
+    memory, so (e)-(h) hold no value of the step to anything. Two runs
     of one path agree bitwise only on deterministic kernels, so (a) and (b)
     run under ``torch.use_deterministic_algorithms(True, warn_only=True)``
     (the sorted ``index_put_`` accumulate of the embedding's and the MoE
@@ -3213,14 +3231,14 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
     use_full_precision()
     gc.collect()
     torch.cuda.empty_cache()
-    # (e)'s and (f)'s fake counts, on the host's CPU while (a)-(d) run on
-    # the card
+    # (e)-(h)'s fake counts, on the host's CPU while (a)-(d) run on the
+    # card
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_sharding_")
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     drys = {}
     try:
-        for part, arch in (("e", SH_TP_ARCH), ("f", SH_EP_ARCH)):
+        for part, arch, _ in SH_RANK0_PARTS:
             dry_json = os.path.join(out_dir, f"dryrun_{part}.json")
             drys[part] = (arch, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
@@ -3234,7 +3252,7 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
             phase = _run_sharding(torch, seed, dev, kernels, mesh)
         finally:
             torch.use_deterministic_algorithms(was_deterministic)
-        for part, key in (("e", "rank0"), ("f", "rank0_moe")):
+        for part, _, key in SH_RANK0_PARTS:
             gc.collect()
             torch.cuda.empty_cache()
             phase[key] = _sharding_rank0_on_card(
@@ -3259,7 +3277,7 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
                  "each": prev.get("each", [prev]) + [r],
                  "max_abs_err": max(prev["max_abs_err"], r["max_abs_err"])}
         phase["plain_replays"][name] = r
-    for part, arch in (("e", SH_TP_ARCH), ("f", SH_EP_ARCH)):
+    for part, arch, _ in SH_RANK0_PARTS:
         phase["reduced"].append(
             f"{arch} ({part}): one rank of 256 under a fake process group "
             f"(the other ranks' work and the wire not run)")
@@ -3335,6 +3353,7 @@ def sharding_rank0(torch, seed: int, out_json: str,
     from repro_torch import compat
     from repro_torch import tree as TR
     from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import input_specs
     from repro_torch.kernels import segment
     from repro_torch.launch import hlo_analysis as HA
     from repro_torch.launch.mesh import chips, production_mesh_shape
@@ -3381,6 +3400,10 @@ def sharding_rank0(torch, seed: int, out_json: str,
                              generator=gen, device=dev, dtype=torch.int32)
         batch = {"tokens": toks[:, :-1].contiguous(),
                  "labels": toks[:, 1:].contiguous()}
+        frames = input_specs(cfg, cell).get("embeds")
+        if frames is not None:  # the encoder-decoder's frame embeddings
+            batch["embeds"] = torch.randn(tuple(frames.shape), generator=gen,
+                                          device=dev).to(frames.dtype)
         batch = distribute(batch, batch_shardings(batch, mesh))
         del toks
         step = make_train_step(model, TrainHParams())
@@ -3427,6 +3450,7 @@ def sharding_rank0(torch, seed: int, out_json: str,
             del vals
         rows = cell.global_batch // mesh.size(0)
         res = {"arch": cfg.arch_id, "depth": cfg.n_layers,
+               "enc_depth": cfg.n_enc_layers,
                "mesh": "x".join(str(n) for n in shape.shape),
                "rows": rows, "seq": cell.seq_len, "step_ms": step_ms,
                "resident_bytes": resident,

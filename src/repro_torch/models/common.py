@@ -28,9 +28,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as _tree
 from repro_torch.core.sparse import resolve_device
-from repro_torch.models.layers import rms_norm
-from repro_torch.sharding.api import (gather_at_use, model_split,
-                                      sum_over_model)
+from repro_torch.models.layers import gelu_mlp, rms_norm, swiglu
+from repro_torch.sharding.api import (copy_to_model, gather_at_use,
+                                      model_split, sum_over_model)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -272,6 +272,23 @@ def embed_lookup(embed, tokens: torch.Tensor, dtype: torch.dtype
     inside = (i >= 0) & (i < rows)
     out = torch.where(inside[..., None], table[i.clamp(0, rows - 1)], 0.0)
     return sum_over_model(out, split)
+
+
+def mlp(p, h: torch.Tensor, act: str) -> torch.Tensor:
+    """The MLP of ``h``: SwiGLU on ``p``'s ``w1``/``w3``/``w2`` for
+    ``act == "silu"``, else the tanh GELU on ``w1``/``w2``, in ``h``'s
+    dtype. Where the spec splits ``d_ff`` over ``model`` (the sharded
+    train step's ``sharding.api.Placed`` leaves), column-parallel on
+    ``w1``/``w3`` and row-parallel on ``w2``, then summed over ``model``;
+    on its weights gathered whole otherwise."""
+    names = ("w1", "w3", "w2") if act == "silu" else ("w1", "w2")
+    splits = [model_split(p[n], -2 if n == "w2" else -1) for n in names]
+    split = splits[0] if all(splits) else None
+    h = copy_to_model(h, split)
+    w = [gather_at_use(p[n], keep_model=split is not None).to(h.dtype)
+         for n in names]
+    y = swiglu(h, *w) if act == "silu" else gelu_mlp(h, *w)
+    return sum_over_model(y, split)
 
 
 def maybe_remat(fn, remat: bool):

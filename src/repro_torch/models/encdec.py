@@ -13,6 +13,11 @@ The params tree is the reference's: ``enc_layers`` {``ln1``, ``attn``
 ``ln2``, ``w1``, ``w2``}, leaves stacked along a leading layer dimension,
 plus ``embed``, ``head``, ``enc_ln`` and ``final_ln``.
 
+On the sharded train step's leaves (``sharding.api.Placed``) every
+self- and cross-attention runs on this rank's heads and every MLP on its
+``d_ff`` columns (``sharding.api.attn_split``, ``models.common.mlp``);
+the encoder's output is copied to ``model`` at each cross-attention.
+
 Decode takes its position from the cache length on the device (no host
 sync) and cross-attends the static cache of all ``n_frames`` frames.
 """
@@ -27,9 +32,11 @@ import torch.nn.functional as F
 from repro_torch.core.sparse import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import (TreeModel, dense_init, embed_lookup,
-                                       maybe_remat, per_layer, stacked)
+                                       maybe_remat, mlp, per_layer, stacked)
 from repro_torch.models.transformer import chunked_ce
-from repro_torch.sharding.api import at_use, gather_at_use
+from repro_torch.sharding.api import (attn_split, attn_weights,
+                                      copy_to_model, gather_at_use,
+                                      sum_over_model)
 
 
 class EncDecCaches(NamedTuple):
@@ -111,26 +118,39 @@ class EncDecLM(TreeModel):
         }
 
     # ------------------------------------------------------------------
-    def _heads(self, x, w, n):
+    def _heads(self, x, w):
         B, S, _ = x.shape
-        return (x @ w.to(x.dtype)).reshape(B, S, n, self.cfg.head_dim)
+        return (x @ w.to(x.dtype)).reshape(B, S, -1, self.cfg.head_dim)
 
     def _mha(self, p, xq, xkv, *, causal: bool, chunk: int):
-        """Attention of ``xq`` over ``xkv``; returns (out, (k, v))."""
+        """Attention of ``xq`` over ``xkv`` (self-attention when they are
+        one tensor); returns (out, (k, v)). On this rank's heads where the
+        spec splits them over ``model`` (``sharding.api.attn_split``):
+        ``xq`` and a cross-attention's ``xkv`` (the encoder's output, the
+        same on every ``model`` rank) are each copied to ``model``, so
+        that their gradients hold every rank's heads."""
         cfg = self.cfg
+        split, kv = attn_split(p, cfg.n_heads, cfg.n_kv_heads)
+        self_attn = xkv is xq
+        xq = copy_to_model(xq, split)
+        xkv = xq if self_attn else copy_to_model(xkv, split)
+        wq, wk, wv, wo = attn_weights(p, split, kv, cfg.head_dim)
         B, Sq, _ = xq.shape
-        q = self._heads(xq, p["wq"], cfg.n_heads)
-        k = self._heads(xkv, p["wk"].to(xq.dtype), cfg.n_kv_heads)
-        v = self._heads(xkv, p["wv"].to(xq.dtype), cfg.n_kv_heads)
+        q = self._heads(xq, wq)
+        k = self._heads(xkv, wk.to(xq.dtype))
+        v = self._heads(xkv, wv.to(xq.dtype))
         o = L.blockwise_attention(q, k, v, causal=causal, chunk=chunk)
-        return o.reshape(B, Sq, -1) @ p["wo"].to(xq.dtype), (k, v)
+        return sum_over_model(o.reshape(B, Sq, -1) @ wo.to(xq.dtype),
+                              split), (k, v)
+
+    def _mlp(self, p_l, x):
+        h = L.rms_norm(x, gather_at_use(p_l["ln2"]))
+        return x + mlp(p_l, h, "gelu")
 
     def _enc_layer(self, p_l, x, chunk: int):
-        h = L.rms_norm(x, p_l["ln1"])
+        h = L.rms_norm(x, gather_at_use(p_l["ln1"]))
         o, _ = self._mha(p_l["attn"], h, h, causal=False, chunk=chunk)
-        x = x + o
-        h = L.rms_norm(x, p_l["ln2"])
-        return x + L.gelu_mlp(h, p_l["w1"].to(x.dtype), p_l["w2"].to(x.dtype))
+        return self._mlp(p_l, x + o)
 
     def encode(self, params, frames: torch.Tensor, *, remat: bool = False,
                chunk: int = 1024) -> torch.Tensor:
@@ -142,22 +162,19 @@ class EncDecLM(TreeModel):
              + sinusoidal_positions(Fr, d, device=frames.device).to(
                  cfg.cdtype))
         layer = maybe_remat(
-            lambda p_l, xc: self._enc_layer(at_use(p_l), xc, chunk), remat)
+            lambda p_l, xc: self._enc_layer(p_l, xc, chunk), remat)
         for p_l in per_layer(params["enc_layers"]):
             x = layer(p_l, x)
         return L.rms_norm(x, gather_at_use(params["enc_ln"]))
 
     def _dec_layer_full(self, p_l, x, enc, chunk: int):
-        h = L.rms_norm(x, p_l["ln1"])
+        h = L.rms_norm(x, gather_at_use(p_l["ln1"]))
         o, self_kv = self._mha(p_l["self"], h, h, causal=True, chunk=chunk)
         x = x + o
-        h = L.rms_norm(x, p_l["lnx"])
+        h = L.rms_norm(x, gather_at_use(p_l["lnx"]))
         o, cross_kv = self._mha(p_l["cross"], h, enc, causal=False,
                                 chunk=chunk)
-        x = x + o
-        h = L.rms_norm(x, p_l["ln2"])
-        x = x + L.gelu_mlp(h, p_l["w1"].to(x.dtype), p_l["w2"].to(x.dtype))
-        return x, self_kv, cross_kv
+        return self._mlp(p_l, x + o), self_kv, cross_kv
 
     def decode_full(self, params, tokens, enc, *, remat: bool = False,
                     chunk: int = 1024, collect_kv: bool = False):
@@ -169,8 +186,7 @@ class EncDecLM(TreeModel):
         x = x + sinusoidal_positions(S, cfg.d_model,
                                      device=x.device).to(x.dtype)
         layer = maybe_remat(
-            lambda p_l, xc, e: self._dec_layer_full(at_use(p_l), xc, e,
-                                                    chunk),
+            lambda p_l, xc, e: self._dec_layer_full(p_l, xc, e, chunk),
             remat)
         kv = []
         for p_l in per_layer(params["dec_layers"]):
@@ -255,9 +271,9 @@ class EncDecLM(TreeModel):
         new = []
         for i, p_l in enumerate(per_layer(params["dec_layers"])):
             h = L.rms_norm(x, p_l["ln1"])
-            q = self._heads(h, p_l["self"]["wq"], cfg.n_heads)
-            k = self._heads(h, p_l["self"]["wk"], cfg.n_kv_heads)
-            v = self._heads(h, p_l["self"]["wv"], cfg.n_kv_heads)
+            q = self._heads(h, p_l["self"]["wq"])
+            k = self._heads(h, p_l["self"]["wk"])
+            v = self._heads(h, p_l["self"]["wv"])
             new_s = L.cache_update_decode(
                 L.KVCache(sc.k[i], sc.v[i], length), k, v)
             o = L.blockwise_attention(q, new_s.k, new_s.v, causal=False,
@@ -265,13 +281,11 @@ class EncDecLM(TreeModel):
             x = x + o.reshape(B, 1, -1) @ p_l["self"]["wo"].to(x.dtype)
             # cross-attention against the static cache
             h = L.rms_norm(x, p_l["lnx"])
-            q = self._heads(h, p_l["cross"]["wq"], cfg.n_heads)
+            q = self._heads(h, p_l["cross"]["wq"])
             o = L.blockwise_attention(q, xc_.k[i], xc_.v[i], causal=False,
                                       kv_len=Fr, chunk=attn_chunk)
             x = x + o.reshape(B, 1, -1) @ p_l["cross"]["wo"].to(x.dtype)
-            h = L.rms_norm(x, p_l["ln2"])
-            x = x + L.gelu_mlp(h, p_l["w1"].to(x.dtype),
-                               p_l["w2"].to(x.dtype))
+            x = self._mlp(p_l, x)
             new.append(new_s)
         self_kv = L.KVCache(*(torch.stack(t) for t in zip(*new)))
         return self.logits_last(params, x), EncDecCaches(

@@ -12,6 +12,12 @@ leaf's first two dims (so backward returns the gradient in that shape),
 and ``shared`` {``ln1``, ``wq``, ``wk``, ``wv``, ``wo``, ``ln2``, ``w1``,
 ``w3``, ``w2``}.
 
+On the sharded train step's leaves (``sharding.api.Placed``) each Mamba
+layer runs on its SSM heads (``models/ssm.py``) and the shared block on
+its heads and ``d_ff`` columns at each site (``sharding.api.attn_split``,
+``models.common.mlp``), its leaves gathered at every site and each site's
+gradient reduced into the leaves' shards.
+
 Decode keeps one :class:`~repro_torch.models.ssm.MambaCache` per mamba
 layer, stacked ``(n_groups, attn_every, ...)``, plus one KV cache per
 shared-block site (``(n_groups, B, S_max, ...)``, ``length`` of shape
@@ -28,13 +34,15 @@ from repro_torch import tree as _tree
 from repro_torch.core.sparse import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ModelConfig, TreeModel, dense_init,
-                                       embed_lookup, maybe_remat, per_layer,
-                                       stacked)
+                                       embed_lookup, maybe_remat, mlp,
+                                       per_layer, stacked)
 from repro_torch.models.ssm import (MambaCache, init_mamba_params,
                                     mamba_block_decode, mamba_block_full,
                                     stack_mamba_caches, zero_mamba_cache)
 from repro_torch.models.transformer import chunked_ce
-from repro_torch.sharding.api import at_use, gather_at_use
+from repro_torch.sharding.api import (attn_split, attn_weights,
+                                      copy_to_model, gather_at_use,
+                                      sum_over_model)
 
 
 class HybridCaches(NamedTuple):
@@ -88,37 +96,41 @@ class HybridLM(TreeModel):
         }
 
     # ------------------------------------------------------------------
-    def _qkv(self, p, h, positions):
+    def _qkv(self, wq, wk, wv, h, positions):
+        """q, k, v of ``h`` on the heads the weights' columns hold."""
         cfg = self.cfg
         B, S, _ = h.shape
-        q = (h @ p["wq"].to(h.dtype)).reshape(B, S, cfg.n_heads, cfg.head_dim)
-        k = (h @ p["wk"].to(h.dtype)).reshape(B, S, cfg.n_kv_heads,
-                                              cfg.head_dim)
-        v = (h @ p["wv"].to(h.dtype)).reshape(B, S, cfg.n_kv_heads,
-                                              cfg.head_dim)
+        q = (h @ wq.to(h.dtype)).reshape(B, S, -1, cfg.head_dim)
+        k = (h @ wk.to(h.dtype)).reshape(B, S, -1, cfg.head_dim)
+        v = (h @ wv.to(h.dtype)).reshape(B, S, -1, cfg.head_dim)
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
     @staticmethod
     def _ffn(p, x):
-        h2 = L.rms_norm(x, p["ln2"])
-        return x + L.swiglu(h2, p["w1"].to(x.dtype), p["w3"].to(x.dtype),
-                            p["w2"].to(x.dtype))
+        h2 = L.rms_norm(x, gather_at_use(p["ln2"]))
+        return x + mlp(p, h2, "silu")
 
     def _shared_full(self, p, x, positions, chunk: int):
-        h = L.rms_norm(x, p["ln1"])
+        """The shared block at one site, on this rank's heads and ``d_ff``
+        columns where the spec splits them over ``model``
+        (``sharding.api.attn_split``), its leaves gathered at the site."""
+        cfg = self.cfg
+        split, kv = attn_split(p, cfg.n_heads, cfg.n_kv_heads)
+        h = copy_to_model(L.rms_norm(x, gather_at_use(p["ln1"])), split)
         B, S, _ = h.shape
-        q, k, v = self._qkv(p, h, positions)
+        wq, wk, wv, wo = attn_weights(p, split, kv, cfg.head_dim)
+        q, k, v = self._qkv(wq, wk, wv, h, positions)
         o = L.blockwise_attention(q, k, v, causal=True, chunk=chunk)
-        x = x + o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+        x = x + sum_over_model(o.reshape(B, S, -1) @ wo.to(x.dtype), split)
         return self._ffn(p, x), (k, v)
 
     def _shared_decode(self, p, x, cache: L.KVCache, length, chunk: int):
         B = x.shape[0]
         pos = length.reshape(1, 1).expand(B, 1).to(torch.int32)
         h = L.rms_norm(x, p["ln1"])
-        q, k, v = self._qkv(p, h, pos)
+        q, k, v = self._qkv(p["wq"], p["wk"], p["wv"], h, pos)
         new_cache = L.cache_update_decode(cache._replace(length=length), k, v)
         kv_len = torch.clamp(length + 1, max=cache.k.shape[1])
         o = L.blockwise_attention(q, new_cache.k, new_cache.v, causal=False,
@@ -136,9 +148,9 @@ class HybridLM(TreeModel):
         G, ae = self.n_groups, cfg.attn_every
         shared = params["shared"]
         block = maybe_remat(
-            lambda p_l, xc: mamba_block_full(at_use(p_l), xc, cfg), remat)
+            lambda p_l, xc: mamba_block_full(p_l, xc, cfg), remat)
         site = maybe_remat(lambda p, xc: self._shared_full(
-            at_use(p), xc, positions, chunk), remat)
+            p, xc, positions, chunk), remat)
         layers = per_layer(params["mamba_layers"], lead=2)
         mcaches, kvs = [], []
         for g in range(G):

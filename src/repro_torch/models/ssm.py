@@ -22,6 +22,14 @@ The reference's three-operand products are written as two steps each (a
 per-token or per-head factor applied beside one two-operand contraction),
 an order XLA may not pick: a matter of f32 rounding. The products must be
 full f32 (``layers.require_full_precision``: TF32 off).
+
+On the sharded train step's leaves (``sharding.api.Placed``) a block
+gathers its leaves where it uses them and, where the spec splits
+``out_proj``'s rows over ``model`` into whole heads, runs on this rank's
+SSM heads (:func:`mamba_split`, :func:`_heads_of`): the SSD scan on (B,
+S, H / model, P), B and C whole on every rank, the gated norm's mean of
+squares summed over ``model`` and ``out_proj``'s product summed over
+``model``. Prefill and decode take whole leaves.
 """
 from __future__ import annotations
 
@@ -38,7 +46,9 @@ from repro_torch.models.common import (ModelConfig, TreeModel, dense_init,
                                        embed_lookup, maybe_remat, per_layer,
                                        stacked)
 from repro_torch.models.transformer import chunked_ce
-from repro_torch.sharding.api import at_use, gather_at_use
+from repro_torch.sharding.api import (ModelSplit, at_use, copy_to_model,
+                                      gather_at_use, model_split,
+                                      sum_over_model, total_over_model)
 
 
 class MambaCache(NamedTuple):
@@ -76,11 +86,15 @@ def init_mamba_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
-def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
-    di, H = cfg.d_inner, cfg.n_ssm_heads
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor, T: int = 1):
+    """``(z, xBC, dt)`` of ``in_proj``'s product on ``1 / T`` of the
+    heads (:func:`_heads_of`): ``d_inner / T`` channels of z, of x and
+    ``H / T`` of dt, all of B and C."""
+    di, H = cfg.d_inner // T, cfg.n_ssm_heads // T
+    cdim = di + 2 * cfg.ssm_state
     z = zxbcdt[..., :di]
-    xBC = zxbcdt[..., di:di + _conv_dim(cfg)]
-    dt = zxbcdt[..., di + _conv_dim(cfg):]
+    xBC = zxbcdt[..., di:di + cdim]
+    dt = zxbcdt[..., di + cdim:]
     if dt.shape[-1] != H:
         raise ValueError(f"dt trailing dim {dt.shape[-1]} must equal the "
                          f"head count {H}")
@@ -159,28 +173,110 @@ def _ssd_chunk_scan(x, dt, Bm, Cm, A, chunk: int, state0=None):
     return y, state
 
 
+def mamba_split(p, cfg: ModelConfig) -> Optional[ModelSplit]:
+    """The ``model`` layout a Mamba2 block runs on its SSM heads with: its
+    leaves' (the sharded train step's ``sharding.api.Placed``) when the
+    spec splits ``out_proj``'s rows over ``model`` and ``model`` divides
+    the heads, so that each rank's rows are whole heads (``d_inner = H x
+    P``); ``None`` (the block runs whole) otherwise."""
+    split = model_split(p["out_proj"], -2)
+    if split is None or cfg.n_ssm_heads % split.size:
+        return None
+    return split
+
+
+def _heads_of(p, cfg: ModelConfig, split: ModelSplit) -> dict:
+    """The block's leaves as this rank's ``H / T`` heads use them.
+    ``in_proj``'s ``model`` shard is no block of heads (its columns pack
+    ``[z | x | B | C | dt]``), so it is gathered whole and this rank takes
+    its ``d_inner / T`` columns of z and of x, all of B and C (every head
+    reads them in Mamba2's one group) and its ``H / T`` of dt; the
+    replicated conv its channels of x and B's and C's; ``A_log``, ``D``,
+    ``dt_bias`` their heads and ``gn`` its channels. Each of these is the
+    whole leaf's gradient in backward, each rank's part summed over
+    ``model`` (B's and C's columns a partial sum on every rank).
+    ``out_proj`` stays on its ``model`` shard: its rows are this rank's
+    heads; ``ln`` is gathered whole."""
+    di, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    T, r = split.size, split.rank
+    dl, hl = di // T, H // T
+    own = (r * dl, (r + 1) * dl)
+
+    def whole(name):
+        return gather_at_use(p[name], model_partial=True)
+
+    def cols(w, spans):
+        return torch.cat([w[..., a:b] for a, b in spans], dim=-1)
+
+    dt0 = 2 * di + 2 * N
+    conv = (own, (di, di + 2 * N))
+    w = {"ln": gather_at_use(p["ln"]),
+         "in_proj": cols(whole("in_proj"),
+                         (own, (di + own[0], di + own[1]),
+                          (2 * di, dt0), (dt0 + r * hl, dt0 + (r + 1) * hl))),
+         "conv_w": cols(whole("conv_w"), conv),
+         "conv_b": cols(whole("conv_b"), conv),
+         "gn": whole("gn")[own[0]:own[1]],
+         "out_proj": gather_at_use(p["out_proj"], keep_model=True)}
+    for name in ("A_log", "D", "dt_bias"):
+        w[name] = whole(name)[r * hl:(r + 1) * hl]
+    return w
+
+
+def _rms_norm_over_model(x: torch.Tensor, scale: torch.Tensor,
+                         split: Optional[ModelSplit], width: int,
+                         eps: float = 1e-6) -> torch.Tensor:
+    """``layers.rms_norm`` of rows whose ``width`` channels are split
+    over ``model``, ``x`` and ``scale`` this rank's: the mean of squares
+    is the sum over ``model`` of each rank's sum of squares over
+    ``width``, and its gradient each rank's share summed
+    (``total_over_model``). ``layers.rms_norm`` itself with no split."""
+    if split is None:
+        return L.rms_norm(x, scale, eps)
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = total_over_model(torch.sum(x32 * x32, dim=-1, keepdim=True),
+                           split) / width
+    return ((x32 * torch.rsqrt(var + eps))
+            * (1.0 + scale.to(torch.float32))).to(dt)
+
+
 def mamba_block_full(p, u: torch.Tensor, cfg: ModelConfig,
-                     state0=None) -> Tuple[torch.Tensor, MambaCache]:
-    """Full-sequence Mamba2 block. Returns (out, cache for decode)."""
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+                     state0=None
+                     ) -> Tuple[torch.Tensor, Optional[MambaCache]]:
+    """Full-sequence Mamba2 block. Returns (out, cache for decode). The
+    leaves are gathered where they are used (``sharding.api``). On a
+    :func:`mamba_split` the block runs on this rank's heads
+    (:func:`_heads_of`): ``h`` copied to ``model``, the SSD scan on (B, S,
+    H / T, P), the gated norm's mean of squares summed over ``model``,
+    ``out_proj``'s product summed over ``model``; the cache is then
+    ``None`` (a training step collects none)."""
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    split = mamba_split(p, cfg)
+    T = 1 if split is None else split.size
+    di, H = cfg.d_inner // T, cfg.n_ssm_heads // T
     Bsz, S, _ = u.shape
     f32 = torch.float32
-    h = L.rms_norm(u, p["ln"])
-    zxbcdt = h @ p["in_proj"].to(h.dtype)
-    z, xBC_raw, dt = _split_proj(cfg, zxbcdt)
-    xBC = _causal_conv_full(xBC_raw.to(f32), p["conv_w"].to(f32),
-                            p["conv_b"].to(f32))
+    w = at_use(p) if split is None else _heads_of(p, cfg, split)
+    h = copy_to_model(L.rms_norm(u, w["ln"]), split)
+    zxbcdt = h @ w["in_proj"].to(h.dtype)
+    z, xBC_raw, dt = _split_proj(cfg, zxbcdt, T)
+    xBC = _causal_conv_full(xBC_raw.to(f32), w["conv_w"].to(f32),
+                            w["conv_b"].to(f32))
     x = xBC[..., :di].reshape(Bsz, S, H, P)
     Bm = xBC[..., di:di + N]
     Cm = xBC[..., di + N:]
-    dt_s = softplus(dt.to(f32) + p["dt_bias"].to(f32))
-    A = -torch.exp(p["A_log"].to(f32))
+    dt_s = softplus(dt.to(f32) + w["dt_bias"].to(f32))
+    A = -torch.exp(w["A_log"].to(f32))
     y, final_state = _ssd_chunk_scan(x, dt_s, Bm, Cm, A, cfg.ssm_chunk,
                                      state0)
-    y = y + x * p["D"].to(f32)[:, None]
+    y = y + x * w["D"].to(f32)[:, None]
     y = y.reshape(Bsz, S, di)
-    y = L.rms_norm((y * F.silu(z.to(f32))).to(u.dtype), p["gn"])
-    out = y @ p["out_proj"].to(u.dtype)
+    y = _rms_norm_over_model((y * F.silu(z.to(f32))).to(u.dtype), w["gn"],
+                             split, cfg.d_inner)
+    out = sum_over_model(y @ w["out_proj"].to(u.dtype), split)
+    if split is not None:
+        return u + out, None
     # decode cache: last W-1 conv inputs (zeros in front of a shorter
     # sequence) + final ssm state
     W = cfg.conv_width
@@ -265,7 +361,7 @@ class MambaLM(TreeModel):
         L.require_full_precision(x)
         cfg = self.cfg
         block = maybe_remat(
-            lambda p_l, xc: mamba_block_full(at_use(p_l), xc, cfg), remat)
+            lambda p_l, xc: mamba_block_full(p_l, xc, cfg), remat)
         caches = []
         for p_l in per_layer(params["layers"]):
             x, cache = block(p_l, x)

@@ -44,7 +44,9 @@ vocabulary rows and the loss on its ``head`` columns. Where the split
 does not fall on a head boundary the attention runs on its weights
 gathered over ``model`` too; where there are fewer KV heads than ranks
 (``T % n_kv_heads == 0``) each rank takes KV head ``r // (T /
-n_kv_heads)`` of ``wk``/``wv`` gathered whole (Megatron's rule). The MoE
+n_kv_heads)`` of ``wk``/``wv`` gathered whole (Megatron's rule;
+``sharding.api.attn_split``, which the hybrid's shared block and the
+encoder-decoder's attention take too). The MoE
 layer takes its router gathered whole and its experts on their ``model``
 shards, over this rank's block of the dispatch buffer's capacity
 (``models/moe.py``).
@@ -61,9 +63,10 @@ from repro_torch import compat
 from repro_torch.core.sparse import resolve_device, uncounted_sorts
 from repro_torch.models import layers as L
 from repro_torch.models.common import (ModelConfig, TreeModel, dense_init,
-                                       embed_lookup, per_layer, stacked)
+                                       embed_lookup, mlp, per_layer, stacked)
 from repro_torch.models.moe import init_moe_params, moe_ffn
-from repro_torch.sharding.api import (copy_to_model, gather_at_use,
+from repro_torch.sharding.api import (attn_split, attn_weights,
+                                      copy_to_model, gather_at_use,
                                       max_over_model, model_split,
                                       sum_over_model)
 
@@ -188,42 +191,16 @@ class TransformerLM(TreeModel):
             k = L.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def _attn_split(self, p):
-        """``(split, kv)``: the ``model`` layout a layer's attention runs
-        on its heads with (``None``: on its weights gathered whole), and
-        ``kv``, the one KV head this rank takes of ``wk``/``wv`` gathered
-        whole when there are fewer KV heads than ranks (``None``: its own
-        KV heads, from its columns)."""
-        cfg = self.cfg
-        split = model_split(p["wq"], -1)
-        if (split is None or cfg.n_heads % split.size
-                or model_split(p["wo"], -2) is None):
-            return None, None
-        T = split.size
-        if (cfg.n_kv_heads % T == 0 and model_split(p["wk"], -1)
-                and model_split(p["wv"], -1)):
-            return split, None
-        if T % cfg.n_kv_heads == 0:
-            return split, split.rank // (T // cfg.n_kv_heads)
-        return None, None
-
     def _attn_full(self, p, x, positions, window, mrope_positions, chunk):
         """Full-sequence attention (train / prefill); returns (x, (k, v))."""
-        split, kv = self._attn_split(p)
+        cfg = self.cfg
+        split, kv = attn_split(p, cfg.n_heads, cfg.n_kv_heads)
         h = L.rms_norm(x, gather_at_use(p["ln1"]))
         h = copy_to_model(h, split)
-        wq, wo = (gather_at_use(p[n], keep_model=split is not None)
-                  for n in ("wq", "wo"))
-        if kv is None:
-            wk, wv = (gather_at_use(p[n], keep_model=split is not None)
-                      for n in ("wk", "wv"))
-        else:
-            hd = self.cfg.head_dim
-            wk, wv = (gather_at_use(p[n], model_partial=True)
-                      [:, kv * hd:(kv + 1) * hd] for n in ("wk", "wv"))
+        wq, wk, wv, wo = attn_weights(p, split, kv, cfg.head_dim)
         q, k, v = self._project_qkv(wq, wk, wv, h, positions,
                                     mrope_positions)
-        if (window > 0 and self.cfg.local_attn_fast_path
+        if (window > 0 and cfg.local_attn_fast_path
                 and x.shape[1] > window):
             o = L.local_window_attention(q, k, v, window=window)
         else:
@@ -260,14 +237,7 @@ class TransformerLM(TreeModel):
         if cfg.family == "moe":
             y, aux = moe_ffn(p["moe"], h, cfg)
             return x + y, aux
-        names = ("w1", "w3", "w2") if cfg.act == "silu" else ("w1", "w2")
-        splits = [model_split(p[n], -2 if n == "w2" else -1) for n in names]
-        split = splits[0] if all(splits) else None
-        h = copy_to_model(h, split)
-        w = [gather_at_use(p[n], keep_model=split is not None).to(x.dtype)
-             for n in names]
-        y = L.swiglu(h, *w) if cfg.act == "silu" else L.gelu_mlp(h, *w)
-        return x + sum_over_model(y, split), None
+        return x + mlp(p, h, cfg.act), None
 
     def _layer_full(self, p, x, positions, window, mrope_positions, chunk):
         x, kv = self._attn_full(p, x, positions, window, mrope_positions,

@@ -28,12 +28,17 @@ gathers its leaves where it uses them (:func:`gather_at_use`: over the
 data axes, and over ``model`` too unless the block computes on its
 ``model`` shard), and the gradient comes back as the mean over the data
 axes into the leaf's own shard when that use's backward ends. A block
-that computes on its ``model`` shard (the dense decoder's attention, MLP,
-embedding and loss) takes :func:`model_split`'s layout and brackets its
-products with the Megatron pair :func:`copy_to_model` and
-:func:`sum_over_model`. :func:`shard` itself is kept for code that holds
-DTensors: with no mesh, or on a plain tensor (every activation of the
-port's models), it returns its input.
+that computes on its ``model`` shard (every family's attention on its
+heads, by :func:`attn_split` and :func:`attn_weights`; the MLPs on their
+``d_ff`` columns; the Mamba2 block on its SSM heads; the MoE's experts;
+the embedding and loss on the vocabulary) takes :func:`model_split`'s
+layout and brackets its products with the Megatron pair
+:func:`copy_to_model` and :func:`sum_over_model`; a statistic over a dim
+split over ``model`` that each rank uses for its own part (the Mamba2
+gated norm's mean of squares) is summed by :func:`total_over_model`.
+:func:`shard` itself is kept for code that holds DTensors: with no mesh,
+or on a plain tensor (every activation of the port's models), it returns
+its input.
 
 A statistic the reference takes over the whole batch under ``jit`` (the
 MoE's capacity and router load) needs the other ranks' rows when each
@@ -492,6 +497,18 @@ def copy_to_model(t: torch.Tensor, split: Optional[ModelSplit]
     return t if split is None else _CopyToModel.apply(t, split.group)
 
 
+def total_over_model(t: torch.Tensor, split: Optional[ModelSplit]
+                     ) -> torch.Tensor:
+    """The sum of ``t`` over ``split``'s ranks, whose gradient is summed
+    over them too: for a statistic each rank uses only for its own part
+    (the gated norm's mean of squares over channels split over
+    ``model``), so that each rank's share of the gradient reaches every
+    rank's ``t``. After a row-parallel product, whose sum every rank uses
+    alike, a caller wants :func:`sum_over_model` (identity in backward).
+    ``t`` itself with no split."""
+    return copy_to_model(sum_over_model(t, split), split)
+
+
 def max_over_model(t: torch.Tensor, split: Optional[ModelSplit]
                    ) -> torch.Tensor:
     """The elementwise max of ``t`` over ``split``'s ranks (no
@@ -499,3 +516,43 @@ def max_over_model(t: torch.Tensor, split: Optional[ModelSplit]
     t = t.detach()
     return t if split is None else _all_reduce(t, split.group,
                                                dist.ReduceOp.MAX)
+
+
+def attn_split(p, n_heads: int, n_kv_heads: int):
+    """``(split, kv)`` of an attention block whose leaves ``p`` hold
+    ``wq``/``wk``/``wv``/``wo``: the ``model`` layout it runs on its heads
+    with, where ``model`` divides ``n_heads`` and the spec splits ``wq``'s
+    columns and ``wo``'s rows (``None``: on its weights gathered whole);
+    and ``kv``, the one KV head this rank takes of ``wk``/``wv`` gathered
+    whole when there are fewer KV heads than ranks and they divide them
+    (Megatron's rule; ``None``: its own KV heads, from its columns). With
+    fewer KV heads that do not divide the ranks, the block runs whole."""
+    split = model_split(p["wq"], -1)
+    if (split is None or n_heads % split.size
+            or model_split(p["wo"], -2) is None):
+        return None, None
+    T = split.size
+    if (n_kv_heads % T == 0 and model_split(p["wk"], -1)
+            and model_split(p["wv"], -1)):
+        return split, None
+    if T % n_kv_heads == 0:
+        return split, split.rank // (T // n_kv_heads)
+    return None, None
+
+
+def attn_weights(p, split: Optional[ModelSplit], kv: Optional[int],
+                 head_dim: int):
+    """``(wq, wk, wv, wo)`` as the attention of :func:`attn_split`'s
+    ``(split, kv)`` uses them: on their ``model`` shards with a split
+    (``wk``/``wv``: KV head ``kv``'s columns of the whole leaves, whose
+    gradient is each rank's part summed over ``model``), gathered whole
+    without."""
+    keep = split is not None
+    wq, wo = (gather_at_use(p[n], keep_model=keep) for n in ("wq", "wo"))
+    if kv is None:
+        wk, wv = (gather_at_use(p[n], keep_model=keep) for n in ("wk", "wv"))
+    else:
+        wk, wv = (gather_at_use(p[n], model_partial=True)
+                  [:, kv * head_dim:(kv + 1) * head_dim]
+                  for n in ("wk", "wv"))
+    return wq, wk, wv, wo

@@ -707,23 +707,28 @@ def cost_rank(rank: int, world: int, params_np) -> dict:
 #: The cases: name -> (arch, (data, model) mesh). The dense smoke configs
 #: on their model shards over 2 and 4 ranks (gemma3, InternLM2 and
 #: Qwen2-VL have 4 heads and 2 KV heads: at model = 4 their KV heads are
-#: replicated in pairs), and on (2, 2) the families that gather their
-#: layers at use and split only the vocabulary: Mamba2, Zamba2 (its shared
-#: block at each site) and Whisper. The MoE smoke configs compute their
-#: experts on this rank's block of the dispatch buffer: Moonshot's (8
-#: experts, top-2) on (2, 2), and at capacity factor 1.0 (the ``cap1``
-#: cases, :data:`TP_CAPACITY`) on (2, 2), (1, 4), (4, 1) and (2, 1, 2)
-#: (the buffer replicated over ``pod``); Llama4-Scout's (4 experts, top-1)
-#: on (1, 4).
+#: replicated in pairs). On (2, 2) and (1, 4) the SSM, hybrid and
+#: encoder-decoder families on their heads and ``d_ff`` columns: Mamba2's
+#: and Zamba2's Mamba blocks on their SSM heads (8; ``in_proj``'s 296
+#: columns gathered whole, each rank taking its heads' columns), Zamba2's
+#: shared block (4 heads and 4 KV heads, at each site) and Whisper's
+#: attention (4 heads) and MLP; Zamba2's also on (2, 1, 2). The MoE smoke
+#: configs compute their experts on this rank's block of the dispatch
+#: buffer: Moonshot's (8 experts, top-2) on (2, 2), and at capacity factor
+#: 1.0 (the ``cap1`` cases, :data:`TP_CAPACITY`) on (2, 2), (1, 4), (4, 1)
+#: and (2, 1, 2) (the buffer replicated over ``pod``); Llama4-Scout's (4
+#: experts, top-1) on (1, 4).
 TP_ARCHS = ("gemma3_27b", "qwen2_vl_72b", "stablelm_3b", "internlm2_1_8b")
 TP_MESHES = {"tp2": (1, 2), "dp2xtp2": (2, 2), "tp4": (1, 4)}
-TP_GATHER_ARCHS = ("moonshot_v1_16b_a3b", "mamba2_370m", "zamba2_2_7b",
-                   "whisper_medium")
+TP_FAMILY_ARCHS = ("mamba2_370m", "zamba2_2_7b", "whisper_medium")
 TP_CASES = {**{f"{a}/{m}": (a, shape) for a in TP_ARCHS
                for m, shape in TP_MESHES.items()},
-            **{f"{a}/dp2xtp2": (a, (2, 2)) for a in TP_GATHER_ARCHS},
+            **{f"{a}/{m}": (a, TP_MESHES[m]) for a in TP_FAMILY_ARCHS
+               for m in ("dp2xtp2", "tp4")},
+            "moonshot_v1_16b_a3b/dp2xtp2": ("moonshot_v1_16b_a3b", (2, 2)),
             # a ("pod", "data", "model") mesh: the data axes are two dims
             "gemma3_27b/pod2xtp2": ("gemma3_27b", (2, 1, 2)),
+            "zamba2_2_7b/pod2xtp2": ("zamba2_2_7b", (2, 1, 2)),
             **{f"moonshot_v1_16b_a3b/cap1_{m}": ("moonshot_v1_16b_a3b",
                                                  shape)
                for m, shape in (("dp2xtp2", (2, 2)), ("tp4", (1, 4)),
@@ -927,7 +932,8 @@ def tensor_parallel_rank(rank: int, world: int, params_by_arch: dict
     :data:`TP_STEPS` dense steps from the arch's tree, gathered whole,
     and the metrics (the grad norm's bits too), the MoE assignments
     dropped and the shapes of every dispatch buffer and ``we1`` the
-    experts' SwiGLU took; the vocabulary-parallel CE over the world's
+    experts' SwiGLU took, of every ``x`` the SSD scan took and of every
+    ``q`` an attention took; the vocabulary-parallel CE over the world's
     ranks; at world 2 the live gathered bytes of a (2, 1) step on fake
     tensors and fault G's refusals on (1, 2)."""
     import torch
@@ -955,14 +961,31 @@ def tensor_parallel_rank(rank: int, world: int, params_by_arch: dict
         buffers.add((tuple(buf.shape), tuple(we1.shape)))
         return swiglu(buf, we1, we3, we2)
 
+    from repro_torch.models import layers as LAYERS
+    from repro_torch.models import ssm as SSM
+
+    scans, queries = set(), set()
+    scan, attention = SSM._ssd_chunk_scan, LAYERS.blockwise_attention
+
+    def recorded_scan(x, *a, **kw):
+        scans.add(tuple(x.shape))
+        return scan(x, *a, **kw)
+
+    def recorded_attention(q, *a, **kw):
+        queries.add(tuple(q.shape))
+        return attention(q, *a, **kw)
+
     MOE.experts_swiglu = recorded
+    SSM._ssd_chunk_scan = recorded_scan
+    LAYERS.blockwise_attention = recorded_attention
     out = {}
     for name in tp_cases(world):
         arch, shape = TP_CASES[name]
         cfg = tp_config(name, get_smoke_config)
         model = build_model(cfg)
         drops[0] = 0
-        buffers.clear()
+        for seen in (buffers, scans, queries):
+            seen.clear()
         names = ("data", "model") if len(shape) == 2 else ("pod", "data",
                                                            "model")
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
@@ -980,8 +1003,11 @@ def tensor_parallel_rank(rank: int, world: int, params_by_arch: dict
                            .tobytes()})
         out[name] = {"params": leaves_np(params), "mu": leaves_np(opt.mu),
                      "nu": leaves_np(opt.nu), "metrics": mets,
-                     "dropped": drops[0], "buffers": sorted(buffers)}
+                     "dropped": drops[0], "buffers": sorted(buffers),
+                     "scans": sorted(scans), "queries": sorted(queries)}
     MOE.experts_swiglu = swiglu
+    SSM._ssd_chunk_scan = scan
+    LAYERS.blockwise_attention = attention
     out["ce"] = _ce_on_model_shards(world, CE_VOCAB)
     if world == 2:
         out["ce_refused"] = _ce_refusals(world)

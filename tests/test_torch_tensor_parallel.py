@@ -1,24 +1,31 @@
 """The sharded dense step's tensor parallelism, on the CPU.
 
 ``make_train_step`` on DTensor parameters gathers each layer's weights
-where it uses them and splits the dense decoder's attention, MLP,
-embedding and loss over the mesh's ``model`` dim
-(``repro_torch.sharding.api``: ``gather_at_use``, ``model_split`` and the
-Megatron pair). In gloo worlds of 2 and 4 ranks (one spawn a world size,
-``repro_torch.launch.world.spawn_world``; rank bodies in
-``tests/_torch_world.py``), on ``("data", "model")`` meshes (1, 2), (2, 2)
-and (1, 4), and gemma3's also on a ``("pod", "data", "model")`` mesh
-(2, 1, 2):
+where it uses them and splits every family's blocks over the mesh's
+``model`` dim as the reference's specs do: the attention on its heads,
+the MLP on its ``d_ff`` columns, the Mamba2 block on its SSM heads, the
+MoE on its experts, the embedding and loss on the vocabulary
+(``repro_torch.sharding.api``: ``gather_at_use``, ``model_split``,
+``attn_split`` and the Megatron pair). In gloo worlds of 2 and 4 ranks
+(one spawn a world size, ``repro_torch.launch.world.spawn_world``; rank
+bodies in ``tests/_torch_world.py``), on ``("data", "model")`` meshes
+(1, 2), (2, 2) and (1, 4), and gemma3's and Zamba2's also on a
+``("pod", "data", "model")`` mesh (2, 1, 2):
 
 - the smoke configs of gemma3 (local:global groups; 4 heads and 2 KV
   heads, which at model = 4 are replicated in pairs), Qwen2-VL (patch
   embeddings and M-RoPE positions of three distinct streams), StableLM
-  and InternLM2, and on (2, 2) those of Mamba2, Zamba2 (one shared block
-  gathered at each of its sites) and Whisper, whose layers are gathered
-  at use and only their vocabulary split, two steps each: params,
-  moments, loss and grad norm within ``tests/test_torch_train_step.py``'s
-  tolerances of the reference's unsharded ``jit`` step, and the same bits
-  on every rank;
+  and InternLM2, and on (2, 2) and (1, 4) those of Mamba2 and Zamba2
+  (8 SSM heads; ``in_proj``'s 296 columns, which pack z, x, B, C and dt,
+  gathered whole and each rank's heads' columns taken; the gated norm's
+  mean of squares summed over ``model``), Zamba2's shared block (4 heads
+  and 4 KV heads, gathered and split at each of its sites) and
+  Whisper's encoder, decoder and cross-attention (4 heads) and MLPs, two
+  steps each: params, moments, loss and grad norm within
+  ``tests/test_torch_train_step.py``'s tolerances of the reference's
+  unsharded ``jit`` step, and the same bits on every rank; each rank's
+  SSD scan on (B / data, S, H / model, P) and each split attention's
+  ``q`` on n_heads / model heads;
 - the MoE's experts on their ``model`` shards over this rank's block of
   the capacity (``models/moe.py``): Moonshot's smoke config on (2, 2),
   and at capacity factor 1.0 (the capacity binds and drops) on (2, 2),
@@ -156,6 +163,32 @@ def test_moe_buffer_is_this_ranks_block(worlds, case):
     want = [((E, -(-C // data), cfg.d_model), (E, cfg.d_model, cfg.d_ff))]
     for res in ranks_of(worlds, case):
         assert res["buffers"] == want
+
+
+FAMILY_CASES = [k for k in CASES if W.TP_CASES[k][0] in W.TP_FAMILY_ARCHS]
+
+
+@pytest.mark.parametrize("case", FAMILY_CASES)
+def test_blocks_run_on_this_ranks_heads(worlds, case):
+    """Each rank's SSD scan takes ``x`` on its SSM heads, (B / data, S, H
+    / model, P), and each attention (Zamba2's shared block at its sites,
+    Whisper's encoder, decoder and cross-attention) ``q`` on its
+    n_heads / model heads of the rank's rows."""
+    cfg = W.tp_config(case, get_smoke_config)
+    shape = W.TP_CASES[case][1]
+    data, model = int(np.prod(shape[:-1])), shape[-1]
+    B, S = W.TRAIN_BATCH
+    rows = B // data
+    for res in ranks_of(worlds, case):
+        want = ([(rows, S, cfg.n_ssm_heads // model, cfg.ssm_head_dim)]
+                if cfg.family in ("ssm", "hybrid") else [])
+        assert res["scans"] == want
+        if cfg.family == "ssm":
+            assert res["queries"] == []
+            continue
+        assert res["queries"]
+        assert {(q[0],) + q[2:] for q in res["queries"]} == {
+            (rows, cfg.n_heads // model, cfg.head_dim)}
 
 
 @pytest.mark.parametrize("path", ["whole", "split"])
