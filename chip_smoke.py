@@ -147,6 +147,15 @@ result, when no CUDA card is present or the package is missing.
    Zamba2-2.7B at full depth, its Mamba blocks on their SSM heads and its
    shared block on its heads and ``d_ff`` columns; (h) for Whisper-medium
    at 24 + 24 layers, every attention and MLP on its ``model`` shard.
+   (i) The placed serving steps (parameters on the serving layout, the
+   caches on the reference's) at world 1 bitwise to the plain ones:
+   SmolLM-135M's 8 prompts of 512 and 16 tokens, Moonshot-16B-A3B at
+   depth 2 on 4 x 512 and 8 tokens (its combine folds counted); then as
+   rank 0 of the 16 x 16 mesh, each beside its dry-run: (j)
+   Qwen2-VL-72B's ``decode_32k`` step over caches split along
+   ``head_dim``, (k) Zamba2-2.7B's ``decode_32k`` step over the Mamba
+   caches, (l) gemma3-27B's ``prefill_32k`` step, each at full depth with
+   its counted FLOPs equal to the dry-run's.
 13. ``tools`` (:func:`run_tools`): on the same mesh, SmolLM-135M's dense
    step under ``launch/hlo_analysis.py``'s ``analyze_step`` on the card
    and on fake tensors of the same shapes (the FLOP counts equal as
@@ -270,6 +279,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank0-arch", default=SH_TP_ARCH,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--rank0-shape", default=SH_TP_SHAPE,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -285,7 +296,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     if args.sharding_rank0:
         sharding_rank0(torch, args.seed, args.sharding_rank0,
-                       args.rank0_arch)
+                       args.rank0_arch, args.rank0_shape)
         return 0
     try:
         return run(args, torch)
@@ -331,9 +342,12 @@ def host_stall_probe(torch, fn, reps: int = 10, top: int = 4) -> dict:
     ms])."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch.profiler_settle import settle
+
     calls = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        settle()
         for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -355,17 +369,22 @@ def host_stall_probe(torch, fn, reps: int = 10, top: int = 4) -> dict:
 
 def device_profile(torch, fn, wall_ms: float, top: int = 6,
                    watch: tuple = ()) -> dict:
-    """One call of ``fn`` under ``torch.profiler``: device time summed by
+    """One call of ``fn`` under ``torch.profiler``, launched after
+    :func:`~repro_torch.launch.profiler_settle.settle` (the profiler loses
+    what is launched in its first milliseconds): device time summed by
     kernel name (the ``top`` largest, and under ``"watch"`` the ms and
     launches of the kernels whose names hold each string of ``watch``) and
     the device's busy share of ``wall_ms``, the call's unprofiled median
     host time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch.profiler_settle import settle
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        settle()
         fn()
         torch.cuda.synchronize()
     return device_times(torch, prof, wall_ms, top, watch)
@@ -500,6 +519,7 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
     from repro_torch import tree as T
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import topk_block
+    from repro_torch.launch.profiler_settle import settle
     from repro_torch.runtime import (DeltaPublisher, DeltaSubscriber,
                                      InProcTransport, dense_sync_bytes)
 
@@ -602,6 +622,7 @@ def run_delta_sync(torch, seed: int, dev, kernels: dict):
             try:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
+                    settle()
                     t0 = time.perf_counter()
                     report = rep_b.sync()
                     torch.cuda.synchronize()
@@ -882,6 +903,7 @@ def run_stream_service(torch, seed: int, dev, kernels: dict):
     from repro_torch.core.stream_service import StreamService
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import stream_serve as SV
+    from repro_torch.launch.profiler_settle import settle
     from repro_torch.runtime.faults import (ServiceFaultInjector,
                                             ServiceFaultSpec)
 
@@ -1100,7 +1122,7 @@ def run_stream_service(torch, seed: int, dev, kernels: dict):
             try:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
-                    torch.cuda.synchronize()
+                    settle()
                     t0 = time.perf_counter()
                     report = inner(key, ready, now)
                     torch.cuda.synchronize()
@@ -3163,10 +3185,30 @@ SH_EP_ARCH = "moonshot_v1_16b_a3b"
 #: of 4,096 GELU columns a rank in every attention and MLP.
 SH_SSM_ARCH = "zamba2_2_7b"
 SH_ED_ARCH = "whisper_medium"
-#: The rank-0 parts of phase ``sharding``: (part, arch, the phase's key).
-SH_RANK0_PARTS = (("e", SH_TP_ARCH, "rank0"), ("f", SH_EP_ARCH, "rank0_moe"),
-                  ("g", SH_SSM_ARCH, "rank0_hybrid"),
-                  ("h", SH_ED_ARCH, "rank0_encdec"))
+#: Phase ``sharding`` (j)-(l): the serving steps on the same rank of the
+#: production mesh, on the serving layout (bf16 parameters split over
+#: ``model`` only) and the reference's cache layout: (j) Qwen2-VL-72B's
+#: decode over caches split along ``head_dim`` (its 8 KV heads do not
+#: divide 16 ranks), (k) Zamba2-2.7B's decode (the Mamba caches: 5 of 80
+#: heads' states, 328 of 5,248 conv channels), (l) gemma3-27B's prefill of
+#: 32,768-token prompts (ring and global caches on 1 of 16 KV heads).
+SH_SERVE_PARTS = (("j", "qwen2_vl_72b", "decode_32k", "rank0_vlm_decode"),
+                  ("k", SH_SSM_ARCH, "decode_32k", "rank0_hybrid_decode"),
+                  ("l", SH_TP_ARCH, "prefill_32k", "rank0_prefill"))
+#: The rank-0 parts of phase ``sharding``: (part, arch, cell, the phase's
+#: key).
+SH_RANK0_PARTS = (("e", SH_TP_ARCH, SH_TP_SHAPE, "rank0"),
+                  ("f", SH_EP_ARCH, SH_TP_SHAPE, "rank0_moe"),
+                  ("g", SH_SSM_ARCH, SH_TP_SHAPE, "rank0_hybrid"),
+                  ("h", SH_ED_ARCH, SH_TP_SHAPE, "rank0_encdec")
+                  ) + SH_SERVE_PARTS
+#: Phase ``sharding`` (i): the placed serving steps at world 1 bitwise to
+#: the plain ones: SmolLM-135M as phase ``workload``'s replica serves it
+#: (its prompts and tokens) and Moonshot-16B-A3B at phase ``families``'
+#: serving depth, prompts and tokens.
+SH_SERVE_WORLD1 = ((WL_ARCH, None, WL_PROMPTS, WL_NEW_TOKENS),
+                   (SH_MOE_ARCH, FAMILIES[SH_MOE_ARCH]["serve_depth"],
+                    FAMILIES[SH_MOE_ARCH]["prompts"], FAM_NEW_TOKENS))
 
 
 def first_mismatch(torch, names, want, got) -> str:
@@ -3216,8 +3258,14 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
     its shared block on its heads and ``d_ff`` columns at each site) and
     Whisper-medium (:data:`SH_ED_ARCH`, 24 + 24 layers on ``train_4k``'s
     frame embeddings too: every attention and MLP on its ``model``
-    shard). The fake collectives move nothing and hand back uninitialized
-    memory, so (e)-(h) hold no value of the step to anything. Two runs
+    shard). (i) The placed prefill and decode at world 1, bitwise to the
+    plain ones (:func:`serve_world1`, :data:`SH_SERVE_WORLD1`); (j)-(l)
+    serving cells on the same production rank (:data:`SH_SERVE_PARTS`:
+    the serving layout's bf16 parameters, a decode's caches on the
+    reference's cache layout, drawn on the card), held to their dry-runs
+    as (e). The fake collectives move nothing and hand back uninitialized
+    memory, so (e)-(h) and (j)-(l) hold no value of the step to
+    anything. Two runs
     of one path agree bitwise only on deterministic kernels, so (a) and (b)
     run under ``torch.use_deterministic_algorithms(True, warn_only=True)``
     (the sorted ``index_put_`` accumulate of the embedding's and the MoE
@@ -3231,18 +3279,18 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
     use_full_precision()
     gc.collect()
     torch.cuda.empty_cache()
-    # (e)-(h)'s fake counts, on the host's CPU while (a)-(d) run on the
-    # card
+    # (e)-(h)'s and (j)-(l)'s fake counts, on the host's CPU while (a)-(d)
+    # and (i) run on the card
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_sharding_")
     env = dict(os.environ, PYTHONPATH=SRC + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     drys = {}
     try:
-        for part, arch, _ in SH_RANK0_PARTS:
+        for part, arch, cell, _ in SH_RANK0_PARTS:
             dry_json = os.path.join(out_dir, f"dryrun_{part}.json")
-            drys[part] = (arch, subprocess.Popen(
+            drys[part] = (arch, cell, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
-                 "--arch", arch, "--shape", SH_TP_SHAPE, "--mesh", "single",
+                 "--arch", arch, "--shape", cell, "--mesh", "single",
                  "--out", dry_json], env=dict(env, CUDA_VISIBLE_DEVICES=""),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 dry_json, time.perf_counter())
@@ -3252,14 +3300,14 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
             phase = _run_sharding(torch, seed, dev, kernels, mesh)
         finally:
             torch.use_deterministic_algorithms(was_deterministic)
-        for part, _, key in SH_RANK0_PARTS:
+        for part, _, _, key in SH_RANK0_PARTS:
             gc.collect()
             torch.cuda.empty_cache()
             phase[key] = _sharding_rank0_on_card(
                 torch, seed, env, os.path.join(out_dir, f"rank0_{part}.json"),
                 part, *drys[part])
     finally:
-        for _, dry, _, _ in drys.values():
+        for _, _, dry, _, _ in drys.values():
             if dry.poll() is None:
                 dry.kill()
                 dry.communicate()
@@ -3277,24 +3325,26 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
                  "each": prev.get("each", [prev]) + [r],
                  "max_abs_err": max(prev["max_abs_err"], r["max_abs_err"])}
         phase["plain_replays"][name] = r
-    for part, arch, _ in SH_RANK0_PARTS:
+    for part, arch, _, _ in SH_RANK0_PARTS:
         phase["reduced"].append(
             f"{arch} ({part}): one rank of 256 under a fake process group "
             f"(the other ranks' work and the wire not run)")
     return phase
 
 
-def _sharding_rank0_on_card(torch, seed, env, out_json, part, arch, dry,
-                            dry_json, t_dry) -> dict:
-    """Part ``part`` ((e) or (f)) of phase ``sharding``:
-    :func:`sharding_rank0` on ``arch`` in a subprocess on the card, held
-    to the host's dry-run of the same cell (the FLOPs as integers; the
-    peak above resident against ``temp_bytes`` as a ratio, not gated)."""
+def _sharding_rank0_on_card(torch, seed, env, out_json, part, arch, cell,
+                            dry, dry_json, t_dry) -> dict:
+    """Part ``part`` ((e)-(h), (j)-(l)) of phase ``sharding``:
+    :func:`sharding_rank0` on ``arch`` and ``cell`` in a subprocess on the
+    card, held to the host's dry-run of the same cell (the FLOPs as
+    integers; the peak above resident against ``temp_bytes`` as a ratio,
+    not gated)."""
     what = f"phase sharding ({part})"
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--seed",
-         str(seed), "--sharding-rank0", out_json, "--rank0-arch", arch],
+         str(seed), "--sharding-rank0", out_json, "--rank0-arch", arch,
+         "--rank0-shape", cell],
         env=env, capture_output=True, text=True, timeout=SH_TP_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
     check(proc.returncode == 0, f"{what}: the rank-0 process exited "
@@ -3318,8 +3368,8 @@ def _sharding_rank0_on_card(torch, seed, env, out_json, part, arch, dry,
              useful_flops_ratio=rec["useful_flops_ratio"],
              wall_s=wall_s, dry_wall_s=time.perf_counter() - t_dry,
              card=nvidia_smi_line())
-    log(f"{what}: {e['arch']} depth {e['depth']} on rank 0 of "
-        f"{e['mesh']} ({e['rows']} x {e['seq']} tokens a rank), on "
+    log(f"{what}: {e['arch']} {e['cell']} depth {e['depth']} on rank 0 "
+        f"of {e['mesh']} ({e['rows']} x {e['seq']} tokens a rank), on "
         f"{e['card']}: step {e['step_ms']:.1f} ms (the fake collectives "
         f"move nothing); peak above resident "
         f"{e['peak_above_resident_bytes'] / 2**30:.2f} GiB = "
@@ -3333,39 +3383,137 @@ def _sharding_rank0_on_card(torch, seed, env, out_json, part, arch, dry,
     return e
 
 
+def _placed_draws(torch, gen, mesh, metas, shardings, fill=None):
+    """DTensors of the ``meta`` tensors' global shapes on ``shardings``
+    (flat lists), this rank's shards drawn on the card: normals times
+    0.02 in each leaf's dtype, or ``fill`` for an integer leaf."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.params import local_region
+
+    out = []
+    for x, sh in zip(metas, shardings):
+        region = local_region(tuple(x.shape), mesh, sh.placements)
+        shape = tuple(r.stop - r.start for r in region)
+        if x.dtype.is_floating_point:
+            local = (torch.randn(shape, generator=gen, device=gen.device,
+                                 dtype=x.dtype) * 0.02)
+        else:
+            local = torch.full(shape, fill, dtype=x.dtype, device=gen.device)
+        out.append(DTensor.from_local(local, mesh, sh.placements,
+                                      run_check=False, shape=x.shape,
+                                      stride=x.stride()))
+    return out
+
+
+def _rank0_train(torch, gen, mesh, model, cell, arch):
+    """``(step, args)`` of a train cell on rank 0: f32 parameters and
+    AdamW state on ``params_shardings``, the global batch on
+    ``batch_shardings``."""
+    from repro_torch import tree as TR
+    from repro_torch.data.synthetic import input_specs
+    from repro_torch.launch.shard_memory import fake_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.params import (batch_shardings, distribute,
+                                             params_shardings)
+    from repro_torch.train import TrainHParams, make_train_step
+
+    cfg, dev = model.cfg, gen.device
+    meta = fake_params(arch)
+    leaves, treedef = TR.flatten(meta)
+    shs = TR.flatten_up_to(treedef, params_shardings(meta, mesh))
+    params = TR.unflatten(treedef, _placed_draws(torch, gen, mesh, leaves,
+                                                 shs))
+    opt = adamw_init(params)
+    toks = torch.randint(0, cfg.vocab, (cell.global_batch, cell.seq_len + 1),
+                         generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    frames = input_specs(cfg, cell).get("embeds")
+    if frames is not None:  # the encoder-decoder's frame embeddings
+        batch["embeds"] = torch.randn(tuple(frames.shape), generator=gen,
+                                      device=dev).to(frames.dtype)
+    batch = distribute(batch, batch_shardings(batch, mesh))
+    return make_train_step(model, TrainHParams()), (params, opt, batch)
+
+
+def _rank0_serving(torch, gen, mesh, model, cell, arch):
+    """``(step, args)`` of a serving cell on rank 0, as the dry-run lays
+    it out: bf16 parameters on ``serve_shardings``, a prefill's prompts on
+    ``batch_shardings``, a decode's caches on ``cache_shardings`` (every
+    cache length at the cell's last position) and its tokens on
+    ``batch_shardings``."""
+    from repro_torch import tree as TR
+    from repro_torch.data.synthetic import decode_inputs, input_specs
+    from repro_torch.launch.dryrun import serve_param_sds, serve_shardings
+    from repro_torch.launch.shard_memory import fake_params
+    from repro_torch.sharding.params import (_map_caches, batch_shardings,
+                                             cache_shardings, distribute)
+    from repro_torch.train import (TrainHParams, make_decode_step,
+                                   make_prefill_step)
+
+    cfg, dev = model.cfg, gen.device
+    meta = serve_param_sds(fake_params(arch))
+    leaves, treedef = TR.flatten(meta)
+    shs = TR.flatten_up_to(treedef, serve_shardings(meta, mesh))
+    params = TR.unflatten(treedef, _placed_draws(torch, gen, mesh, leaves,
+                                                 shs))
+    if cell.kind == "prefill":
+        batch = {}
+        for k, x in input_specs(cfg, cell).items():
+            batch[k] = (torch.randn(tuple(x.shape), generator=gen,
+                                    device=dev).to(x.dtype)
+                        if x.dtype.is_floating_point else
+                        torch.randint(0, cfg.vocab, tuple(x.shape),
+                                      generator=gen, device=dev,
+                                      dtype=x.dtype))
+        batch = distribute(batch, batch_shardings(batch, mesh))
+        step = make_prefill_step(model, attn_chunk=TrainHParams().attn_chunk)
+        return step, (params, batch)
+    cache_meta, tok_meta = decode_inputs(cfg, cell, model)
+    metas, flat_sh = [], []
+    _map_caches(metas.append, cache_meta)
+    _map_caches(flat_sh.append, cache_shardings(cache_meta, cfg, mesh,
+                                                cell.global_batch))
+    it = iter(_placed_draws(torch, gen, mesh, metas, flat_sh,
+                            fill=cell.seq_len - 1))
+    caches = _map_caches(lambda _: next(it), cache_meta)
+    tok = torch.randint(0, cfg.vocab, tuple(tok_meta.shape), generator=gen,
+                        device=dev, dtype=tok_meta.dtype)
+    tok = distribute({"tok": tok}, batch_shardings({"tok": tok}, mesh))["tok"]
+    return make_decode_step(model), (params, caches, tok)
+
+
 def sharding_rank0(torch, seed: int, out_json: str,
-                   arch: str = SH_TP_ARCH) -> None:
+                   arch: str = SH_TP_ARCH, cell_name: str = SH_TP_SHAPE
+                   ) -> None:
     """This process as rank 0 of the 16 x 16 production mesh under
-    PyTorch's ``fake`` process group, on the card: ``arch``'s parameters
-    (this rank's shards only, drawn on the card) and AdamW state placed by
-    ``params_shardings``, ``train_4k``'s global batch, one dense step
-    under ``analyze_step`` (its FLOPs and ``temp_bytes``), then one step
-    timed (host ms ending in a synchronize) with its peak above resident
-    and the kernels' launches, each count set to 0 just before it. The
-    timed step's largest MoE combine fold, if any, is replayed through the
-    plain fold afterwards, bitwise. Writes the numbers to ``out_json``."""
+    PyTorch's ``fake`` process group, on the card, on the cell
+    ``cell_name``: for a train cell ``arch``'s parameters (this rank's
+    shards only, drawn on the card) and AdamW state placed by
+    ``params_shardings`` and the global batch (:func:`_rank0_train`), for
+    a serving cell the serving layout's bf16 parameters and a prefill's
+    prompts or a decode's caches and tokens (:func:`_rank0_serving`); one
+    step under ``analyze_step`` (its FLOPs and ``temp_bytes``), then one
+    step timed (host ms ending in a synchronize) with its peak above
+    resident and the kernels' launches, each count set to 0 just before
+    it. The timed step's largest MoE combine fold, if any, is replayed
+    through the plain fold afterwards, bitwise. Writes the numbers to
+    ``out_json``."""
     import gc
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor import DTensor
 
     from repro_torch import compat
-    from repro_torch import tree as TR
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import input_specs
     from repro_torch.kernels import segment
     from repro_torch.launch import hlo_analysis as HA
     from repro_torch.launch.mesh import chips, production_mesh_shape
-    from repro_torch.launch.shard_memory import fake_params
     from repro_torch.models import build_model
     from repro_torch.models import moe as MOE
     from repro_torch.models.common import SHAPES
     from repro_torch.models.layers import use_full_precision
-    from repro_torch.optim import adamw_init
-    from repro_torch.sharding.params import (batch_shardings, distribute,
-                                             local_region, params_shardings)
-    from repro_torch.train import TrainHParams, make_train_step
 
     use_full_precision()
     dev = torch.device("cuda")
@@ -3377,39 +3525,18 @@ def sharding_rank0(torch, seed: int, out_json: str,
         mesh = init_device_mesh("cuda", tuple(shape.shape),
                                 mesh_dim_names=tuple(shape.axis_names))
         cfg = get_config(arch)
-        cell = SHAPES[SH_TP_SHAPE]
+        cell = SHAPES[cell_name]
         model = build_model(cfg)
-        meta = fake_params(arch)
-        leaves, treedef = TR.flatten(meta)
-        shs = TR.flatten_up_to(treedef, params_shardings(meta, mesh))
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        placed = []
-        for x, sh in zip(leaves, shs):
-            region = local_region(tuple(x.shape), mesh, sh.placements)
-            local = torch.randn(tuple(r.stop - r.start for r in region),
-                                generator=gen, device=dev) * 0.02
-            placed.append(DTensor.from_local(
-                local, mesh, sh.placements, run_check=False,
-                shape=x.shape, stride=x.stride()))
-        params = TR.unflatten(treedef, placed)
-        del meta, leaves
-        opt = adamw_init(params)
-        toks = torch.randint(0, cfg.vocab, (cell.global_batch,
-                                            cell.seq_len + 1),
-                             generator=gen, device=dev, dtype=torch.int32)
-        batch = {"tokens": toks[:, :-1].contiguous(),
-                 "labels": toks[:, 1:].contiguous()}
-        frames = input_specs(cfg, cell).get("embeds")
-        if frames is not None:  # the encoder-decoder's frame embeddings
-            batch["embeds"] = torch.randn(tuple(frames.shape), generator=gen,
-                                          device=dev).to(frames.dtype)
-        batch = distribute(batch, batch_shardings(batch, mesh))
-        del toks
-        step = make_train_step(model, TrainHParams())
+        if cell.kind == "train":
+            step, args = _rank0_train(torch, gen, mesh, model, cell, arch)
+        else:
+            step, args = _rank0_serving(torch, gen, mesh, model, cell,
+                                        arch)
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated(dev)
-        out, roof = HA.analyze_step(step, params, opt, batch)
+        out, roof = HA.analyze_step(step, *args)
         del out
         gc.collect()
         torch.cuda.synchronize()
@@ -3428,14 +3555,14 @@ def sharding_rank0(torch, seed: int, out_json: str,
         segment.segment_fold.launches = 0
         try:
             t0 = time.perf_counter()
-            out = step(params, opt, batch)
+            out = step(*args)
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3
         finally:
             MOE.segment_fold = fold
         peak = torch.cuda.max_memory_allocated(dev) - resident
         launches = {"segment_fold": segment.segment_fold.launches}
-        del out, params, opt, batch
+        del out, args
         gc.collect()
         torch.cuda.empty_cache()
         plain_replays = {}
@@ -3448,11 +3575,14 @@ def sharding_rank0(torch, seed: int, out_json: str,
                 f"phase sharding: {cfg.arch_id}'s largest MoE combine fold "
                 f"on rank 0 (its gid and size; values drawn)")
             del vals
-        rows = cell.global_batch // mesh.size(0)
-        res = {"arch": cfg.arch_id, "depth": cfg.n_layers,
-               "enc_depth": cfg.n_enc_layers,
+        rows = (cell.global_batch // mesh.size(0)
+                if cell.global_batch % mesh.size(0) == 0
+                else cell.global_batch)
+        seq = 1 if cell.kind == "decode" else cell.seq_len
+        res = {"arch": cfg.arch_id, "cell": cell.name,
+               "depth": cfg.n_layers, "enc_depth": cfg.n_enc_layers,
                "mesh": "x".join(str(n) for n in shape.shape),
-               "rows": rows, "seq": cell.seq_len, "step_ms": step_ms,
+               "rows": rows, "seq": seq, "step_ms": step_ms,
                "resident_bytes": resident,
                "peak_above_resident_bytes": peak, "flops": roof.flops,
                "temp_bytes": roof.temp_bytes, "arg_bytes": roof.arg_bytes,
@@ -3462,6 +3592,99 @@ def sharding_rank0(torch, seed: int, out_json: str,
         dist.destroy_process_group()
     with open(out_json, "w") as f:
         json.dump(res, f)
+
+
+def serve_world1(torch, seed: int, dev, mesh, arch: str, depth, prompts,
+                 n_tok: int) -> dict:
+    """Phase ``sharding`` (i): ``arch`` (cut to ``depth`` layers, or
+    whole) prefills ``prompts`` (B, S) and decodes ``n_tok`` greedy tokens
+    through ``make_prefill_step`` / ``make_decode_step`` (chunks of 32 and
+    128, as ``launch/serve.py``) on plain parameters, then on the same
+    parameters placed by ``serve_shardings`` on the (1, 1) mesh with the
+    prompts and tokens on ``batch_shardings``: every step's logits and
+    the caches after prefill and after the last token bitwise. Host ms
+    of each path's prefill and median token."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import serve_shardings
+    from repro_torch.models import build_model
+    from repro_torch.sharding.params import (_map_caches, batch_shardings,
+                                             distribute)
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    model = build_model(cfg)
+    params = model.init(seed, device=dev, on_device=True)
+    B, S = prompts
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 28)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev,
+                         dtype=torch.int32)
+    prefill = make_prefill_step(model, attn_chunk=32, max_len=S + n_tok)
+    decode = make_decode_step(model, attn_chunk=128)
+
+    def whole(x):
+        return x.full_tensor() if isinstance(x, DTensor) else x
+
+    def flat(caches):
+        out = []
+        _map_caches(lambda x: out.append(whole(x)), caches)
+        return out
+
+    def run(p, place):
+        t0 = time.perf_counter()
+        lg, c = prefill(p, {"tokens": place(toks)})
+        torch.cuda.synchronize()
+        ms = [(time.perf_counter() - t0) * 1e3]
+        logits, caches = [whole(lg)], [flat(c)]
+        for _ in range(n_tok):
+            tok = torch.argmax(logits[-1], -1).to(torch.int32)
+            t0 = time.perf_counter()
+            lg, c = decode(p, c, place(tok))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(whole(lg))
+        caches.append(flat(c))
+        return logits, caches, ms
+
+    def plain(t):
+        return t
+
+    def placed(t):
+        return distribute({"t": t}, batch_shardings({"t": t}, mesh))["t"]
+
+    want_lg, want_c, plain_ms = run(params, plain)
+    sp = distribute(params, serve_shardings(params, mesh))
+    got_lg, got_c, placed_ms = run(sp, placed)
+    what = f"phase sharding (i) {cfg.arch_id}"
+    for n, (a, b) in enumerate(zip(want_lg, got_lg)):
+        check(bitwise_equal(torch, a, b), f"{what}: step {n}'s logits "
+              f"differ from the plain step's by "
+              f"{float((a - b).abs().max())!r}")
+    for label, a, b in (("prefill", want_c[0], got_c[0]),
+                        ("the last token", want_c[1], got_c[1])):
+        names = [f"cache leaf {k}" for k in range(len(a))]
+        bad = first_mismatch(torch, names, a, b)
+        check(not bad, f"{what}: the caches after {label} differ at {bad}")
+    res = {"arch": cfg.arch_id, "depth": cfg.n_layers, "prompts": [B, S],
+           "tokens": n_tok, "cache_leaves": len(want_c[0]),
+           "plain_prefill_ms": plain_ms[0],
+           "placed_prefill_ms": placed_ms[0],
+           "plain_token_ms": statistics.median(plain_ms[1:]),
+           "placed_token_ms": statistics.median(placed_ms[1:]),
+           "bitwise": True}
+    log(f"{what}: depth {cfg.n_layers}, {B} x {S} prompts and {n_tok} "
+        f"tokens; the placed prefill and decode bitwise to the plain ones "
+        f"(logits of every step, {res['cache_leaves']} cache leaves); "
+        f"prefill {placed_ms[0]:.1f} ms placed, {plain_ms[0]:.1f} plain; "
+        f"median token {res['placed_token_ms']:.2f} ms placed, "
+        f"{res['plain_token_ms']:.2f} plain")
+    return res
 
 
 def _run_sharding(torch, seed, dev, kernels, mesh):
@@ -3697,16 +3920,30 @@ def _run_sharding(torch, seed, dev, kernels, mesh):
         f"calls); launches {used_b}")
     del kept, smp, sgrads, grads, mb, moe_model
     free()
+
+    # ---- (i) the placed serving steps at world 1 -------------------------
+    i = {}
+    for arch, depth, prompts, n_tok in SH_SERVE_WORLD1:
+        i[arch], used_i = counted(lambda: serve_world1(
+            torch, seed, dev, mesh, arch, depth, prompts, n_tok))
+        i[arch]["launches"] = used_i
+        free()
+    check(i[SH_MOE_ARCH]["launches"].get("segment_fold", 0) > 0,
+          "phase sharding (i): the MoE combine's segment fold did not "
+          "launch")
     for name in launches:
         check(launches[name] > 0, f"phase sharding: the {name} kernel did "
               f"not launch")
     return {"launches": launches, "plain_replays": plain_replays,
             "dense": a, "moe": b, "publisher": c, "checkpoint": d,
+            "serving": i,
             "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
             "reduced": ["one chip: world 1 on a (1, 1) NCCL mesh (NCCL puts "
                         "no two ranks on one card)",
                         f"{SH_MOE_ARCH}: depth 1 of {full_cfg.n_layers}, "
-                        f"batch {B2} x {S2} of train_4k's 256 x 4,096",
+                        f"batch {B2} x {S2} of train_4k's 256 x 4,096; "
+                        f"serving (i) at depth "
+                        f"{FAMILIES[SH_MOE_ARCH]['serve_depth']}",
                         f"{WL_ARCH}: batch {B} x {S_len} of train_4k's "
                         f"256 x 4,096"]}
 

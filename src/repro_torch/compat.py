@@ -73,8 +73,9 @@ def is_fake(t) -> bool:
 def beneath_dispatch_modes():
     """``torch.utils._python_dispatch._disable_current_modes()``: a block
     whose operations run beneath every active dispatch mode, so that a
-    check that reads a tensor's values on the host is not counted as a
-    step's work by the cost analysis (``launch/hlo_analysis.py``)."""
+    check that reads a tensor's values on the host, or shapes worked out
+    on ``meta`` tensors, are not counted as a step's work by the cost
+    analysis (``launch/hlo_analysis.py``)."""
     try:
         from torch.utils._python_dispatch import _disable_current_modes
     except ImportError as e:

@@ -18,11 +18,11 @@ ranks, whose collectives move nothing, through the DTensor path of
   reduced into its leaf's shard, AdamW on shards.
 - ``prefill`` / ``decode``: bf16 parameters (:func:`serve_param_sds`)
   placed by :func:`serve_shardings` (TP-only: no ``data`` axis), the batch
-  and the caches (``cache_shardings``) on theirs. The step gathers each
-  leaf over the mesh's ``model`` axis and keeps its rows over the data axes
-  (:func:`_gathered_over_model`), then runs ``make_prefill_step`` /
-  ``make_decode_step`` on plain local tensors: the port's models take no
-  DTensor, as in its train step.
+  and the caches (``cache_shardings``) on theirs, one ``make_prefill_step``
+  / ``make_decode_step`` step: each rank runs its ``model`` shard on its
+  rows and its part of the caches (a decode step moves no weight: the
+  token's activations, the logits' vocabulary shards and, over a cache
+  split along ``head_dim``, the scores' sums over ``model``).
 
 For each cell :func:`run_cell` records what ``launch/hlo_analysis.py``
 counts of that one step on one rank (FLOPs, unfused HBM bytes, collective
@@ -52,7 +52,6 @@ import traceback
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch import compat
 from repro_torch import tree as _tree
@@ -63,8 +62,7 @@ from repro_torch.launch.mesh import chips, production_mesh_shape
 from repro_torch.models import build_model, moe
 from repro_torch.models.common import SHAPES
 from repro_torch.optim import adamw_init
-from repro_torch.sharding.api import (NamedSharding, RowSplit, mesh_axes,
-                                     row_split_context)
+from repro_torch.sharding.api import NamedSharding, mesh_axes
 from repro_torch.sharding.params import (_map_caches, _validated,
                                          batch_shardings, cache_shardings,
                                          distribute, param_spec,
@@ -144,40 +142,6 @@ def _place_caches(caches, shardings):
     return _map_caches(lambda x: distribute(x, next(it)), caches)
 
 
-def _gathered_over_model(x):
-    """A DTensor leaf as this rank's plain tensor for a serving step: whole
-    along every mesh dim but the data axes, which keep their split."""
-    if not isinstance(x, DTensor):
-        return x
-    names = x.device_mesh.mesh_dim_names
-    want = tuple(pl if names[i] in ("pod", "data") else Replicate()
-                 for i, pl in enumerate(x.placements))
-    if want != tuple(x.placements):
-        x = x.redistribute(x.device_mesh, want)
-    return x.to_local()
-
-
-def _serving(step, mesh):
-    """``step`` (a prefill or decode step of plain tensors) on placed
-    arguments: each leaf gathered over the model axis
-    (:func:`_gathered_over_model`), the MoE's batch statistics taken over
-    every rank's rows where the batch is split (as the train step does)."""
-    dp = [i for i, n in enumerate(mesh.mesh_dim_names)
-          if n in ("pod", "data") and mesh.size(i) > 1]
-
-    def run(*args):
-        leaves = []
-        _map_caches(leaves.append, list(args))
-        split = any(isinstance(x, DTensor) and any(
-            x.placements[i].is_shard() for i in dp) for x in leaves)
-        local = [_map_caches(_gathered_over_model, a) for a in args]
-        with row_split_context(RowSplit(mesh, tuple(dp)) if split
-                               else None):
-            return step(*local)
-
-    return run
-
-
 def _segment_fold_shape(vals, gid, num_segments):
     """The ordered segment fold's result as a shape and a type only: on
     fake tensors neither its kernel nor its plain version can run (the
@@ -218,7 +182,7 @@ def lower_cell(arch: str, shape_name: str, mesh,
     sp = distribute(sp, serve_shardings(sp, mesh))
     if shape.kind == "prefill":
         step = make_prefill_step(model, attn_chunk=hp.attn_chunk)
-        return _serving(step, mesh), (sp, batch), cfg, shape
+        return step, (sp, batch), cfg, shape
     cache_meta, tok_meta = decode_inputs(cfg, shape, model)
     caches = _map_caches(_fake_like, cache_meta)
     caches = _place_caches(caches, cache_shardings(caches, cfg, mesh,
@@ -226,7 +190,7 @@ def lower_cell(arch: str, shape_name: str, mesh,
     tok = distribute({"tok": _fake_like(tok_meta)},
                      batch_shardings({"tok": tok_meta}, mesh))["tok"]
     step = make_decode_step(model, attn_chunk=attn_chunk_decode)
-    return _serving(step, mesh), (sp, caches, tok), cfg, shape
+    return step, (sp, caches, tok), cfg, shape
 
 
 def model_flops(cfg, shape, n_chips: int) -> float:

@@ -72,10 +72,13 @@ def device_split(fn, reps: int = 5) -> dict:
     fill (a fill kernel or a memset) and of everything on the device."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.launch.profiler_settle import settle
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        settle()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()

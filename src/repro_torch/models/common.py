@@ -28,9 +28,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as _tree
 from repro_torch.core.sparse import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models.layers import gelu_mlp, rms_norm, swiglu
 from repro_torch.sharding.api import (copy_to_model, gather_at_use,
-                                      model_split, sum_over_model)
+                                      gather_over_model, model_split,
+                                      sum_over_model)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -291,6 +293,96 @@ def mlp(p, h: torch.Tensor, act: str) -> torch.Tensor:
     return sum_over_model(y, split)
 
 
+def attn_decode(p, h: torch.Tensor, cache: L.KVCache, length, kv_len,
+                cfg: ModelConfig, rope=None, chunk: int = 4096, *,
+                write: bool = True):
+    """One token's attention block on the serving steps' leaves
+    (``sharding.api.Placed`` on the TP-only serving layout) over a KV
+    cache on the reference's cache layout (``sharding.params.cache_spec``),
+    moving no weight: ``(the block's output (B, 1, d), new cache)``. ``h``
+    is the normed input, ``rope(q, k)`` rotates whole heads (``None``:
+    no rotation), ``write`` appends the token's k and v to the cache at
+    ``length`` (a cross-attention's static cache: ``False``, no k or v).
+
+    The cache's local shape says its layout. On this rank's KV heads: q,
+    k and v on the projections' column blocks (whole heads), the
+    attention on this rank's heads, ``wo`` row-parallel, then summed over
+    ``model``. Otherwise the token's q, k and v columns are all-gathered
+    over ``model`` (their blocks are no blocks of heads) and rotated as
+    whole heads; on a cache split along ``head_dim`` each rank takes its
+    slice of every head and the scores are summed over ``model``
+    (:func:`layers.head_dim_split_attention`), the output's slices
+    all-gathered; ``wo`` row-parallel on this rank's rows of it. With no
+    ``model`` split this is the plain block's arithmetic."""
+    B = h.shape[0]
+    hd = cfg.head_dim
+    on_heads = cache.k.shape[-2] < cfg.n_kv_heads
+    split = model_split(p["wq"], -1)
+
+    def proj(name):
+        y = h @ gather_at_use(p[name], keep_model=True).to(h.dtype)
+        if not on_heads:
+            y = gather_over_model(y, model_split(p[name], -1), -1)
+        return y.reshape(B, 1, -1, hd)
+
+    q = proj("wq")
+    if write:
+        k, v = proj("wk"), proj("wv")
+        if rope is not None:
+            q, k = rope(q, k)
+    part = cache.k.shape[-1]
+    if part < hd:
+        own = slice(split.rank * part, (split.rank + 1) * part)
+        q = q[..., own]
+        if write:
+            k, v = k[..., own], v[..., own]
+    if write:
+        cache = L.cache_update_decode(cache._replace(length=length), k, v)
+    if part < hd:
+        o = L.head_dim_split_attention(
+            q, cache.k, cache.v, kv_len=kv_len, chunk=chunk, head_dim=hd,
+            sum_scores=lambda s: sum_over_model(s, split))
+        o = gather_over_model(o, split, -1)
+    else:
+        o = L.blockwise_attention(q, cache.k, cache.v, causal=False,
+                                  kv_len=kv_len, chunk=chunk)
+    o = o.reshape(B, 1, -1)
+    rows = model_split(p["wo"], -2)
+    if rows is not None and not on_heads:
+        n = o.shape[-1] // rows.size
+        o = o[..., rows.rank * n:(rows.rank + 1) * n]
+    wo = gather_at_use(p["wo"], keep_model=True)
+    return sum_over_model(o @ wo.to(o.dtype), rows), cache
+
+
+def cache_kv(p, kv, cfg: ModelConfig):
+    """A prefill layer's ``(k, v)`` (B, S, heads, head_dim) as its cache
+    holds them on the reference's layout (``sharding.params.cache_spec``:
+    the KV heads split over ``model`` where its ranks divide them, else
+    ``head_dim`` where they divide it, else neither): as they are with no
+    ``model`` split of ``p``'s ``wq`` or on this rank's KV heads; else
+    gathered whole where the attention ran on one KV head a rank (an
+    all-gather over ``model`` of (B, S, 1, head_dim), one rank a head
+    taken), then this rank's slice of ``head_dim`` where the cache is
+    split along it."""
+    split = model_split(p["wq"], -1)
+    if split is None or cfg.n_kv_heads % split.size == 0:
+        return kv
+    by_dim = cfg.head_dim % split.size == 0
+    if not by_dim and kv[0].shape[2] == cfg.n_kv_heads:
+        return kv
+    out = []
+    for t in kv:
+        if t.shape[2] < cfg.n_kv_heads:
+            t = gather_over_model(t, split, 2)[
+                :, :, ::split.size // cfg.n_kv_heads]
+        if by_dim:
+            part = cfg.head_dim // split.size
+            t = t[..., split.rank * part:(split.rank + 1) * part]
+        out.append(t.contiguous())
+    return tuple(out)
+
+
 def maybe_remat(fn, remat: bool):
     """``fn`` recomputed in backward (``torch.utils.checkpoint``) when
     ``remat`` and grad is on, else ``fn`` itself."""
@@ -330,9 +422,14 @@ class TreeModel(nn.Module):
 
     def logits_last(self, params, x):
         """Logits for the final position only (prefill and decode
-        output), f32."""
-        h = rms_norm(x[:, -1:], params["final_ln"])
-        return (h @ params["head"].to(h.dtype)).to(torch.float32)[:, 0]
+        output), f32. A ``head`` the spec splits over ``model`` (a
+        ``sharding.api.Placed``) gives this rank's vocabulary columns,
+        all-gathered over ``model``."""
+        split = model_split(params["head"], -1)
+        h = rms_norm(x[:, -1:], gather_at_use(params["final_ln"]))
+        head = gather_at_use(params["head"], keep_model=True)
+        logits = (h @ head.to(h.dtype)).to(torch.float32)[:, 0]
+        return gather_over_model(logits, split, -1)
 
     @property
     def _stacks(self) -> tuple:

@@ -17,6 +17,9 @@ On the sharded train step's leaves (``sharding.api.Placed``) every
 self- and cross-attention runs on this rank's heads and every MLP on its
 ``d_ff`` columns (``sharding.api.attn_split``, ``models.common.mlp``);
 the encoder's output is copied to ``model`` at each cross-attention.
+The serving steps run the same on the TP-only layout: the self- and
+cross-attention caches hold this rank's KV heads, and decode moves no
+weight (``models.common.attn_decode``).
 
 Decode takes its position from the cache length on the device (no host
 sync) and cross-attends the static cache of all ``n_frames`` frames.
@@ -31,10 +34,11 @@ import torch.nn.functional as F
 
 from repro_torch.core.sparse import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.common import (TreeModel, dense_init, embed_lookup,
-                                       maybe_remat, mlp, per_layer, stacked)
+from repro_torch.models.common import (TreeModel, attn_decode, cache_kv,
+                                       dense_init, embed_lookup, maybe_remat,
+                                       mlp, per_layer, stacked)
 from repro_torch.models.transformer import chunked_ce
-from repro_torch.sharding.api import (attn_split, attn_weights,
+from repro_torch.sharding.api import (Placed, attn_split, attn_weights,
                                       copy_to_model, gather_at_use,
                                       sum_over_model)
 
@@ -192,7 +196,8 @@ class EncDecLM(TreeModel):
         for p_l in per_layer(params["dec_layers"]):
             x, self_kv, cross_kv = layer(p_l, x, enc)
             if collect_kv:
-                kv.append((self_kv, cross_kv))
+                kv.append((cache_kv(p_l["self"], self_kv, cfg),
+                           cache_kv(p_l["cross"], cross_kv, cfg)))
         return x, (kv if collect_kv else None)
 
     def loss(self, params, batch, *, remat: bool = True, ce_chunk: int = 512,
@@ -238,6 +243,25 @@ class EncDecLM(TreeModel):
             length=torch.tensor(S, dtype=torch.int32, device=dev))
         return self.logits_last(params, x), caches
 
+    def _dec_layer_decode_placed(self, p_l, x, self_cache: L.KVCache,
+                                 cross_cache: L.KVCache, length, kv_len, Fr,
+                                 chunk: int):
+        """A decoder layer's one token on the serving steps' ``Placed``
+        leaves: the self-attention over its cache and the
+        cross-attention over the static cache, each on the caches'
+        ``model`` layout (``models.common.attn_decode``), then the MLP on
+        its ``d_ff`` columns; no weight moves. Returns (x, the new self
+        cache)."""
+        cfg = self.cfg
+        h = L.rms_norm(x, gather_at_use(p_l["ln1"]))
+        o, new_s = attn_decode(p_l["self"], h, self_cache, length, kv_len,
+                               cfg, None, chunk)
+        x = x + o
+        h = L.rms_norm(x, gather_at_use(p_l["lnx"]))
+        o, _ = attn_decode(p_l["cross"], h, cross_cache, None, Fr, cfg, None,
+                           chunk, write=False)
+        return self._mlp(p_l, x + o), new_s
+
     def init_cache(self, B: int, max_len: int, device=None) -> EncDecCaches:
         cfg = self.cfg
         dev = resolve_device(device)
@@ -270,6 +294,13 @@ class EncDecLM(TreeModel):
         kv_len = torch.clamp(length + 1, max=S_max)
         new = []
         for i, p_l in enumerate(per_layer(params["dec_layers"])):
+            if isinstance(p_l["ln1"], Placed):
+                x, new_s = self._dec_layer_decode_placed(
+                    p_l, x, L.KVCache(sc.k[i], sc.v[i], length),
+                    L.KVCache(xc_.k[i], xc_.v[i], xc_.length[i]), length,
+                    kv_len, Fr, attn_chunk)
+                new.append(new_s)
+                continue
             h = L.rms_norm(x, p_l["ln1"])
             q = self._heads(h, p_l["self"]["wq"])
             k = self._heads(h, p_l["self"]["wk"])

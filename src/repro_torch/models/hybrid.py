@@ -16,7 +16,9 @@ On the sharded train step's leaves (``sharding.api.Placed``) each Mamba
 layer runs on its SSM heads (``models/ssm.py``) and the shared block on
 its heads and ``d_ff`` columns at each site (``sharding.api.attn_split``,
 ``models.common.mlp``), its leaves gathered at every site and each site's
-gradient reduced into the leaves' shards.
+gradient reduced into the leaves' shards. The serving steps run the same
+blocks on the TP-only layout, each site's cache on this rank's KV heads
+and the Mamba caches on its SSM heads and conv channels.
 
 Decode keeps one :class:`~repro_torch.models.ssm.MambaCache` per mamba
 layer, stacked ``(n_groups, attn_every, ...)``, plus one KV cache per
@@ -33,14 +35,14 @@ import torch.nn.functional as F
 from repro_torch import tree as _tree
 from repro_torch.core.sparse import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.common import (ModelConfig, TreeModel, dense_init,
-                                       embed_lookup, maybe_remat, mlp,
-                                       per_layer, stacked)
+from repro_torch.models.common import (ModelConfig, TreeModel, attn_decode,
+                                       cache_kv, dense_init, embed_lookup,
+                                       maybe_remat, mlp, per_layer, stacked)
 from repro_torch.models.ssm import (MambaCache, init_mamba_params,
                                     mamba_block_decode, mamba_block_full,
                                     stack_mamba_caches, zero_mamba_cache)
 from repro_torch.models.transformer import chunked_ce
-from repro_torch.sharding.api import (attn_split, attn_weights,
+from repro_torch.sharding.api import (Placed, attn_split, attn_weights,
                                       copy_to_model, gather_at_use,
                                       sum_over_model)
 
@@ -127,8 +129,21 @@ class HybridLM(TreeModel):
         return self._ffn(p, x), (k, v)
 
     def _shared_decode(self, p, x, cache: L.KVCache, length, chunk: int):
+        """The shared block's one token at a site; on the serving steps'
+        ``Placed`` leaves on its heads and ``d_ff`` columns over the
+        site's cache of this rank's KV heads, moving no weight
+        (``models.common.attn_decode``)."""
         B = x.shape[0]
         pos = length.reshape(1, 1).expand(B, 1).to(torch.int32)
+        if isinstance(p["wq"], Placed):
+            cfg = self.cfg
+            h = L.rms_norm(x, gather_at_use(p["ln1"]))
+            kv_len = torch.clamp(length + 1, max=cache.k.shape[1])
+            o, new_cache = attn_decode(
+                p, h, cache, length, kv_len, cfg,
+                lambda q, k: (L.apply_rope(q, pos, cfg.rope_theta),
+                              L.apply_rope(k, pos, cfg.rope_theta)), chunk)
+            return self._ffn(p, x + o), new_cache
         h = L.rms_norm(x, p["ln1"])
         q, k, v = self._qkv(p["wq"], p["wk"], p["wv"], h, pos)
         new_cache = L.cache_update_decode(cache._replace(length=length), k, v)
@@ -148,7 +163,8 @@ class HybridLM(TreeModel):
         G, ae = self.n_groups, cfg.attn_every
         shared = params["shared"]
         block = maybe_remat(
-            lambda p_l, xc: mamba_block_full(p_l, xc, cfg), remat)
+            lambda p_l, xc: mamba_block_full(
+                p_l, xc, cfg, collect_cache=collect_cache), remat)
         site = maybe_remat(lambda p, xc: self._shared_full(
             p, xc, positions, chunk), remat)
         layers = per_layer(params["mamba_layers"], lead=2)
@@ -160,7 +176,7 @@ class HybridLM(TreeModel):
                     mcaches.append(cache)
             x, kv = site(shared, x)
             if collect_cache:
-                kvs.append(kv)
+                kvs.append(cache_kv(shared, kv, cfg))
         if not collect_cache:
             return x, None
         return x, (stack_mamba_caches(mcaches, (G, ae)), kvs)

@@ -186,20 +186,24 @@ def local_window_attention(q: torch.Tensor, k: torch.Tensor,
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0,
                         q_offset=0, kv_len=None,
-                        chunk: int = 1024) -> torch.Tensor:
+                        chunk: int = 1024, scale=None,
+                        scores=None) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
     GQA-aware (Hq = G·Hkv groups share a KV head without materializing the
     repeat), fp32 online-softmax accumulators, optional sliding window and a
     dynamic valid-KV length (padded caches). ``q_offset`` is the absolute
     position of q[0] (decode: the current cache length); ``q_offset`` and
-    ``kv_len`` are ints or 0-d integer tensors.
+    ``kv_len`` are ints or 0-d integer tensors. ``scale`` defaults to
+    ``D ** -0.5``; ``scores``, if given, maps each chunk's f32 scores
+    before the mask (:func:`head_dim_split_attention`).
     """
     require_full_precision(q)
     B, Sq, Hq, D = q.shape
     _, Skv, Hkv, _ = k.shape
     G = Hq // Hkv
-    scale = D ** -0.5
+    if scale is None:
+        scale = D ** -0.5
     dev = q.device
     if kv_len is None:
         kv_len = Skv
@@ -223,6 +227,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                              device=dev)
         # scores: (B, Sq, Hkv, G, Ck)
         s = torch.einsum("bshgd,bchd->bshgc", q32, k_blk.to(torch.float32))
+        if scores is not None:
+            s = scores(s)
         mask = _chunk_scores_mask(q_pos, k_pos, kv_len, causal, window)
         mask = mask[None, :, None, None, :]
         s = torch.where(mask, s, float("-inf"))
@@ -257,6 +263,21 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m, l, acc = step(m, l, acc, c, k_blk, v_blk)
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def head_dim_split_attention(q, k, v, *, kv_len, chunk: int,
+                             head_dim: int, sum_scores) -> torch.Tensor:
+    """One token's attention over a KV cache split along ``head_dim``:
+    ``q`` (B, 1, Hq, D / T), this rank's slice of every head, against the
+    cache's slices ``k``/``v`` (B, S, Hkv, D / T). Each chunk's partial
+    scores are summed over the ``T`` ranks by ``sum_scores`` (an
+    all-reduce, which hands every rank the same bits) before the max and
+    the ``exp``, and scaled as whole heads of ``head_dim``; the output is
+    this rank's slice of every head, (B, 1, Hq, D / T). The reference
+    leaves this layout to XLA, which inserts the same score all-reduce."""
+    return blockwise_attention(q, k, v, causal=False, kv_len=kv_len,
+                               chunk=chunk, scale=head_dim ** -0.5,
+                               scores=sum_scores)
 
 
 def attention_ref(q, k, v, *, causal=True, window=0, q_offset=0,

@@ -29,7 +29,10 @@ gathers its leaves where it uses them and, where the spec splits
 SSM heads (:func:`mamba_split`, :func:`_heads_of`): the SSD scan on (B,
 S, H / model, P), B and C whole on every rank, the gated norm's mean of
 squares summed over ``model`` and ``out_proj``'s product summed over
-``model``. Prefill and decode take whole leaves.
+``model``. The serving steps' leaves (TP-only) run the same way: prefill
+returns this rank's part of the reference's cache layout (the state on
+its heads, the conv window on its block of the conv channels), and
+decode runs on its heads with no weight moved (:func:`_decode_on_heads`).
 """
 from __future__ import annotations
 
@@ -47,8 +50,9 @@ from repro_torch.models.common import (ModelConfig, TreeModel, dense_init,
                                        stacked)
 from repro_torch.models.transformer import chunked_ce
 from repro_torch.sharding.api import (ModelSplit, at_use, copy_to_model,
-                                      gather_at_use, model_split,
-                                      sum_over_model, total_over_model)
+                                      gather_at_use, gather_over_model,
+                                      model_split, sum_over_model,
+                                      total_over_model)
 
 
 class MambaCache(NamedTuple):
@@ -242,15 +246,16 @@ def _rms_norm_over_model(x: torch.Tensor, scale: torch.Tensor,
 
 
 def mamba_block_full(p, u: torch.Tensor, cfg: ModelConfig,
-                     state0=None
+                     state0=None, collect_cache: bool = False
                      ) -> Tuple[torch.Tensor, Optional[MambaCache]]:
     """Full-sequence Mamba2 block. Returns (out, cache for decode). The
     leaves are gathered where they are used (``sharding.api``). On a
     :func:`mamba_split` the block runs on this rank's heads
     (:func:`_heads_of`): ``h`` copied to ``model``, the SSD scan on (B, S,
     H / T, P), the gated norm's mean of squares summed over ``model``,
-    ``out_proj``'s product summed over ``model``; the cache is then
-    ``None`` (a training step collects none)."""
+    ``out_proj``'s product summed over ``model``; its cache, built only
+    when ``collect_cache`` (else ``None``), is this rank's part of the
+    reference's layout (:func:`_split_cache`)."""
     N, P = cfg.ssm_state, cfg.ssm_head_dim
     split = mamba_split(p, cfg)
     T = 1 if split is None else split.size
@@ -276,7 +281,8 @@ def mamba_block_full(p, u: torch.Tensor, cfg: ModelConfig,
                              split, cfg.d_inner)
     out = sum_over_model(y @ w["out_proj"].to(u.dtype), split)
     if split is not None:
-        return u + out, None
+        return u + out, (_split_cache(xBC_raw, final_state, cfg, split)
+                         if collect_cache else None)
     # decode cache: last W-1 conv inputs (zeros in front of a shorter
     # sequence) + final ssm state
     W = cfg.conv_width
@@ -289,9 +295,101 @@ def mamba_block_full(p, u: torch.Tensor, cfg: ModelConfig,
     return u + out, cache
 
 
+def _conv_block(t: torch.Tensor, cfg: ModelConfig,
+                split: ModelSplit) -> torch.Tensor:
+    """This rank's block of the conv channels (the last dim of ``t``, all
+    ``d_inner + 2 N`` of them) where the reference's ``cache_spec``
+    splits them over ``model``; ``t`` whole where ``model`` does not
+    divide them. The block straddles x, B and C as ``in_proj``'s
+    ``model`` block straddles z, x, B, C and dt."""
+    C = _conv_dim(cfg)
+    if C % split.size:
+        return t
+    n = C // split.size
+    return t[..., split.rank * n:(split.rank + 1) * n]
+
+
+def _split_cache(xBC_raw: torch.Tensor, final_state: torch.Tensor,
+                 cfg: ModelConfig, split: ModelSplit) -> MambaCache:
+    """A split block's decode cache on the reference's layout: the state
+    on this rank's heads, and this rank's channel block of the last W - 1
+    raw conv inputs (zeros in front of a shorter sequence), whose x
+    channels the other ranks' heads hold: the tail of this rank's x
+    channels is all-gathered over ``model`` (B, W - 1, d_inner / T at a
+    time), B's and C's are whole on every rank."""
+    W, dl = cfg.conv_width, cfg.d_inner // split.size
+    tail = xBC_raw[:, -(W - 1):, :]
+    tail = torch.cat([gather_over_model(tail[..., :dl], split, -1),
+                      tail[..., dl:]], dim=-1)
+    pad = max(0, (W - 1) - xBC_raw.shape[1])
+    if pad:
+        tail = F.pad(tail, (0, 0, pad, 0))
+    return MambaCache(conv=_conv_block(tail, cfg, split).to(cfg.cdtype),
+                      ssm=final_state.to(torch.float32))
+
+
+def _decode_on_heads(p, u: torch.Tensor, cache: MambaCache,
+                     cfg: ModelConfig, split: ModelSplit
+                     ) -> Tuple[torch.Tensor, MambaCache]:
+    """:func:`mamba_block_decode` on this rank's ``H / T`` heads and its
+    cache on the reference's layout, moving no weight: ``in_proj``'s
+    product on its column block, the token's ``zxbcdt`` all-gathered over
+    ``model`` and this rank's heads' columns taken (as :func:`_heads_of`
+    takes them); the (B, W - 1, C) conv window all-gathered where its
+    channels are split, the conv on this rank's x channels and on B and
+    C, the window written back as this rank's channel block; the gated
+    norm's mean of squares summed over ``model``; ``out_proj``
+    row-parallel, then summed over ``model``."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    T, r = split.size, split.rank
+    dl, hl = di // T, H // T
+    Bsz = u.shape[0]
+    f32 = torch.float32
+    w = {n: gather_at_use(p[n], keep_model=True) for n in p}
+    h = L.rms_norm(u, w["ln"])
+    zxbcdt = gather_over_model(h @ w["in_proj"].to(h.dtype),
+                               model_split(p["in_proj"], -1), -1)[:, 0]
+    z, xBC_raw, dt = _split_proj(cfg, zxbcdt)
+
+    def own(t):  # this rank's x channels, then B's and C's
+        return torch.cat([t[..., r * dl:(r + 1) * dl], t[..., di:]], -1)
+
+    conv = cache.conv
+    if conv.shape[-1] < _conv_dim(cfg):
+        conv = gather_over_model(conv, split, -1)
+    win = torch.cat([conv.to(f32), xBC_raw[:, None, :].to(f32)], dim=1)
+    new_conv = _conv_block(win[:, 1:].to(cfg.cdtype), cfg, split)
+    xBC = F.silu((own(win) * own(w["conv_w"].to(f32))[None]).sum(1)
+                 + own(w["conv_b"].to(f32)))
+    heads = slice(r * hl, (r + 1) * hl)
+    x = xBC[:, :dl].reshape(Bsz, hl, P)
+    Bm = xBC[:, dl:dl + N]
+    Cm = xBC[:, dl + N:]
+    dt_s = softplus(dt[:, heads].to(f32) + w["dt_bias"].to(f32)[heads])
+    A = -torch.exp(w["A_log"].to(f32)[heads])
+    dA = torch.exp(dt_s * A)                               # (B, H / T)
+    state = cache.ssm * dA[:, :, None, None] + torch.einsum(
+        "bn,bhp->bhpn", Bm, x * dt_s[..., None])
+    y = torch.einsum("bn,bhpn->bhp", Cm, state)
+    y = y + x * w["D"].to(f32)[heads][:, None]
+    y = y.reshape(Bsz, 1, dl)
+    zl = z[:, r * dl:(r + 1) * dl]
+    y = _rms_norm_over_model(
+        (y * F.silu(zl.to(f32))[:, None]).to(u.dtype),
+        w["gn"][r * dl:(r + 1) * dl], split, di)
+    out = sum_over_model(y @ w["out_proj"].to(u.dtype), split)
+    return u + out, MambaCache(conv=new_conv, ssm=state)
+
+
 def mamba_block_decode(p, u: torch.Tensor, cache: MambaCache,
                        cfg: ModelConfig) -> Tuple[torch.Tensor, MambaCache]:
-    """Single-token recurrent step. u: (B, 1, d)."""
+    """Single-token recurrent step. u: (B, 1, d). On the serving steps'
+    ``Placed`` leaves with a :func:`mamba_split`, on this rank's heads
+    (:func:`_decode_on_heads`)."""
+    split = mamba_split(p, cfg)
+    if split is not None:
+        return _decode_on_heads(p, u, cache, cfg, split)
+    p = at_use(p)
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     Bsz = u.shape[0]
     f32 = torch.float32
@@ -361,7 +459,8 @@ class MambaLM(TreeModel):
         L.require_full_precision(x)
         cfg = self.cfg
         block = maybe_remat(
-            lambda p_l, xc: mamba_block_full(p_l, xc, cfg), remat)
+            lambda p_l, xc: mamba_block_full(
+                p_l, xc, cfg, collect_cache=collect_cache), remat)
         caches = []
         for p_l in per_layer(params["layers"]):
             x, cache = block(p_l, x)

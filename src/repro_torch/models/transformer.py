@@ -50,6 +50,14 @@ encoder-decoder's attention take too). The MoE
 layer takes its router gathered whole and its experts on their ``model``
 shards, over this rank's block of the dispatch buffer's capacity
 (``models/moe.py``).
+
+The serving steps hand the same ``Placed`` leaves on the TP-only serving
+layout: prefill runs as above and turns each layer's keys and values into
+the reference's cache layout (``models.common.cache_kv``: this rank's KV
+heads, or its slice of ``head_dim`` of every KV head where the KV heads do
+not divide the ranks); decode moves no weight
+(``models.common.attn_decode``), and the logits come from the head's
+vocabulary shard, all-gathered.
 """
 from __future__ import annotations
 
@@ -62,10 +70,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import compat
 from repro_torch.core.sparse import resolve_device, uncounted_sorts
 from repro_torch.models import layers as L
-from repro_torch.models.common import (ModelConfig, TreeModel, dense_init,
-                                       embed_lookup, mlp, per_layer, stacked)
+from repro_torch.models.common import (ModelConfig, TreeModel, attn_decode,
+                                       cache_kv, dense_init, embed_lookup,
+                                       mlp, per_layer, stacked)
 from repro_torch.models.moe import init_moe_params, moe_ffn
-from repro_torch.sharding.api import (attn_split, attn_weights,
+from repro_torch.sharding.api import (Placed, attn_split, attn_weights,
                                       copy_to_model, gather_at_use,
                                       max_over_model, model_split,
                                       sum_over_model)
@@ -211,7 +220,12 @@ class TransformerLM(TreeModel):
 
     def _attn_decode(self, p, x, cache: L.KVCache, length, mrope, chunk):
         """Single-token attention against a cache (a ring for a local
-        layer: it holds exactly the window); returns (x, new_cache)."""
+        layer: it holds exactly the window); returns (x, new_cache). On
+        the serving steps' ``Placed`` leaves, on the cache's ``model``
+        layout with no weight moved (``models.common.attn_decode``)."""
+        if isinstance(p["wq"], Placed):
+            return self._attn_decode_placed(p, x, cache, length, mrope,
+                                            chunk)
         B = x.shape[0]
         pos = length.reshape(1, 1).expand(B, 1).to(torch.int32)
         mpos = None
@@ -225,6 +239,27 @@ class TransformerLM(TreeModel):
         o = L.blockwise_attention(q, new_cache.k, new_cache.v, causal=False,
                                   kv_len=kv_len, chunk=chunk)
         o = o.reshape(B, 1, -1) @ p["wo"].to(x.dtype)
+        return x + o, new_cache
+
+    def _attn_decode_placed(self, p, x, cache: L.KVCache, length, mrope,
+                            chunk):
+        cfg = self.cfg
+        B = x.shape[0]
+        pos = length.reshape(1, 1).expand(B, 1).to(torch.int32)
+
+        def rope(q, k):
+            if mrope:
+                mpos = length.reshape(1, 1, 1).expand(3, B, 1).to(
+                    torch.int32)
+                return tuple(L.apply_mrope(t, mpos, cfg.mrope_sections,
+                                           cfg.rope_theta) for t in (q, k))
+            return tuple(L.apply_rope(t, pos, cfg.rope_theta)
+                         for t in (q, k))
+
+        h = L.rms_norm(x, gather_at_use(p["ln1"]))
+        kv_len = torch.clamp(length + 1, max=cache.k.shape[1])
+        o, new_cache = attn_decode(p, h, cache, length, kv_len, cfg, rope,
+                                   chunk)
         return x + o, new_cache
 
     def _ffn(self, p, x):
@@ -292,7 +327,8 @@ class TransformerLM(TreeModel):
             if a is not None:
                 aux = aux + a
             if collect_kv:
-                kv.setdefault(kind, []).append(kv_l)
+                kv.setdefault(kind, []).append(cache_kv(p_l, kv_l,
+                                                        self.cfg))
         return x, aux, (kv if collect_kv else None)
 
     def loss(self, params, batch, *, remat: bool = True,

@@ -47,6 +47,12 @@ rank computes on its own: the sharded step says where they are with
 :func:`get_row_split`. A movement whose output each rank uses for rows of
 its own (the MoE's tokens to their slot's owner and back) is
 :func:`redistributed`, whose backward placements are stated.
+
+The serving steps hand a model the same :class:`Placed` leaves on the
+TP-only serving layout, in the leaves' own dtype. A decode step moves no
+weight: a token's activation whose ``model`` block is no block of heads
+is all-gathered (:func:`gather_over_model`), and the KV caches lie as the
+reference's ``cache_spec`` splits them.
 """
 from __future__ import annotations
 
@@ -507,6 +513,20 @@ def total_over_model(t: torch.Tensor, split: Optional[ModelSplit]
     alike, a caller wants :func:`sum_over_model` (identity in backward).
     ``t`` itself with no split."""
     return copy_to_model(sum_over_model(t, split), split)
+
+
+def gather_over_model(t: torch.Tensor, split: Optional[ModelSplit],
+                      dim: int) -> torch.Tensor:
+    """Every ``model`` rank's ``t`` concatenated along ``dim`` in rank
+    order (an all-gather; no gradient): a small activation whose ``model``
+    block is no block of heads, such as one token's products on a
+    weight's column blocks. ``t`` itself with no split."""
+    if split is None:
+        return t
+    t = t.detach().contiguous()
+    parts = [torch.empty_like(t) for _ in range(split.size)]
+    dist.all_gather(parts, t, group=split.group)
+    return torch.cat(parts, dim=dim)
 
 
 def max_over_model(t: torch.Tensor, split: Optional[ModelSplit]

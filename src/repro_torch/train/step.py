@@ -22,6 +22,10 @@ parameter trees (``repro_torch.tree``) and a model from
   use's backward ends; the model's batch-wide statistics (the MoE's
   capacity and load) are taken over every rank's rows; AdamW updates each
   rank's shards.
+- :func:`make_prefill_step` and :func:`make_decode_step` serve on plain
+  parameters, or on DTensors placed by the TP-only serving layout: each
+  rank then runs its ``model`` shard on its rows, the caches on the
+  reference's ``cache_shardings``.
 - :func:`make_compressed_train_step` is the reference's ``shard_map`` body
   run on every rank of a ``torch.distributed`` world: each rank takes its
   slice of the global batch (the reference's ``batch_spec``: the batch split
@@ -45,6 +49,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
 
+from repro_torch import compat
 from repro_torch import tree as _tree
 from repro_torch.core.allreduce import (MIN_COMPRESS_ELEMS,
                                         compressed_gradient_mean,
@@ -53,7 +58,8 @@ from repro_torch.kernels import xla_float
 from repro_torch.models.common import torch_dtype
 from repro_torch.optim import adamw_update, cosine_schedule
 from repro_torch.sharding.api import Placed, RowSplit, row_split_context
-from repro_torch.sharding.params import placed_like
+from repro_torch.sharding.params import (_map_caches, cache_shardings,
+                                         local_of, local_region, placed_like)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,23 +268,115 @@ def make_train_step(model, hp: TrainHParams = TrainHParams()) -> Callable:
     return train_step
 
 
+def _serving_leaves(params, batch: dict):
+    """``(mesh, params as Placed leaves, this rank's rows of batch, the
+    mesh dims they are split over)`` for a serving step on DTensor
+    parameters (``None`` for the mesh on plain ones, everything else as
+    it is). A leaf keeps its own dtype: the serving steps compute on the
+    leaves as the plain steps do, which cast them at each product."""
+    leaves, treedef = _tree.flatten(params)
+    if not any(isinstance(x, DTensor) for x in leaves):
+        return None, params, batch, ()
+    if not all(isinstance(x, DTensor) for x in leaves):
+        raise ValueError("a placed serving step needs every parameter leaf "
+                         "as a DTensor")
+    mesh = leaves[0].device_mesh
+    local, split = _local_rows(batch, mesh)
+    placed = [Placed(x.to_local(), mesh, tuple(x.placements),
+                     tuple(x.shape), split, x.dtype) for x in leaves]
+    return mesh, _tree.unflatten(treedef, placed), local, split
+
+
+def _placed_rows(t: torch.Tensor, mesh, split, rows: int) -> DTensor:
+    """This rank's rows ``t`` of a (rows, ...) output whole over every
+    mesh dim but the ``split`` ones, as a DTensor."""
+    shape = (rows,) + tuple(t.shape[1:])
+    placements = [Shard(0) if i in split else Replicate()
+                  for i in range(mesh.ndim)]
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
+
+
+def _cache_leaves(caches) -> list:
+    leaves = []
+    _map_caches(leaves.append, caches)
+    return leaves
+
+
 def make_prefill_step(model, attn_chunk: int = 1024,
                       max_len: int | None = None) -> Callable:
     """``prefill_step(params, batch) -> (logits, caches)`` on the batch's
     ``tokens`` or ``embeds``, with caches of ``max_len`` positions (``None``:
-    the prompt's length, the reference's step)."""
+    the prompt's length, the reference's step).
+
+    On DTensor parameters placed by the serving layout
+    (``launch.dryrun.serve_shardings``, TP-only) and a batch placed by
+    ``batch_shardings`` (or plain), each rank runs its ``model`` shard on
+    its rows (``sharding.api.Placed`` leaves, as the train step hands
+    them, under a ``RowSplit`` for the MoE's capacity), gathering a leaf
+    only where the train step does. The caches come back as DTensors on
+    ``cache_shardings`` (the reference's cache layout), the logits as a
+    DTensor whose rows are split like the batch's, whole over ``model``."""
     def prefill_step(params, batch):
-        return model.prefill(params, tokens=batch.get("tokens"),
-                             embeds=batch.get("embeds"), max_len=max_len,
-                             attn_chunk=attn_chunk)
+        mesh, params, local, split = _serving_leaves(params, batch)
+        if mesh is None:
+            return model.prefill(params, tokens=batch.get("tokens"),
+                                 embeds=batch.get("embeds"),
+                                 max_len=max_len, attn_chunk=attn_chunk)
+        with row_split_context(RowSplit(mesh, split) if split else None):
+            logits, caches = model.prefill(
+                params, tokens=local.get("tokens"),
+                embeds=local.get("embeds"), max_len=max_len,
+                attn_chunk=attn_chunk)
+        rows, S = batch.get("tokens", batch.get("embeds")).shape[:2]
+        with compat.beneath_dispatch_modes():  # shapes, not the step's work
+            meta = model.init_cache(rows, max_len or S, device="meta")
+        shs = _cache_leaves(cache_shardings(meta, model.cfg, mesh, rows))
+        it = iter(zip(_cache_leaves(meta), shs))
+        return (_placed_rows(logits, mesh, split, rows),
+                _map_caches(lambda t: _placed_cache(t, *next(it)), caches))
 
     return prefill_step
 
 
+def _placed_cache(t: torch.Tensor, meta, sh) -> DTensor:
+    """This rank's cache leaf ``t`` as a DTensor of ``meta``'s global
+    shape on the sharding ``sh``; ``ValueError`` unless ``t`` has the
+    shape of its local region there."""
+    region = local_region(tuple(meta.shape), sh.mesh, sh.placements)
+    want = tuple(r.stop - r.start for r in region)
+    if tuple(t.shape) != want:
+        raise ValueError(f"a cache shard of shape {tuple(t.shape)} is not "
+                         f"the local region {want} of {tuple(meta.shape)} "
+                         f"on {sh.spec}")
+    return DTensor.from_local(t, sh.mesh, sh.placements, run_check=False,
+                              shape=meta.shape, stride=meta.stride())
+
+
 def make_decode_step(model, attn_chunk: int = 4096) -> Callable:
+    """``decode_step(params, caches, tokens) -> (logits, caches)``, one
+    token for every sequence. On DTensor parameters placed by the serving
+    layout, the caches on ``cache_shardings`` and the tokens on
+    ``batch_shardings`` (or plain), each rank decodes its rows on its
+    ``model`` shard and its part of the caches, and no weight moves: only
+    the token's activations and the split attention's score sums do. The
+    caches come back on their placements (decode chains on its own
+    output), the logits as :func:`make_prefill_step`'s."""
     def decode_step(params, caches, tokens):
-        return model.decode_step(params, caches, tokens,
-                                 attn_chunk=attn_chunk)
+        mesh, params, local, split = _serving_leaves(params,
+                                                     {"tokens": tokens})
+        if mesh is None:
+            return model.decode_step(params, caches, tokens,
+                                     attn_chunk=attn_chunk)
+        with row_split_context(RowSplit(mesh, split) if split else None):
+            logits, new = model.decode_step(
+                params, _map_caches(local_of, caches), local["tokens"],
+                attn_chunk=attn_chunk)
+        it = iter(_cache_leaves(caches))
+        return (_placed_rows(logits, mesh, split, tokens.shape[0]),
+                _map_caches(lambda t: placed_like(next(it), t), new))
 
     return decode_step
 

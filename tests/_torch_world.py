@@ -1015,3 +1015,180 @@ def tensor_parallel_rank(rank: int, world: int, params_by_arch: dict
     if world == 2:
         out["live"] = _live_gathered_bytes()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the placed serving steps (tests/test_torch_serving_parallel.py)
+# ---------------------------------------------------------------------------
+
+#: The decoders' smoke configs served on their ``model`` shards. At model
+#: = 4 the 2 KV heads of gemma3, Qwen2-VL and Llama4-Scout (and SmolLM's
+#: one) do not divide the ranks, so their caches are split along
+#: ``head_dim`` (the attention of SmolLM's 3 heads runs whole over it);
+#: at model = 2 gemma3's, Qwen2-VL's and Llama4-Scout's KV heads divide.
+SERVE_ARCHS = ("gemma3_27b", "qwen2_vl_72b", "smollm_135m",
+               "moonshot_v1_16b_a3b", "llama4_scout_17b_a16e",
+               "mamba2_370m", "zamba2_2_7b", "whisper_medium")
+SERVE_MESHES = {"tp2": (1, 2), "dp2xtp2": (2, 2), "tp4": (1, 4)}
+#: name -> (arch, mesh): every arch on each of :data:`SERVE_MESHES`,
+#: gemma3's also on a ``("pod", "data", "model")`` mesh, and every arch
+#: on (1, 1), where the placed steps must be the plain ones bitwise.
+SERVE_CASES = {**{f"{a}/{m}": (a, shape) for a in SERVE_ARCHS
+                  for m, shape in SERVE_MESHES.items()},
+               "gemma3_27b/pod2xtp2": ("gemma3_27b", (2, 1, 2)),
+               **{f"{a}/one": (a, (1, 1)) for a in SERVE_ARCHS}}
+#: (batch, prompt): gemma3's window is 8, so its rings wrap.
+SERVE_BATCH = (4, 16)
+SERVE_TOKENS = 4
+SERVE_CHUNK = 8
+
+
+def serve_cases(world: int) -> list:
+    return [k for k, (_, m) in SERVE_CASES.items()
+            if int(np.prod(m)) == world]
+
+
+def serve_inputs(cfg) -> tuple:
+    """``(prompt batch, [decoded tokens])`` as numpy arrays: tokens, or
+    the VLM's patch embeddings, and the encoder-decoder's frame
+    embeddings; :data:`SERVE_TOKENS` draws of (B,) tokens to decode."""
+    B, S = SERVE_BATCH
+    rng = np.random.default_rng(300)
+    batch = {}
+    if cfg.family == "vlm":
+        batch["embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)
+    if cfg.family == "encdec":
+        batch["embeds"] = rng.standard_normal(
+            (B, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    toks = [rng.integers(0, cfg.vocab, (B,), dtype=np.int32)
+            for _ in range(SERVE_TOKENS)]
+    return batch, toks
+
+
+def cache_flat(node) -> list:
+    """A cache tree's tensors in the reference's pytree order: dict keys
+    sorted, tuples and NamedTuples in field order, ``None`` no leaf."""
+    if node is None:
+        return []
+    if isinstance(node, dict):
+        return [x for k in sorted(node) for x in cache_flat(node[k])]
+    if isinstance(node, (list, tuple)):
+        return [x for c in node for x in cache_flat(c)]
+    return [node]
+
+
+def _served(model, params, batch, toks, mesh=None):
+    """The prefill's and each decode's ``(logits, caches)``, on ``mesh``
+    the arguments placed by the serving layout; the weight gathers
+    (``sharding.api._gathered``) counted apart in prefill and decode."""
+    import torch
+
+    from repro_torch.launch.dryrun import serve_shardings
+    from repro_torch.sharding import api as A
+    from repro_torch.sharding.params import batch_shardings, distribute
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    B, S = SERVE_BATCH
+    prefill = make_prefill_step(model, attn_chunk=SERVE_CHUNK,
+                                max_len=S + SERVE_TOKENS)
+    decode = make_decode_step(model, attn_chunk=SERVE_CHUNK)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    toks = [torch.from_numpy(t) for t in toks]
+    if mesh is not None:
+        params = distribute(params, serve_shardings(params, mesh))
+        batch = distribute(batch, batch_shardings(batch, mesh))
+        toks = [distribute({"t": t}, batch_shardings({"t": t}, mesh))["t"]
+                for t in toks]
+    gathers = {"prefill": 0, "decode": 0}
+    phase = ["prefill"]
+    real = A._gathered
+
+    def counted(*a):
+        gathers[phase[0]] += 1
+        return real(*a)
+
+    A._gathered = counted
+    try:
+        steps = [prefill(params, batch)]
+        phase[0] = "decode"
+        for t in toks:
+            steps.append(decode(params, steps[-1][1], t))
+    finally:
+        A._gathered = real
+    return steps, gathers
+
+
+def serving_rank(rank: int, world: int, params_by_arch: dict) -> dict:
+    """This world's :data:`SERVE_CASES`: a prefill and
+    :data:`SERVE_TOKENS` decoded tokens through the placed steps. For
+    each step the logits gathered whole and this rank's rows' bits, the
+    caches gathered whole, each cache shard's bits, region and whether
+    its placement and shape are ``cache_shardings``'; the weight gathers
+    of prefill and decode; the MoE's buffer shapes. At world 1 the plain
+    steps' logits and caches beside them."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import interop
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as MOE
+    from repro_torch.sharding.params import cache_shardings, local_region
+
+    buffers = []
+    swiglu = MOE.experts_swiglu
+
+    def recorded(buf, *w):
+        buffers.append(tuple(buf.shape))
+        return swiglu(buf, *w)
+
+    def np_of(t):
+        return t.detach().numpy().copy()
+
+    MOE.experts_swiglu = recorded
+    out = {}
+    try:
+        for name in serve_cases(world):
+            arch, shape = SERVE_CASES[name]
+            cfg = get_smoke_config(arch)
+            model = build_model(cfg)
+            names = (("data", "model") if len(shape) == 2
+                     else ("pod", "data", "model"))
+            mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+            params = interop.params_from_numpy(params_by_arch[arch], "cpu")
+            batch, toks = serve_inputs(cfg)
+            buffers.clear()
+            steps, gathers = _served(model, params, batch, toks, mesh)
+            res = {"gathers": gathers, "buffers": list(buffers),
+                   "coord": list(mesh.get_coordinate()), "steps": []}
+            for logits, caches in steps:
+                leaves = cache_flat(caches)
+                shs = cache_flat(cache_shardings(caches, cfg, mesh,
+                                                 SERVE_BATCH[0]))
+                res["steps"].append({
+                    "logits": np_of(logits.full_tensor()),
+                    "local_logits": np_of(logits.to_local()),
+                    "caches": [np_of(x.full_tensor()) for x in leaves],
+                    "local_caches": [np_of(x.to_local()) for x in leaves],
+                    "regions": [[(r.start, r.stop) for r in local_region(
+                        tuple(x.shape), mesh, sh.placements)]
+                        for x, sh in zip(leaves, shs)],
+                    "on_shardings": [
+                        tuple(x.placements) == tuple(sh.placements)
+                        and tuple(x.to_local().shape) == tuple(
+                            r.stop - r.start for r in local_region(
+                                tuple(x.shape), mesh, sh.placements))
+                        for x, sh in zip(leaves, shs)]})
+            if world == 1:
+                plain, _ = _served(model, params, batch, toks)
+                res["plain"] = [
+                    {"logits": np_of(lg),
+                     "caches": [np_of(x) for x in cache_flat(c)]}
+                    for lg, c in plain]
+            out[name] = res
+    finally:
+        MOE.experts_swiglu = swiglu
+    return out
