@@ -155,7 +155,12 @@ result, when no CUDA card is present or the package is missing.
    Qwen2-VL-72B's ``decode_32k`` step over caches split along
    ``head_dim``, (k) Zamba2-2.7B's ``decode_32k`` step over the Mamba
    caches, (l) gemma3-27B's ``prefill_32k`` step, each at full depth with
-   its counted FLOPs equal to the dry-run's.
+   its counted FLOPs equal to the dry-run's; (m) Qwen2-VL-72B's
+   ``train_4k`` step at full depth under sequence parallelism (``use_sp``,
+   beside the dry-run's ``--sp`` cell): the residual stream's 4,096
+   positions split over the 16 ``model`` ranks, this rank's 16 x 256, its
+   FLOPs equal to the dry-run's, its peak above resident 1.00-1.05 x the
+   fake ``temp_bytes``, on one card (the cell without SP needs more).
 13. ``tools`` (:func:`run_tools`): on the same mesh, SmolLM-135M's dense
    step under ``launch/hlo_analysis.py``'s ``analyze_step`` on the card
    and on fake tensors of the same shapes (the FLOP counts equal as
@@ -169,8 +174,10 @@ result, when no CUDA card is present or the package is missing.
    against the card's shared memory a block: no active finding; one
    dry-run cell (``python -m repro_torch.launch.dryrun``, a fake world of
    256 ranks on the host) whose record says ``ok``.
-14. One profiled call of each phase (device time by kernel, busy share),
-   ten profiled calls each of the family's ``vec`` and ``blocked_spa``
+14. One profiled call of each phase (device time by kernel, busy share;
+   the family's ``tree`` call profiled right after phase 4, its
+   segment-fold records equal to its launches), ten profiled calls each
+   of the family's ``vec`` and ``blocked_spa``
    (each call's host time and the CUDA runtime calls that took the most
    host time: where a slow call waits), then each of the eight kernels against its plain PyTorch version on the
    card, on the inputs its path gives it: bitwise (tolerance 0); the two
@@ -281,6 +288,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank0-shape", default=SH_TP_SHAPE,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--rank0-sp", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -296,7 +305,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     if args.sharding_rank0:
         sharding_rank0(torch, args.seed, args.sharding_rank0,
-                       args.rank0_arch, args.rank0_shape)
+                       args.rank0_arch, args.rank0_shape, args.rank0_sp)
         return 0
     try:
         return run(args, torch)
@@ -3195,13 +3204,26 @@ SH_ED_ARCH = "whisper_medium"
 SH_SERVE_PARTS = (("j", "qwen2_vl_72b", "decode_32k", "rank0_vlm_decode"),
                   ("k", SH_SSM_ARCH, "decode_32k", "rank0_hybrid_decode"),
                   ("l", SH_TP_ARCH, "prefill_32k", "rank0_prefill"))
+#: Phase ``sharding`` (m): sequence parallelism (``use_sp``, the dry-run's
+#: ``--sp``) on the same rank: Qwen2-VL-72B's ``train_4k`` at its full
+#: depth of 80, the residual stream's 4,096 positions split over the 16
+#: ``model`` ranks (this rank's rows 16 x 256), every weight gathered whole
+#: at use; without SP a rank of this cell needs 110.1 GiB (the dry-run,
+#: PERF.md section 5), more than a card holds.
+SH_SP_ARCH = "qwen2_vl_72b"
+#: The one rank-0 part whose config takes ``use_sp``.
+SH_SP_PART = "m"
 #: The rank-0 parts of phase ``sharding``: (part, arch, cell, the phase's
 #: key).
 SH_RANK0_PARTS = (("e", SH_TP_ARCH, SH_TP_SHAPE, "rank0"),
                   ("f", SH_EP_ARCH, SH_TP_SHAPE, "rank0_moe"),
                   ("g", SH_SSM_ARCH, SH_TP_SHAPE, "rank0_hybrid"),
                   ("h", SH_ED_ARCH, SH_TP_SHAPE, "rank0_encdec")
-                  ) + SH_SERVE_PARTS
+                  ) + SH_SERVE_PARTS + (
+                  (SH_SP_PART, SH_SP_ARCH, SH_TP_SHAPE, "rank0_sp"),)
+#: Part (m)'s peak above resident, as a share of the fake ``temp_bytes``
+#: of the same cell's dry-run: the bounds it must fall within.
+SH_SP_PEAK_RATIO = (1.00, 1.05)
 #: Phase ``sharding`` (i): the placed serving steps at world 1 bitwise to
 #: the plain ones: SmolLM-135M as phase ``workload``'s replica serves it
 #: (its prompts and tokens) and Moonshot-16B-A3B at phase ``families``'
@@ -3263,7 +3285,10 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
     serving cells on the same production rank (:data:`SH_SERVE_PARTS`:
     the serving layout's bf16 parameters, a decode's caches on the
     reference's cache layout, drawn on the card), held to their dry-runs
-    as (e). The fake collectives move nothing and hand back uninitialized
+    as (e); (m) Qwen2-VL-72B's train step under ``use_sp``
+    (:data:`SH_SP_ARCH`, the dry-run beside it under ``--sp``), held as
+    (e), its peak above resident within :data:`SH_SP_PEAK_RATIO` of the
+    fake ``temp_bytes`` and within the card's memory. The fake collectives move nothing and hand back uninitialized
     memory, so (e)-(h) and (j)-(l) hold no value of the step to
     anything. Two runs
     of one path agree bitwise only on deterministic kernels, so (a) and (b)
@@ -3288,10 +3313,12 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
     try:
         for part, arch, cell, _ in SH_RANK0_PARTS:
             dry_json = os.path.join(out_dir, f"dryrun_{part}.json")
-            drys[part] = (arch, cell, subprocess.Popen(
+            sp = part == SH_SP_PART
+            drys[part] = (arch, cell, sp, subprocess.Popen(
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
                  "--arch", arch, "--shape", cell, "--mesh", "single",
-                 "--out", dry_json], env=dict(env, CUDA_VISIBLE_DEVICES=""),
+                 "--out", dry_json] + (["--sp"] if sp else []),
+                env=dict(env, CUDA_VISIBLE_DEVICES=""),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 dry_json, time.perf_counter())
         was_deterministic = torch.are_deterministic_algorithms_enabled()
@@ -3307,7 +3334,7 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
                 torch, seed, env, os.path.join(out_dir, f"rank0_{part}.json"),
                 part, *drys[part])
     finally:
-        for _, _, dry, _, _ in drys.values():
+        for _, _, _, dry, _, _ in drys.values():
             if dry.poll() is None:
                 dry.kill()
                 dry.communicate()
@@ -3325,6 +3352,14 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
                  "each": prev.get("each", [prev]) + [r],
                  "max_abs_err": max(prev["max_abs_err"], r["max_abs_err"])}
         phase["plain_replays"][name] = r
+    sp = phase["rank0_sp"]
+    lo, hi = SH_SP_PEAK_RATIO
+    check(lo <= sp["peak_over_fake_temp"] <= hi, f"phase sharding (m): the "
+          f"peak above resident is {sp['peak_over_fake_temp']:.4f} x the "
+          f"fake temp_bytes, outside [{lo}, {hi}]")
+    check(sp["resident_bytes"] + sp["peak_above_resident_bytes"]
+          <= sp["card_bytes"], "phase sharding (m): the step held more "
+          "than the card's memory")
     for part, arch, _, _ in SH_RANK0_PARTS:
         phase["reduced"].append(
             f"{arch} ({part}): one rank of 256 under a fake process group "
@@ -3333,18 +3368,19 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
 
 
 def _sharding_rank0_on_card(torch, seed, env, out_json, part, arch, cell,
-                            dry, dry_json, t_dry) -> dict:
-    """Part ``part`` ((e)-(h), (j)-(l)) of phase ``sharding``:
-    :func:`sharding_rank0` on ``arch`` and ``cell`` in a subprocess on the
-    card, held to the host's dry-run of the same cell (the FLOPs as
-    integers; the peak above resident against ``temp_bytes`` as a ratio,
-    not gated)."""
+                            sp, dry, dry_json, t_dry) -> dict:
+    """Part ``part`` ((e)-(h), (j)-(m)) of phase ``sharding``:
+    :func:`sharding_rank0` on ``arch`` and ``cell`` (under ``use_sp`` when
+    ``sp``) in a subprocess on the card, held to the host's dry-run of the
+    same cell (the FLOPs as integers; the peak above resident against
+    ``temp_bytes`` as a ratio, gated for (m) alone, by
+    :func:`run_sharding`)."""
     what = f"phase sharding ({part})"
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--seed",
          str(seed), "--sharding-rank0", out_json, "--rank0-arch", arch,
-         "--rank0-shape", cell],
+         "--rank0-shape", cell] + (["--rank0-sp"] if sp else []),
         env=env, capture_output=True, text=True, timeout=SH_TP_TIMEOUT_S)
     wall_s = time.perf_counter() - t0
     check(proc.returncode == 0, f"{what}: the rank-0 process exited "
@@ -3358,6 +3394,8 @@ def _sharding_rank0_on_card(torch, seed, env, out_json, part, arch, cell,
         (rec,) = json.load(f)
     check(rec["status"] == "ok", f"{what}: the dry-run cell says "
           f"{rec['status']}")
+    check(rec["sp"] == sp == e["sp"], f"{what}: use_sp {e['sp']} on the "
+          f"card, {rec['sp']} in the dry-run, {sp} asked")
     check(int(e["flops"]) == int(rec["flops"]), f"{what}: the card counted "
           f"{int(e['flops'])} FLOPs, the fake tensors {int(rec['flops'])}")
     e.update(fake_flops=rec["flops"], fake_temp_bytes=rec["temp_bytes"],
@@ -3368,10 +3406,11 @@ def _sharding_rank0_on_card(torch, seed, env, out_json, part, arch, cell,
              useful_flops_ratio=rec["useful_flops_ratio"],
              wall_s=wall_s, dry_wall_s=time.perf_counter() - t_dry,
              card=nvidia_smi_line())
-    log(f"{what}: {e['arch']} {e['cell']} depth {e['depth']} on rank 0 "
-        f"of {e['mesh']} ({e['rows']} x {e['seq']} tokens a rank), on "
-        f"{e['card']}: step {e['step_ms']:.1f} ms (the fake collectives "
-        f"move nothing); peak above resident "
+    log(f"{what}: {e['arch']} {e['cell']}{' under use_sp' if sp else ''} "
+        f"depth {e['depth']} on rank 0 of {e['mesh']} ({e['rows']} x "
+        f"{e['seq_block']} tokens a rank), on {e['card']}: step "
+        f"{e['step_ms']:.1f} ms (the fake collectives move nothing); peak "
+        f"above resident "
         f"{e['peak_above_resident_bytes'] / 2**30:.2f} GiB = "
         f"{e['peak_over_fake_temp']:.4f} x the fake temp_bytes "
         f"({rec['temp_bytes'] / 2**30:.2f} GiB; resident "
@@ -3425,11 +3464,30 @@ def _rank0_train(torch, gen, mesh, model, cell, arch):
     params = TR.unflatten(treedef, _placed_draws(torch, gen, mesh, leaves,
                                                  shs))
     opt = adamw_init(params)
+    specs = input_specs(cfg, cell)
+    if "mrope_positions" in specs:
+        # the VLM: labels, M-RoPE positions, and this rank's rows of the
+        # patch embeddings drawn on the card (the global batch's are 17 GB)
+        B, S = cell.global_batch, cell.seq_len
+        batch = distribute(
+            {"labels": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device=dev, dtype=torch.int32),
+             "mrope_positions": torch.arange(
+                 S, dtype=torch.int32, device=dev).expand(3, B, S)
+             .contiguous()},
+            batch_shardings({"labels": specs["labels"],
+                             "mrope_positions": specs["mrope_positions"]},
+                            mesh))
+        emb = {"embeds": specs["embeds"]}
+        (batch["embeds"],) = _placed_draws(
+            torch, gen, mesh, [emb["embeds"]],
+            [batch_shardings(emb, mesh)["embeds"]])
+        return make_train_step(model, TrainHParams()), (params, opt, batch)
     toks = torch.randint(0, cfg.vocab, (cell.global_batch, cell.seq_len + 1),
                          generator=gen, device=dev, dtype=torch.int32)
     batch = {"tokens": toks[:, :-1].contiguous(),
              "labels": toks[:, 1:].contiguous()}
-    frames = input_specs(cfg, cell).get("embeds")
+    frames = specs.get("embeds")
     if frames is not None:  # the encoder-decoder's frame embeddings
         batch["embeds"] = torch.randn(tuple(frames.shape), generator=gen,
                                       device=dev).to(frames.dtype)
@@ -3485,12 +3543,13 @@ def _rank0_serving(torch, gen, mesh, model, cell, arch):
 
 
 def sharding_rank0(torch, seed: int, out_json: str,
-                   arch: str = SH_TP_ARCH, cell_name: str = SH_TP_SHAPE
-                   ) -> None:
+                   arch: str = SH_TP_ARCH, cell_name: str = SH_TP_SHAPE,
+                   use_sp: bool = False) -> None:
     """This process as rank 0 of the 16 x 16 production mesh under
     PyTorch's ``fake`` process group, on the card, on the cell
-    ``cell_name``: for a train cell ``arch``'s parameters (this rank's
-    shards only, drawn on the card) and AdamW state placed by
+    ``cell_name`` (``arch``'s config under ``use_sp`` when asked, as the
+    dry-run's ``--sp`` sets it): for a train cell ``arch``'s parameters
+    (this rank's shards only, drawn on the card) and AdamW state placed by
     ``params_shardings`` and the global batch (:func:`_rank0_train`), for
     a serving cell the serving layout's bf16 parameters and a prefill's
     prompts or a decode's caches and tokens (:func:`_rank0_serving`); one
@@ -3500,6 +3559,7 @@ def sharding_rank0(torch, seed: int, out_json: str,
     it. The timed step's largest MoE combine fold, if any, is replayed
     through the plain fold afterwards, bitwise. Writes the numbers to
     ``out_json``."""
+    import dataclasses
     import gc
 
     import torch.distributed as dist
@@ -3525,6 +3585,8 @@ def sharding_rank0(torch, seed: int, out_json: str,
         mesh = init_device_mesh("cuda", tuple(shape.shape),
                                 mesh_dim_names=tuple(shape.axis_names))
         cfg = get_config(arch)
+        if use_sp:
+            cfg = dataclasses.replace(cfg, use_sp=True)
         cell = SHAPES[cell_name]
         model = build_model(cfg)
         gen = torch.Generator(device=dev)
@@ -3579,10 +3641,14 @@ def sharding_rank0(torch, seed: int, out_json: str,
                 if cell.global_batch % mesh.size(0) == 0
                 else cell.global_batch)
         seq = 1 if cell.kind == "decode" else cell.seq_len
-        res = {"arch": cfg.arch_id, "cell": cell.name,
+        res = {"arch": cfg.arch_id, "cell": cell.name, "sp": use_sp,
                "depth": cfg.n_layers, "enc_depth": cfg.n_enc_layers,
                "mesh": "x".join(str(n) for n in shape.shape),
-               "rows": rows, "seq": seq, "step_ms": step_ms,
+               "rows": rows, "seq": seq,
+               "seq_block": (seq // mesh.size(mesh.ndim - 1) if use_sp
+                             else seq),
+               "card_bytes": torch.cuda.get_device_properties(
+                   dev).total_memory, "step_ms": step_ms,
                "resident_bytes": resident,
                "peak_above_resident_bytes": peak, "flops": roof.flops,
                "temp_bytes": roof.temp_bytes, "arg_bytes": roof.arg_bytes,
@@ -4390,6 +4456,11 @@ def run(args, torch) -> int:
                                          "parts": spa_parts,
                                          "chunk": spa_chunk,
                                          "tile_budget": spa_budget}}
+    # the tree call's profile, whose segment-fold records phase 14 holds to
+    # its launches, taken while the process is young
+    tree_profile = device_profile(
+        torch, lambda: A.spkadd(mats, algorithm="tree"), family["tree"]["ms"],
+        watch=("segment_fold",))
     phases["family"]["phase_s"] = took()
 
     # ---- 5. hash_alg: the faithful hash algorithm -----------------------
@@ -4525,9 +4596,7 @@ def run(args, torch) -> int:
             phases["sorted"]["ms"]),
         "hash": device_profile(torch, lambda: E.spkadd_batched(stacked),
                                phases["hash"]["ms"]),
-        "family_tree": device_profile(
-            torch, lambda: A.spkadd(mats, algorithm="tree"),
-            family["tree"]["ms"], watch=("segment_fold",)),
+        "family_tree": tree_profile,
         "family_blocked_spa": device_profile(
             torch, lambda: A.spkadd(mats, algorithm="blocked_spa"),
             family["blocked_spa"]["ms"]),

@@ -29,9 +29,13 @@ counts of that one step on one rank (FLOPs, unfused HBM bytes, collective
 operand bytes by kind, the arguments' bytes and the step's peak of its
 own), the analytic useful FLOPs (:func:`model_flops`) and ``trace_s``,
 the seconds the trace took (it stands for the reference's ``lower_s`` and
-``compile_s``). ``--sp`` is accepted and recorded but changes nothing: the
-port's models split heads, ``d_ff`` and the vocabulary over ``model`` but
-not yet the residual stream's sequence (the reference's ``seq_sp``).
+``compile_s``). ``--sp`` sets ``use_sp`` on every cell's config, as the
+reference's does: the ``TransformerLM`` families' train step and prefill
+then split the residual stream's sequence over ``model`` (the reference's
+``seq_sp``: each rank's block of S / 16 positions, the weights gathered
+whole at use, k and v all-gathered along the sequence); decode and the
+Mamba2, Zamba2 and Whisper cells read no ``use_sp`` and are the cells
+without it.
 
 One process holds one default process group: the dry-run starts its own
 fake world and refuses to run where one already exists (the counterpart of
@@ -40,11 +44,13 @@ the reference's refusal once a jax backend exists).
 Usage:
   python -m repro_torch.launch.dryrun --arch smollm-135m --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --all --mesh both --out results/dryrun_torch.json
+  python -m repro_torch.launch.dryrun --all --mesh both --sp
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -163,10 +169,13 @@ def _shape_only_combine():
 
 def lower_cell(arch: str, shape_name: str, mesh,
                hp: TrainHParams | None = None,
-               attn_chunk_decode: int = 4096):
+               attn_chunk_decode: int = 4096, use_sp: bool = False):
     """``(step, args, cfg, shape)``: the cell's step and its arguments,
-    fake tensors placed on ``mesh``. Call inside a ``FakeTensorMode``."""
+    fake tensors placed on ``mesh``, the config with ``use_sp`` set when
+    asked. Call inside a ``FakeTensorMode``."""
     cfg = get_config(arch)
+    if use_sp:
+        cfg = dataclasses.replace(cfg, use_sp=True)
     shape = SHAPES[shape_name]
     model = build_model(cfg)
     hp = hp or TrainHParams()
@@ -208,7 +217,8 @@ def run_cell(arch: str, shape_name: str, mesh,
     :func:`fake_world`)."""
     t0 = time.time()
     with compat.fake_tensor_mode()(), _shape_only_combine():
-        step, args, cfg, shape = lower_cell(arch, shape_name, mesh, hp)
+        step, args, cfg, shape = lower_cell(arch, shape_name, mesh, hp,
+                                            use_sp=use_sp)
         _, roof = analyze_step(step, *args)
     trace_s = time.time() - t0
     n_chips = chips(mesh)
@@ -238,8 +248,9 @@ def main(argv=None) -> int:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--accum-dtype", default="float32")
     ap.add_argument("--sp", action="store_true",
-                    help="accepted; changes nothing in the port (no "
-                         "sequence split of the residual stream yet)")
+                    help="sequence parallelism (use_sp): the decoders' "
+                         "train step and prefill split the residual "
+                         "stream's sequence over 'model'")
     ap.add_argument("--ce-chunk", type=int, default=512)
     ap.add_argument("--print-hlo-collectives", action="store_true",
                     help="print each cell's counted collectives by kind")

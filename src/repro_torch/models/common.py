@@ -30,8 +30,9 @@ from repro_torch import tree as _tree
 from repro_torch.core.sparse import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import gelu_mlp, rms_norm, swiglu
-from repro_torch.sharding.api import (copy_to_model, gather_at_use,
-                                      gather_over_model, model_split,
+from repro_torch.sharding.api import (ModelSplit, copy_to_model,
+                                      gather_at_use, gather_over_model,
+                                      model_split, scatter_seq, seq_block,
                                       sum_over_model)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -258,36 +259,51 @@ def per_layer(stack: dict, lead: int = 1):
     return [_tree.unflatten(treedef, vals) for vals in zip(*cols)]
 
 
-def embed_lookup(embed, tokens: torch.Tensor, dtype: torch.dtype
-                 ) -> torch.Tensor:
+def embed_lookup(embed, tokens: torch.Tensor, dtype: torch.dtype,
+                 seq: Optional[ModelSplit] = None) -> torch.Tensor:
     """``embed``'s rows at ``tokens`` in ``dtype``. An ``embed`` leaf the
     spec splits over ``model`` (a ``sharding.api.Placed``) is
     vocabulary-parallel: each rank looks up the tokens that fall in its
     rows, zeros elsewhere, and the sum over ``model`` (one nonzero term a
-    token) gives every rank the whole lookup."""
+    token) gives every rank the whole lookup. Under sequence parallelism
+    (``seq``, the ``model`` split of the positions) ``tokens`` is the whole
+    sequence and each rank gets its block of positions: the partial
+    lookups are reduce-scattered along the sequence, and a table gathered
+    whole looks up the rank's block alone (its gradient the rank's part,
+    summed over ``model``)."""
     split = model_split(embed, 0)
-    table = gather_at_use(embed, keep_model=split is not None).to(dtype)
+    table = gather_at_use(embed, keep_model=split is not None,
+                          model_partial=seq is not None).to(dtype)
     if split is None:
+        if seq is not None:
+            tokens = tokens[:, seq_block(tokens.shape[1], seq)]
         return table[tokens.long()]
     rows = table.shape[0]
     i = tokens.long() - split.rank * rows
     inside = (i >= 0) & (i < rows)
     out = torch.where(inside[..., None], table[i.clamp(0, rows - 1)], 0.0)
+    if seq is not None:
+        return scatter_seq(out, seq, 1)
     return sum_over_model(out, split)
 
 
-def mlp(p, h: torch.Tensor, act: str) -> torch.Tensor:
+def mlp(p, h: torch.Tensor, act: str,
+        seq: Optional[ModelSplit] = None) -> torch.Tensor:
     """The MLP of ``h``: SwiGLU on ``p``'s ``w1``/``w3``/``w2`` for
     ``act == "silu"``, else the tanh GELU on ``w1``/``w2``, in ``h``'s
     dtype. Where the spec splits ``d_ff`` over ``model`` (the sharded
     train step's ``sharding.api.Placed`` leaves), column-parallel on
     ``w1``/``w3`` and row-parallel on ``w2``, then summed over ``model``;
-    on its weights gathered whole otherwise."""
+    on its weights gathered whole otherwise. Under sequence parallelism
+    (``seq``: ``h`` is this rank's block of positions) on its weights
+    gathered whole, each weight's gradient the rank's part summed over
+    ``model``, and nothing summed in forward."""
     names = ("w1", "w3", "w2") if act == "silu" else ("w1", "w2")
     splits = [model_split(p[n], -2 if n == "w2" else -1) for n in names]
-    split = splits[0] if all(splits) else None
+    split = splits[0] if all(splits) and seq is None else None
     h = copy_to_model(h, split)
-    w = [gather_at_use(p[n], keep_model=split is not None).to(h.dtype)
+    w = [gather_at_use(p[n], keep_model=split is not None,
+                       model_partial=seq is not None).to(h.dtype)
          for n in names]
     y = swiglu(h, *w) if act == "silu" else gelu_mlp(h, *w)
     return sum_over_model(y, split)
@@ -355,7 +371,7 @@ def attn_decode(p, h: torch.Tensor, cache: L.KVCache, length, kv_len,
     return sum_over_model(o @ wo.to(o.dtype), rows), cache
 
 
-def cache_kv(p, kv, cfg: ModelConfig):
+def cache_kv(p, kv, cfg: ModelConfig, seq: Optional[ModelSplit] = None):
     """A prefill layer's ``(k, v)`` (B, S, heads, head_dim) as its cache
     holds them on the reference's layout (``sharding.params.cache_spec``:
     the KV heads split over ``model`` where its ranks divide them, else
@@ -364,7 +380,18 @@ def cache_kv(p, kv, cfg: ModelConfig):
     gathered whole where the attention ran on one KV head a rank (an
     all-gather over ``model`` of (B, S, 1, head_dim), one rank a head
     taken), then this rank's slice of ``head_dim`` where the cache is
-    split along it."""
+    split along it. Under sequence parallelism (``seq``) ``kv`` holds
+    every KV head, gathered along the sequence: this rank's block of heads
+    or of ``head_dim`` is taken."""
+    if seq is not None:
+        T, r = seq.size, seq.rank
+        if cfg.n_kv_heads % T == 0:
+            n = cfg.n_kv_heads // T
+            return tuple(t[:, :, r * n:(r + 1) * n].contiguous() for t in kv)
+        if cfg.head_dim % T == 0:
+            n = cfg.head_dim // T
+            return tuple(t[..., r * n:(r + 1) * n].contiguous() for t in kv)
+        return kv
     split = model_split(p["wq"], -1)
     if split is None or cfg.n_kv_heads % split.size == 0:
         return kv
@@ -420,11 +447,15 @@ class TreeModel(nn.Module):
     def _init_tree(self, gen: torch.Generator) -> dict:
         raise NotImplementedError
 
-    def logits_last(self, params, x):
+    def logits_last(self, params, x, seq: Optional[ModelSplit] = None):
         """Logits for the final position only (prefill and decode
         output), f32. A ``head`` the spec splits over ``model`` (a
         ``sharding.api.Placed``) gives this rank's vocabulary columns,
-        all-gathered over ``model``."""
+        all-gathered over ``model``. Under sequence parallelism (``seq``)
+        ``x`` is this rank's block of positions: the last ``model`` rank's
+        last row, the sequence's, is all-gathered over ``model`` first."""
+        if seq is not None:
+            x = gather_over_model(x[:, -1:], seq, 1)
         split = model_split(params["head"], -1)
         h = rms_norm(x[:, -1:], gather_at_use(params["final_ln"]))
         head = gather_at_use(params["head"], keep_model=True)

@@ -58,6 +58,19 @@ heads, or its slice of ``head_dim`` of every KV head where the KV heads do
 not divide the ranks); decode moves no weight
 (``models.common.attn_decode``), and the logits come from the head's
 vocabulary shard, all-gathered.
+
+Under ``cfg.use_sp`` (sequence parallelism, the reference's ``seq_sp``)
+the train step and prefill run each layer on this rank's block of S /
+model positions where the leaves' mesh has more than one ``model`` rank:
+the embedding's partial lookups reduce-scattered along the sequence (or
+the patch embeddings sliced), the attention's and MLP's weights gathered
+whole, q on every head at the block's global positions against k and v
+all-gathered along the sequence, the MoE on the whole sequence
+all-gathered (each rank then takes its block of the output), and the
+final norm's output all-gathered for the loss on the vocabulary's shards,
+which every ``model`` rank computes alike. Decode keeps the step above:
+one token's row does not split. ``cfg.use_sp`` alone also turns the
+banded local path off, as the reference's does, on every path.
 """
 from __future__ import annotations
 
@@ -74,10 +87,12 @@ from repro_torch.models.common import (ModelConfig, TreeModel, attn_decode,
                                        cache_kv, dense_init, embed_lookup,
                                        mlp, per_layer, stacked)
 from repro_torch.models.moe import init_moe_params, moe_ffn
-from repro_torch.sharding.api import (Placed, attn_split, attn_weights,
-                                      copy_to_model, gather_at_use,
-                                      max_over_model, model_split,
-                                      sum_over_model)
+from repro_torch.sharding.api import (ModelSplit, Placed, attn_split,
+                                      attn_weights, copy_to_model,
+                                      gather_at_use, gather_seq,
+                                      gather_seq_equal, max_over_model,
+                                      model_split, seq_block, seq_split,
+                                      slice_seq, sum_over_model)
 
 #: Families this module builds; ``models.build_model`` sends the others
 #: to their own classes.
@@ -200,21 +215,37 @@ class TransformerLM(TreeModel):
             k = L.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def _attn_full(self, p, x, positions, window, mrope_positions, chunk):
-        """Full-sequence attention (train / prefill); returns (x, (k, v))."""
+    def _attn_full(self, p, x, positions, window, mrope_positions, chunk,
+                   sp: Optional[ModelSplit] = None):
+        """Full-sequence attention (train / prefill); returns (x, (k, v)).
+        With ``sp`` (sequence parallelism, the reference's ``seq_sp``)
+        ``x`` is this rank's block of positions: ``ln1`` and the
+        projections run on its rows with the weights gathered whole (each
+        gradient the rank's part, summed over ``model``), q on every head
+        at the block's global positions, k and v all-gathered along the
+        sequence (their gradients summed back into each rank's block), the
+        causal attention from the block's offset, and ``wo`` with nothing
+        summed; the (k, v) returned are the whole sequence's. Under
+        ``cfg.use_sp`` the banded local path is never taken (the
+        reference's rule, on every path)."""
         cfg = self.cfg
-        split, kv = attn_split(p, cfg.n_heads, cfg.n_kv_heads)
-        h = L.rms_norm(x, gather_at_use(p["ln1"]))
+        seq = sp is not None
+        split, kv = ((None, None) if seq
+                     else attn_split(p, cfg.n_heads, cfg.n_kv_heads))
+        h = L.rms_norm(x, gather_at_use(p["ln1"], model_partial=seq))
         h = copy_to_model(h, split)
-        wq, wk, wv, wo = attn_weights(p, split, kv, cfg.head_dim)
+        wq, wk, wv, wo = attn_weights(p, split, kv, cfg.head_dim,
+                                      model_partial=seq)
         q, k, v = self._project_qkv(wq, wk, wv, h, positions,
                                     mrope_positions)
-        if (window > 0 and cfg.local_attn_fast_path
+        k, v = gather_seq(k, sp), gather_seq(v, sp)
+        if (window > 0 and cfg.local_attn_fast_path and not cfg.use_sp
                 and x.shape[1] > window):
             o = L.local_window_attention(q, k, v, window=window)
         else:
-            o = L.blockwise_attention(q, k, v, causal=True, window=window,
-                                      chunk=chunk)
+            o = L.blockwise_attention(
+                q, k, v, causal=True, window=window,
+                q_offset=sp.rank * x.shape[1] if seq else 0, chunk=chunk)
         o = o.reshape(*x.shape[:2], -1) @ wo.to(x.dtype)
         return x + sum_over_model(o, split), (k, v)
 
@@ -262,22 +293,30 @@ class TransformerLM(TreeModel):
                                    chunk)
         return x + o, new_cache
 
-    def _ffn(self, p, x):
+    def _ffn(self, p, x, sp: Optional[ModelSplit] = None):
         """The FFN block; returns (x, aux), aux ``None`` without MoE. The
         MLP is column-parallel on ``w1``/``w3`` and row-parallel on ``w2``
         where the spec splits ``d_ff`` over ``model``; the MoE gathers its
-        own leaves (its experts kept on their ``model`` shards)."""
+        own leaves (its experts kept on their ``model`` shards). With
+        ``sp`` (``x`` this rank's block of positions) the MLP runs on the
+        rank's rows on its weights gathered whole, and the MoE on the
+        whole sequence, all-gathered, every ``model`` rank then taking its
+        block of the output: its output's gradient is all-gathered back,
+        equal on every rank as the MoE's own backward assumes, and the
+        rank keeps its block of the input's."""
         cfg = self.cfg
-        h = L.rms_norm(x, gather_at_use(p["ln2"]))
+        h = L.rms_norm(x, gather_at_use(p["ln2"],
+                                        model_partial=sp is not None))
         if cfg.family == "moe":
-            y, aux = moe_ffn(p["moe"], h, cfg)
-            return x + y, aux
-        return x + mlp(p, h, cfg.act), None
+            y, aux = moe_ffn(p["moe"], gather_seq_equal(h, sp), cfg)
+            return x + slice_seq(y, sp), aux
+        return x + mlp(p, h, cfg.act, seq=sp), None
 
-    def _layer_full(self, p, x, positions, window, mrope_positions, chunk):
+    def _layer_full(self, p, x, positions, window, mrope_positions, chunk,
+                    sp=None):
         x, kv = self._attn_full(p, x, positions, window, mrope_positions,
-                                chunk)
-        x, aux = self._ffn(p, x)
+                                chunk, sp)
+        x, aux = self._ffn(p, x, sp)
         return x, aux, kv
 
     def _schedule(self, params):
@@ -301,22 +340,43 @@ class TransformerLM(TreeModel):
     # ------------------------------------------------------------------
     # full-sequence forward (train / prefill)
     # ------------------------------------------------------------------
-    def _embed(self, params, tokens=None, embeds=None):
+    def _seq(self, params) -> Optional[ModelSplit]:
+        """The ``model`` split of the positions under ``cfg.use_sp`` on
+        the sharded or placed steps' leaves (``sharding.api.seq_split``);
+        ``None``: the whole sequence on every rank."""
+        return seq_split(params["final_ln"]) if self.cfg.use_sp else None
+
+    def _rows(self, B: int, S: int, sp: Optional[ModelSplit], dev):
+        """``(this rank's positions as a slice, their (B, n) int32
+        positions)`` of a sequence of ``S``: all of it with no ``sp``;
+        ``ValueError`` where ``sp``'s ranks do not divide ``S``."""
+        pos = slice(0, S) if sp is None else seq_block(S, sp)
+        return pos, torch.arange(pos.start, pos.stop, dtype=torch.int32,
+                                 device=dev).expand(B, pos.stop - pos.start)
+
+    def _embed(self, params, tokens=None, embeds=None, sp=None):
+        """The input's rows (B, S, d), or with ``sp`` this rank's block of
+        positions: patch embeddings sliced, tokens looked up whole and
+        each rank's partial lookups reduce-scattered along the sequence
+        (``models.common.embed_lookup``)."""
         if embeds is not None:
+            if sp is not None:
+                embeds = embeds[:, seq_block(embeds.shape[1], sp)]
             return embeds.to(self.cfg.cdtype)
-        return embed_lookup(params["embed"], tokens, self.cfg.cdtype)
+        return embed_lookup(params["embed"], tokens, self.cfg.cdtype, seq=sp)
 
     def backbone(self, params, x, positions, mrope_positions=None, *,
                  remat: bool = False, collect_kv: bool = False,
-                 chunk: int = 1024):
+                 chunk: int = 1024, sp: Optional[ModelSplit] = None):
         """Runs all layers; returns (x, aux_sum, kv or None): kv per layer
         kind (``"layers"``, ``"local"``, ``"global"``, ``"extra"``), a list
-        of (k, v) in layer order."""
+        of (k, v) in layer order. With ``sp`` ``x`` is this rank's block
+        of positions (sequence parallelism) and each layer runs on it."""
         L.require_full_precision(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         kv = {}
         for p_l, window, kind in self._schedule(params):
-            args = (p_l, x, positions, window, mrope_positions, chunk)
+            args = (p_l, x, positions, window, mrope_positions, chunk, sp)
             if remat and torch.is_grad_enabled():
                 x, a, kv_l = checkpoint(
                     self._layer_full, *args, use_reentrant=False,
@@ -328,24 +388,35 @@ class TransformerLM(TreeModel):
                 aux = aux + a
             if collect_kv:
                 kv.setdefault(kind, []).append(cache_kv(p_l, kv_l,
-                                                        self.cfg))
+                                                        self.cfg, seq=sp))
         return x, aux, (kv if collect_kv else None)
 
     def loss(self, params, batch, *, remat: bool = True,
              ce_chunk: int = 512, attn_chunk: int = 1024):
         """Mean next-token CE plus ``0.01 * aux``. batch: tokens (B, S) +
         labels (B, S) [+ embeds (B, S, d) + mrope_positions (3, B, S) for
-        the VLM's stub frontend]."""
+        the VLM's stub frontend].
+
+        Under ``cfg.use_sp`` on the sharded step's leaves (a ``model`` dim
+        of more than one rank) each rank computes the layers on its block
+        of S / model positions, the reference's ``seq_sp`` layout; the
+        final norm's output is all-gathered along the sequence for the
+        loss on the vocabulary's shards (``chunked_ce``), so every
+        ``model`` rank holds the same loss, the whole sequence's.
+        ``ValueError`` where the ``model`` ranks do not divide S."""
         labels = batch["labels"]
         B, S = labels.shape
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=labels.device).expand(B, S)
-        x = self._embed(params, batch.get("tokens"), batch.get("embeds"))
-        x, aux, _ = self.backbone(params, x, positions,
-                                  batch.get("mrope_positions"), remat=remat,
-                                  chunk=attn_chunk)
-        x = L.rms_norm(x, gather_at_use(params["final_ln"]))
-        ce = chunked_ce(x, params["head"], labels, chunk=ce_chunk)
+        sp = self._seq(params)
+        pos, positions = self._rows(B, S, sp, labels.device)
+        x = self._embed(params, batch.get("tokens"), batch.get("embeds"), sp)
+        mrope = batch.get("mrope_positions")
+        if mrope is not None and sp is not None:
+            mrope = mrope[..., pos]
+        x, aux, _ = self.backbone(params, x, positions, mrope, remat=remat,
+                                  chunk=attn_chunk, sp=sp)
+        x = L.rms_norm(x, gather_at_use(params["final_ln"],
+                                        model_partial=sp is not None))
+        ce = chunked_ce(x, params["head"], labels, chunk=ce_chunk, seq=sp)
         return ce + 0.01 * aux
 
     # ------------------------------------------------------------------
@@ -380,7 +451,11 @@ class TransformerLM(TreeModel):
         """Full-sequence forward that also builds decode caches; returns
         (last-position logits (B, vocab) f32, caches). Raises
         ``ValueError`` when ``max_len`` is under the prompt's length (the
-        reference's global caches cannot pad by a negative amount)."""
+        reference's global caches cannot pad by a negative amount). Under
+        ``cfg.use_sp`` on the placed step's leaves the layers run on this
+        rank's block of positions as in :meth:`loss`, the caches are built
+        from the keys and values gathered along the sequence, and the
+        logits from the last ``model`` rank's last row."""
         if tokens is not None:
             B, S = tokens.shape
             dev = tokens.device
@@ -391,14 +466,16 @@ class TransformerLM(TreeModel):
         if max_len < S:
             raise ValueError(f"max_len {max_len} is under the prompt's "
                              f"length {S}")
-        positions = torch.arange(S, dtype=torch.int32, device=dev).expand(
-            B, S)
-        x = self._embed(params, tokens, embeds)
+        sp = self._seq(params)
+        pos, positions = self._rows(B, S, sp, dev)
+        x = self._embed(params, tokens, embeds, sp)
+        if mrope_positions is not None and sp is not None:
+            mrope_positions = mrope_positions[..., pos]
         x, _, kv = self.backbone(params, x, positions, mrope_positions,
                                  remat=False, collect_kv=True,
-                                 chunk=attn_chunk)
+                                 chunk=attn_chunk, sp=sp)
         caches = self._kv_to_caches(kv, S, max_len)
-        return self.logits_last(params, x), caches
+        return self.logits_last(params, x, sp), caches
 
     @staticmethod
     def _ring_from_tail(k, S: int, w: int):
@@ -516,22 +593,33 @@ def _check_labels(labels: torch.Tensor, vocab: int) -> None:
 
 
 def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
-               chunk: int = 512) -> torch.Tensor:
+               chunk: int = 512, seq: Optional[ModelSplit] = None
+               ) -> torch.Tensor:
     """Cross-entropy without materializing (B, S, V): a loop over S chunks,
     each recomputed in backward (a chunk's (B, c, V) logits are never kept
     for backward). A ``head`` leaf the spec splits over ``model`` (a
     ``sharding.api.Placed``) is vocabulary-parallel: each rank's logits
     are its columns', and the max, the sum of ``exp`` and the gold logit
     are combined over ``model`` in f32. A label outside ``[0, vocab)``
-    raises ``ValueError`` on either path, before any chunk."""
+    raises ``ValueError`` on either path, before any chunk. Under
+    sequence parallelism (``seq``) ``x`` is this rank's block of the
+    positions of ``labels``: it is all-gathered along the sequence first,
+    and its gradient, each rank's vocabulary columns' part, comes back
+    summed over ``model`` into each rank's block (a reduce-scatter, where
+    tensor parallelism all-reduces it)."""
+    _check_labels(labels, head.shape[-1])
+    split = model_split(head, -1)
+    head = gather_at_use(head, keep_model=split is not None)
+    if seq is not None:
+        x = (gather_seq(x, seq) if split is not None
+             else gather_seq_equal(x, seq))
+    elif split is not None:
+        x = copy_to_model(x, split)
     B, S, d = x.shape
     n = max(1, S // chunk)
     chunk = S // n
     if S % chunk != 0:
         raise ValueError("seq len must divide ce chunk count")
-    _check_labels(labels, head.shape[-1])
-    split = model_split(head, -1)
-    head = gather_at_use(head, keep_model=split is not None)
 
     if split is None:
         def step(xb, lb):
@@ -540,7 +628,6 @@ def chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
             gold = torch.gather(logits, -1, lb[..., None].long())[..., 0]
             return (lse - gold).sum()
     else:
-        x = copy_to_model(x, split)
         cols = head.shape[-1]
         lo = split.rank * cols
 

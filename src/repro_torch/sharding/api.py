@@ -53,6 +53,19 @@ TP-only serving layout, in the leaves' own dtype. A decode step moves no
 weight: a token's activation whose ``model`` block is no block of heads
 is all-gathered (:func:`gather_over_model`), and the KV caches lie as the
 reference's ``cache_spec`` splits them.
+
+Sequence parallelism (the reference's ``seq_sp``, a model config's
+``use_sp``) splits the residual stream's positions over ``model``
+(:func:`seq_split`, :func:`seq_block`): each rank computes its block of
+them on weights gathered whole, whose gradients are each rank's part
+summed over ``model`` (``gather_at_use(..., model_partial=True)``). The
+sequence moves along its dim: :func:`gather_seq` (an all-gather whose
+backward reduce-scatters: attention's keys and values),
+:func:`gather_seq_equal` (an all-gather whose backward keeps the block of
+a gradient already equal on every rank: the MoE's input, the loss's),
+:func:`scatter_seq` (a reduce-scatter of partial sums: the
+vocabulary-parallel embedding's) and :func:`slice_seq` (the block, whose
+backward all-gathers: the MoE's output).
 """
 from __future__ import annotations
 
@@ -538,6 +551,136 @@ def max_over_model(t: torch.Tensor, split: Optional[ModelSplit]
                                                dist.ReduceOp.MAX)
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism: the residual stream's sequence split over ``model``
+# ---------------------------------------------------------------------------
+
+def seq_split(x) -> Optional[ModelSplit]:
+    """The ``model`` dim's layout when ``x`` is a :class:`Placed` leaf
+    whose mesh has more than one rank on ``model``: the split a
+    sequence-parallel block's positions take there (``RULES["seq_sp"]``),
+    each rank a block of ``S / size`` in rank order; ``None`` otherwise (a
+    plain tensor, or one ``model`` rank, where SP is the plain path)."""
+    if not isinstance(x, Placed):
+        return None
+    m = _dim_of(x.mesh, "model")
+    if m is None or x.mesh.size(m) == 1:
+        return None
+    return ModelSplit(x.mesh.size(m), x.mesh.get_local_rank(m),
+                      x.mesh.get_group(m))
+
+
+def seq_block(S: int, split: ModelSplit) -> slice:
+    """This rank's positions of a sequence of ``S`` split over ``split``;
+    ``ValueError`` unless its ranks divide ``S``."""
+    if S % split.size:
+        raise ValueError(f"sequence parallelism splits {S} positions over "
+                         f"{split.size} model ranks, which do not divide "
+                         f"them")
+    n = S // split.size
+    return slice(split.rank * n, (split.rank + 1) * n)
+
+
+def _block_of(t: torch.Tensor, split: ModelSplit, dim: int) -> torch.Tensor:
+    n = t.shape[dim] // split.size
+    return t.narrow(dim, split.rank * n, n).contiguous()
+
+
+def _gather_dim(t: torch.Tensor, split: ModelSplit, dim: int
+                ) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order (an
+    all-gather: every rank the same bits)."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(split.size)]
+    dist.all_gather(parts, t, group=split.group)
+    return torch.cat(parts, dim=dim)
+
+
+def _scatter_dim(t: torch.Tensor, split: ModelSplit, dim: int
+                 ) -> torch.Tensor:
+    """The sum of every rank's ``t``, this rank's block along ``dim`` (a
+    reduce-scatter)."""
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // split.size,) + tuple(x.shape[1:]))
+    scatter = getattr(dist, "reduce_scatter_single",
+                      dist.reduce_scatter_tensor)
+    scatter(out, x, group=split.group)
+    return out.movedim(0, dim)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, split, dim, equal):
+        ctx.split, ctx.dim, ctx.equal = split, dim, equal
+        return _gather_dim(t, split, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.equal:
+            return _block_of(g, ctx.split, ctx.dim), None, None, None
+        return _scatter_dim(g, ctx.split, ctx.dim), None, None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, split, dim):
+        ctx.split, ctx.dim = split, dim
+        return _scatter_dim(t, split, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.split, ctx.dim), None, None
+
+
+class _SeqSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, split, dim):
+        ctx.split, ctx.dim = split, dim
+        return _block_of(t, split, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.split, ctx.dim), None, None
+
+
+def gather_seq(t: torch.Tensor, split: Optional[ModelSplit], dim: int = 1
+               ) -> torch.Tensor:
+    """Every rank's block of a sequence concatenated along ``dim`` (an
+    all-gather), for a tensor each rank then uses for rows of its own
+    (attention's keys and values under its block of queries): in backward
+    the gradients summed over ``split``'s ranks, each rank keeping its
+    block (a reduce-scatter). ``t`` itself with no split."""
+    return t if split is None else _SeqGather.apply(t, split, dim, False)
+
+
+def gather_seq_equal(t: torch.Tensor, split: Optional[ModelSplit],
+                     dim: int = 1) -> torch.Tensor:
+    """:func:`gather_seq` for a block that runs alike on every ``model``
+    rank (the MoE, the loss on the vocabulary's shards), whose input's
+    gradient comes back already summed over ``model``, equal on every
+    rank: in backward each rank keeps its block of it, and nothing
+    moves."""
+    return t if split is None else _SeqGather.apply(t, split, dim, True)
+
+
+def scatter_seq(t: torch.Tensor, split: Optional[ModelSplit], dim: int = 1
+                ) -> torch.Tensor:
+    """Each rank's partial sums of a whole sequence summed over
+    ``split``'s ranks, this rank keeping its block along ``dim`` (a
+    reduce-scatter; the vocabulary-parallel embedding's); in backward the
+    blocks' gradients all-gathered. ``t`` itself with no split."""
+    return t if split is None else _SeqScatter.apply(t, split, dim)
+
+
+def slice_seq(t: torch.Tensor, split: Optional[ModelSplit], dim: int = 1
+              ) -> torch.Tensor:
+    """This rank's block along ``dim`` of a whole sequence equal on every
+    ``model`` rank (the MoE's output); in backward the blocks' gradients
+    all-gathered, so that the block before it sees the whole gradient on
+    every rank. ``t`` itself with no split."""
+    return t if split is None else _SeqSlice.apply(t, split, dim)
+
+
 def attn_split(p, n_heads: int, n_kv_heads: int):
     """``(split, kv)`` of an attention block whose leaves ``p`` hold
     ``wq``/``wk``/``wv``/``wo``: the ``model`` layout it runs on its heads
@@ -561,16 +704,18 @@ def attn_split(p, n_heads: int, n_kv_heads: int):
 
 
 def attn_weights(p, split: Optional[ModelSplit], kv: Optional[int],
-                 head_dim: int):
+                 head_dim: int, model_partial: bool = False):
     """``(wq, wk, wv, wo)`` as the attention of :func:`attn_split`'s
     ``(split, kv)`` uses them: on their ``model`` shards with a split
     (``wk``/``wv``: KV head ``kv``'s columns of the whole leaves, whose
     gradient is each rank's part summed over ``model``), gathered whole
-    without."""
+    without (their gradients each rank's part, summed over ``model``,
+    when ``model_partial``: sequence parallelism)."""
     keep = split is not None
-    wq, wo = (gather_at_use(p[n], keep_model=keep) for n in ("wq", "wo"))
+    whole = dict(keep_model=keep, model_partial=model_partial)
+    wq, wo = (gather_at_use(p[n], **whole) for n in ("wq", "wo"))
     if kv is None:
-        wk, wv = (gather_at_use(p[n], keep_model=keep) for n in ("wk", "wv"))
+        wk, wv = (gather_at_use(p[n], **whole) for n in ("wk", "wv"))
     else:
         wk, wv = (gather_at_use(p[n], model_partial=True)
                   [:, kv * head_dim:(kv + 1) * head_dim]

@@ -1192,3 +1192,285 @@ def serving_rank(rank: int, world: int, params_by_arch: dict) -> dict:
     finally:
         MOE.experts_swiglu = swiglu
     return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism (tests/test_torch_sequence_parallel.py)
+# ---------------------------------------------------------------------------
+
+#: The ``TransformerLM`` families' smoke configs under ``use_sp``: the
+#: dense decoders (SmolLM's 3 heads, whole on every rank under tensor
+#: parallelism, split by rows here; InternLM2's GQA), gemma3's
+#: local:global groups (window 8 below the sequence of 32), Qwen2-VL's
+#: patch embeddings and M-RoPE positions, and the MoE's Moonshot and
+#: Llama4-Scout.
+SP_ARCHS = ("stablelm_3b", "internlm2_1_8b", "smollm_135m", "gemma3_27b",
+            "qwen2_vl_72b", "moonshot_v1_16b_a3b", "llama4_scout_17b_a16e")
+SP_MESHES = {"tp2": (1, 2), "dp2xtp2": (2, 2), "tp4": (1, 4)}
+#: name -> (arch, mesh): every arch on each of :data:`SP_MESHES` and on
+#: (1, 1), where SP is the plain path; gemma3's also on a ``("pod",
+#: "data", "model")`` mesh.
+SP_CASES = {**{f"{a}/{m}": (a, shape) for a in SP_ARCHS
+               for m, shape in SP_MESHES.items()},
+            "gemma3_27b/pod2xtp2": ("gemma3_27b", (2, 1, 2)),
+            **{f"{a}/one": (a, (1, 1)) for a in SP_ARCHS}}
+#: The placed prefill under ``use_sp`` on the serving layout, then
+#: :data:`SERVE_TOKENS` decoded tokens (:data:`SERVE_BATCH`: gemma3's
+#: rings wrap); the VLM's patch embeddings on (1, 2).
+SP_PREFILL_ARCHS = ("stablelm_3b", "gemma3_27b", "moonshot_v1_16b_a3b")
+SP_PREFILL_CASES = {**{f"{a}/{m}": (a, SP_MESHES[m])
+                       for a in SP_PREFILL_ARCHS for m in ("tp2", "tp4")},
+                    "qwen2_vl_72b/tp2": ("qwen2_vl_72b", SP_MESHES["tp2"])}
+#: A sequence the model ranks do not divide (at world 4, on (1, 4)).
+SP_ODD_SEQ = 30
+#: Worlds of each size spawned side by side, each taking its share of
+#: that size's cases (the size of 4 has most).
+SP_WORLDS = {1: 1, 2: 1, 4: 2}
+
+
+def sp_cases(world: int, part: int = 0) -> list:
+    """Part ``part`` of the :data:`SP_CASES` of this world size, every
+    ``SP_WORLDS[world]``-th in order."""
+    cases = [k for k, (_, m) in SP_CASES.items()
+             if int(np.prod(m)) == world]
+    return cases[part::SP_WORLDS[world]]
+
+
+def sp_config(arch: str, get_smoke_config, use_sp: bool = True):
+    """``arch``'s smoke config with ``use_sp``, from either package."""
+    import dataclasses
+
+    return dataclasses.replace(get_smoke_config(arch), use_sp=use_sp)
+
+
+def _mesh_of(shape):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                       "model")
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def _collectives_seen():
+    """A dispatch mode that keeps ``(kind, operand shapes)`` of every
+    collective dispatched under it, by ``launch/hlo_analysis.py``'s table
+    of ATen collectives."""
+    from repro_torch.compat import torch_dispatch_mode
+    from repro_torch.launch.hlo_analysis import _COLLECTIVE_OPS, _tensors
+
+    class Seen(torch_dispatch_mode()):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            coll = _COLLECTIVE_OPS.get(func._schema.name)
+            if coll is not None:
+                kind, at = coll
+                self.seen.append((kind, [tuple(t.shape)
+                                         for t in _tensors(args[at])]))
+            return out
+
+    return Seen()
+
+
+def _sp_train(name: str, params_np, record: dict) -> dict:
+    """One :data:`SP_CASES` case: the loss and every gradient of the
+    first step (gathered whole), then the params, moments and metrics
+    after :data:`TP_STEPS` steps of ``make_train_step``; the collectives
+    of the first step; at world 1 the plain step's beside them."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding.params import (distribute, gathered,
+                                             params_shardings)
+    from repro_torch.train import TrainHParams, make_train_step
+    from repro_torch.train import step as ST
+
+    arch, shape = SP_CASES[name]
+    cfg = sp_config(arch, get_smoke_config)
+    model = build_model(cfg)
+    mesh = _mesh_of(shape)
+    plain = interop.params_from_numpy(params_np, "cpu")
+
+    def leaves_np(tree):
+        return [x.numpy().copy() for x in TR.leaves(gathered(tree))]
+
+    def run(params):
+        opt = adamw_init(params)
+        step = make_train_step(model, TrainHParams(**TRAIN_HP))
+        mets = []
+        for s in range(TP_STEPS):
+            batch = {k: torch.from_numpy(v)
+                     for k, v in tp_batch(s, cfg).items()}
+            params, opt, met = step(params, opt, batch)
+            mets.append({k: float(v) for k, v in met.items()}
+                        | {"grad_norm_bits": met["grad_norm"].numpy()
+                           .tobytes()})
+        return {"params": leaves_np(params), "mu": leaves_np(opt.mu),
+                "nu": leaves_np(opt.nu), "metrics": mets}
+
+    first = {}
+    real = ST.sharded_loss_and_grads
+    seen = _collectives_seen()
+
+    def kept(*a, **kw):
+        if first:
+            return real(*a, **kw)
+        with seen:
+            loss, grads = real(*a, **kw)
+        first.update(loss=float(loss), grads=leaves_np(grads))
+        return loss, grads
+
+    for v in record.values():
+        v.clear()
+    ST.sharded_loss_and_grads = kept
+    try:
+        out = run(distribute(plain, params_shardings(plain, mesh)))
+    finally:
+        ST.sharded_loss_and_grads = real
+    out.update(first, collectives=seen.seen,
+               **{k: sorted(v) for k, v in record.items()})
+    if int(np.prod(shape)) == 1:
+        out["plain"] = run(plain)
+    return out
+
+
+def _sp_refusals(params_np) -> dict:
+    """On (1, 4): what the SP train step and prefill did with a sequence
+    of :data:`SP_ODD_SEQ` (the exception's type and message, or
+    ``"returned"``)."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.dryrun import serve_shardings
+    from repro_torch.models import build_model
+    from repro_torch.sharding.params import distribute, params_shardings
+    from repro_torch.train import TrainHParams, make_prefill_step
+    from repro_torch.train.step import sharded_loss_and_grads
+
+    cfg = sp_config("stablelm_3b", get_smoke_config)
+    model = build_model(cfg)
+    mesh = _mesh_of((1, 4))
+    plain = interop.params_from_numpy(params_np, "cpu")
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, SP_ODD_SEQ + 1),
+                                         dtype=np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    calls = {
+        "train": lambda: sharded_loss_and_grads(
+            model, TrainHParams(**TRAIN_HP),
+            distribute(plain, params_shardings(plain, mesh)), batch),
+        "prefill": lambda: make_prefill_step(model)(
+            distribute(plain, serve_shardings(plain, mesh)),
+            {"tokens": batch["tokens"]})}
+    for what, call in calls.items():
+        try:
+            call()
+            out[what] = ("returned", "")
+        except Exception as e:  # what it raised is the result
+            out[what] = (type(e).__name__, str(e))
+    return out
+
+
+def sequence_parallel_rank(rank: int, world: int, params_by_arch: dict,
+                           part: int = 0) -> dict:
+    """Part ``part`` of this world size's :data:`SP_CASES`
+    (:func:`sp_cases`, :func:`_sp_train`), each with the shapes of every
+    residual stream a layer took, every ``q`` an attention took and every
+    input the MoE took; in part 0 its :data:`SP_PREFILL_CASES`: a prefill
+    under ``use_sp`` and :data:`SERVE_TOKENS` tokens decoded from its
+    caches (:func:`_served`), and the same tokens decoded by the model
+    without ``use_sp`` from the same caches, and at world 4 the refusals of
+    a sequence the ranks do not divide."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.launch.dryrun import serve_shardings
+    from repro_torch.models import layers as LAYERS
+    from repro_torch.models import transformer as TRANSFORMER
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.sharding.params import (batch_shardings,
+                                             cache_shardings, distribute,
+                                             local_region)
+    from repro_torch.train import make_decode_step
+
+    record = {"residual": set(), "queries": set(), "moe_inputs": set()}
+    layer, attention, moe = (TransformerLM._layer_full,
+                             LAYERS.blockwise_attention, TRANSFORMER.moe_ffn)
+
+    def recorded_layer(self, p, x, *a):
+        record["residual"].add(tuple(x.shape))
+        return layer(self, p, x, *a)
+
+    def recorded_attention(q, *a, **kw):
+        record["queries"].add(tuple(q.shape))
+        return attention(q, *a, **kw)
+
+    def recorded_moe(p, x, cfg):
+        record["moe_inputs"].add(tuple(x.shape))
+        return moe(p, x, cfg)
+
+    def np_of(t):
+        return t.detach().numpy().copy()
+
+    TransformerLM._layer_full = recorded_layer
+    LAYERS.blockwise_attention = recorded_attention
+    TRANSFORMER.moe_ffn = recorded_moe
+    out = {}
+    try:
+        for name in sp_cases(world, part):
+            out[name] = _sp_train(name, params_by_arch[SP_CASES[name][0]],
+                                  record)
+    finally:
+        TransformerLM._layer_full = layer
+        LAYERS.blockwise_attention = attention
+        TRANSFORMER.moe_ffn = moe
+    for name, (arch, shape) in SP_PREFILL_CASES.items():
+        if part or int(np.prod(shape)) != world:
+            continue
+        cfg = sp_config(arch, get_smoke_config)
+        model = build_model(cfg)
+        mesh = _mesh_of(shape)
+        params = interop.params_from_numpy(params_by_arch[arch], "cpu")
+        batch, toks = serve_inputs(cfg)
+        steps, _ = _served(model, params, batch, toks, mesh)
+        # the same tokens decoded from the SP prefill's caches by the model
+        # without use_sp (decode is the same step either way)
+        plain_model = build_model(sp_config(arch, get_smoke_config, False))
+        decode = make_decode_step(plain_model, attn_chunk=SERVE_CHUNK)
+        placed = distribute(params, serve_shardings(params, mesh))
+        caches, again = steps[0][1], []
+        for t in toks:
+            t = torch.from_numpy(t)
+            t = distribute({"t": t}, batch_shardings({"t": t}, mesh))["t"]
+            logits, caches = decode(placed, caches, t)
+            again.append(np_of(logits.to_local()))
+        res = {"steps": [], "decoded_without_sp": again}
+        for logits, caches in steps:
+            leaves = cache_flat(caches)
+            shs = cache_flat(cache_shardings(caches, cfg, mesh,
+                                             SERVE_BATCH[0]))
+            res["steps"].append({
+                "logits": np_of(logits.full_tensor()),
+                "local_logits": np_of(logits.to_local()),
+                "caches": [np_of(x.full_tensor()) for x in leaves],
+                "on_shardings": [
+                    tuple(x.placements) == tuple(sh.placements)
+                    and tuple(x.to_local().shape) == tuple(
+                        r.stop - r.start for r in local_region(
+                            tuple(x.shape), mesh, sh.placements))
+                    for x, sh in zip(leaves, shs)]})
+        out["prefill/" + name] = res
+    if world == 4 and not part:
+        out["refused"] = _sp_refusals(params_by_arch["stablelm_3b"])
+    return out

@@ -8,6 +8,13 @@
 - A smoke config of the MoE ``moonshot_v1_16b_a3b`` (the dry-run's
   ``get_config`` swapped for ``get_smoke_config``) runs through ``--out``
   twice: its record is replaced by key, the full cell's kept.
+- ``--sp`` (sequence parallelism, ``use_sp``): the MoE smoke cell's
+  record says ``sp: true`` and its counts differ from the same cell's
+  without ``--sp`` (its layers run on each rank's block of the sequence);
+  the full Mamba2 ``decode_32k`` cell's record is its record without
+  ``--sp`` (the SSM family reads no ``use_sp``; its smoke cells either
+  take minutes to trace, ``train_4k`` and ``prefill_32k``, or do not
+  split on 16 ranks, the decode cells' conv channels).
 - The dry-run refuses to start its fake world where a process group
   already exists.
 
@@ -72,6 +79,48 @@ def records(tmp_path_factory):
     run_cli(*smoke, "--print-hlo-collectives", smoke=True)
     with open(out) as f:
         return first, json.load(f)
+
+
+#: The counts of a record, without its timing and its ``sp`` flag.
+COUNTS_ONLY = ("trace_s", "sp")
+
+
+def counts(rec: dict) -> dict:
+    return {k: v for k, v in rec.items() if k not in COUNTS_ONLY}
+
+
+@pytest.fixture(scope="module")
+def sp_records(tmp_path_factory):
+    """``--sp`` records: ``{name: record}`` for the MoE smoke cell under
+    ``--sp`` and the Mamba2 decode cell with and without it."""
+    out = tmp_path_factory.mktemp("dryrun_sp")
+    runs = {"moe_sp": ("moonshot_v1_16b_a3b", "train_4k", True, ("--sp",)),
+            "ssm_sp": ("mamba2_370m", "decode_32k", False, ("--sp",)),
+            "ssm": ("mamba2_370m", "decode_32k", False, ())}
+    recs = {}
+    for name, (arch, shape, smoke, flags) in runs.items():
+        path = str(out / f"{name}.json")
+        run_cli("--arch", arch, "--shape", shape, "--out", path, *flags,
+                smoke=smoke)
+        with open(path) as f:
+            (recs[name],) = json.load(f)
+    return recs
+
+
+def test_sp_changes_a_decoder_cell(records, sp_records):
+    moe, without = sp_records["moe_sp"], records[1][1]
+    assert (moe["arch"], moe["status"], moe["sp"]) == (
+        "moonshot_v1_16b_a3b", "ok", True)
+    assert without["sp"] is False
+    assert moe["arg_bytes"] == without["arg_bytes"]
+    assert moe["temp_bytes"] != without["temp_bytes"]
+    assert moe["coll_by_kind"] != without["coll_by_kind"]
+
+
+def test_sp_leaves_an_ssm_cell_as_it_is(sp_records):
+    sp, without = sp_records["ssm_sp"], sp_records["ssm"]
+    assert (sp["status"], sp["sp"], without["sp"]) == ("ok", True, False)
+    assert counts(sp) == counts(without)
 
 
 def test_full_width_cell_on_the_fake_world(records):
