@@ -7,7 +7,7 @@ Run from the root of a checkout; it imports ``src/repro_torch`` (never JAX,
 never the reference package ``repro``) and exits non-zero, printing no
 result, when no CUDA card is present or the package is missing.
 
-0. Build the seven CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+0. Build the eight CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
    with ``nvcc`` (one process per source, in parallel) and print the build
    time, the compiler's register/shared-memory report and the card.
 1. ``vec``: one collection through ``spkadd_auto`` — k = 64 ER matrices of
@@ -113,10 +113,11 @@ result, when no CUDA card is present or the package is missing.
    tokens, held to a prefill of prompts plus tokens (``WL_DECODE_TOL``;
    the VLM's decode only finite; the MoE, SSM and hybrid models held in
    f32 compute on the same weights, their bf16 gap reported); each step's
-   largest top-k, ``xla_add`` and segment-fold launches (the MoE
-   combine's too) are replayed through the plain versions, and
-   Moonshot's first layer's combine is held bitwise to the plain ordered
-   fold and timed beside ``index_add_``.
+   largest top-k, ``xla_add``, segment-fold and MoE combine launches are
+   replayed through the plain versions, and Moonshot's first layer's
+   combine (the ``moe_combine`` kernel) is held bitwise to the plain
+   ordered fold and to the segment fold's route it replaced, and timed
+   beside both and ``index_add_``.
    Mamba2, Zamba2 and Whisper hold the card's loss on 1 x 256 tokens to
    the CPU's at depths 2, 6 and 2 + 2 (``WL_CPU_LOSS_RTOL``); Zamba2 and
    Whisper quantize their first self-attention cache to int8
@@ -130,7 +131,7 @@ result, when no CUDA card is present or the package is missing.
    DTensor path bitwise to three plain steps (median step and peak memory
    of each); Moonshot-16B-A3B at depth 1 on 1 x 4,096 tokens, the sharded
    step's loss and gradients bitwise to the plain ones (the MoE combine's
-   segment folds counted, the largest replayed); two publishes of
+   launches counted, the largest replayed); two publishes of
    ``DeltaPublisher(..., mesh=...)`` byte-identical to a publisher's
    without one (top-k and ``xla_add`` counted, the largest replayed); the
    sharded state saved, then restored onto its placements and onto plain
@@ -142,15 +143,16 @@ result, when no CUDA card is present or the package is missing.
    ``temp_bytes`` (run on the host meanwhile), and its counted FLOPs equal
    to the dry-run's; then (f) the same for Moonshot-16B-A3B at full depth,
    its experts on their ``model`` shards over the rank's block of the
-   dispatch buffer's capacity, the combine's segment fold launched and its
-   largest call replayed bitwise through the plain fold; (g) the same for
+   dispatch buffer's capacity, the combine's kernel launched and its
+   largest call replayed bitwise through the plain fold and timed beside
+   ``index_add_``; (g) the same for
    Zamba2-2.7B at full depth, its Mamba blocks on their SSM heads and its
    shared block on its heads and ``d_ff`` columns; (h) for Whisper-medium
    at 24 + 24 layers, every attention and MLP on its ``model`` shard.
    (i) The placed serving steps (parameters on the serving layout, the
    caches on the reference's) at world 1 bitwise to the plain ones:
    SmolLM-135M's 8 prompts of 512 and 16 tokens, Moonshot-16B-A3B at
-   depth 2 on 4 x 512 and 8 tokens (its combine folds counted); then as
+   depth 2 on 4 x 512 and 8 tokens (its combines counted); then as
    rank 0 of the 16 x 16 mesh, each beside its dry-run: (j)
    Qwen2-VL-72B's ``decode_32k`` step over caches split along
    ``head_dim``, (k) Zamba2-2.7B's ``decode_32k`` step over the Mamba
@@ -179,8 +181,9 @@ result, when no CUDA card is present or the package is missing.
    segment-fold records equal to its launches), ten profiled calls each
    of the family's ``vec`` and ``blocked_spa``
    (each call's host time and the CUDA runtime calls that took the most
-   host time: where a slow call waits), then each of the eight kernels against its plain PyTorch version on the
-   card, on the inputs its path gives it: bitwise (tolerance 0); the two
+   host time: where a slow call waits), then each of the nine kernels
+   against its plain PyTorch version on the card, on the inputs its path
+   gives it: bitwise (tolerance 0); the two
    hash kernels twice, with the same bits. The sliding-hash row adds its
    time at the catch-up's largest launch (inputs rebuilt by a replay), with
    a seeded sample of its parts checked against the plain version, and the
@@ -198,9 +201,12 @@ result, when no CUDA card is present or the package is missing.
    ``launches_families``, ``launches_sharding``, ``launches_tools``), and
    the rows fold the replays of phases 8-12's launches (``replay_allreduce``,
    ``replay_spgemm``, ``replay_workload``, ``replay_families``,
-   ``replay_sharding``) into their ``max_abs_err``; the segment-fold row
-   carries the MoE combine's times (``moe_combine``). Then JSON lines of the
-   phases' end-to-end times, the profiles and the kernel numbers (median ms by
+   ``replay_sharding``) into their ``max_abs_err``. The MoE combine's row
+   checks the kernel at (d)'s shape on bf16 values drawn on the card with
+   subnormals, signed zeros, infinities and NaNs of both signs planted,
+   its ``launches`` phase ``families``' (the MoE's own path), and carries
+   (d)'s and (f)'s timings (``families_d``, ``sharding_f``). Then JSON
+   lines of the phases' end-to-end times, the profiles and the kernel numbers (median ms by
    CUDA events, bound, plain and library times), the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -327,6 +333,27 @@ def cuda_ms(torch, fn, reps: int) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def queued_ms(torch, fn, calls: int = 50, reps: int = 5) -> float:
+    """Device ms a call of ``fn``: the median over ``reps`` of ``calls``
+    calls queued back to back between two CUDA events, over ``calls``
+    (after one warm-up). Where a call's host time is shorter than its
+    device time it hides behind the card's work, which :func:`cuda_ms`
+    counts."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -2781,11 +2808,13 @@ def run_families(torch, seed: int, dev, kernels: dict):
     the VLM, whose decode is only held finite, and the MoE, SSM and hybrid
     models, held on the same weights in f32 compute, their bf16 gap
     reported (:func:`family_serve`); gemma3's prompts are longer than its
-    window, so the rings are rolled and every decoded token wraps them. (c) Each step's largest launch of the top-k, ``xla_add`` and
-    segment-fold kernels (the engine's and the MoE combine's) replayed
-    through the plain versions. (d) The combine of Moonshot's first MoE
-    layer held bitwise to the plain ordered fold (``moe.combine_plain``)
-    and timed beside ``index_add_`` on the same contributions. (e) Mamba2,
+    window, so the rings are rolled and every decoded token wraps them.
+    (c) Each step's largest launch of the top-k, ``xla_add``,
+    segment-fold and MoE combine kernels replayed through the plain
+    versions. (d) The combine of Moonshot's first MoE layer held bitwise
+    to the plain ordered fold (``moe.combine_plain``) and to the segment
+    fold's route, and timed beside them and ``index_add_`` on the same
+    contributions (:func:`combine_times`). (e) Mamba2,
     Zamba2 and Whisper: the card's loss against the CPU's at a small depth
     (:func:`family_cpu_loss`). (f) Zamba2 and Whisper: the first
     self-attention cache quantized to int8 (:func:`family_kv_quant`).
@@ -2801,7 +2830,8 @@ def run_families(torch, seed: int, dev, kernels: dict):
     from repro_torch.models.layers import use_full_precision
 
     use_full_precision()
-    launches = dict.fromkeys(("topk_block", "xla_add", "segment_fold"), 0)
+    launches = dict.fromkeys(("topk_block", "xla_add", "segment_fold",
+                              "moe_combine"), 0)
 
     def counted(fn):
         return count_launches(torch, kernels, launches, fn)
@@ -2876,7 +2906,7 @@ def run_families(torch, seed: int, dev, kernels: dict):
         fams[arch] = res
         log(f"phase families {arch}: {res['wall_s']:.1f} s, peak "
             f"{res['peak_mem_bytes'] / 2**30:.2f} GiB")
-    for name in ("topk_block", "xla_add", "segment_fold"):
+    for name in launches:
         check(launches[name] > 0, f"phase families: the {name} kernel did "
               f"not launch")
     phase = {
@@ -2913,12 +2943,14 @@ def compressed_step(torch, model, params, spec, dev, kernels, counted,
     (kept until the step's end, the gradients and those inputs would not
     fit beside the old and new state); that aside is not counted in
     launches and is taken off the step's time. A MoE model's combine: its
-    largest segment fold is replayed after the step, and its first layer's
-    combine held to the plain fold. Fills ``plain_replays`` and
-    ``combine``; returns the step's numbers."""
+    largest ``moe_combine`` launch is replayed after the step, and its first
+    layer's combine held to the plain fold and timed
+    (:func:`combine_times`, the route before the kernel too). Fills
+    ``plain_replays`` and ``combine``; returns the step's numbers."""
     from repro_torch import tree as TR
     from repro_torch.core import engine as E
     from repro_torch.data import make_batch
+    from repro_torch.kernels import moe_combine as MC
     from repro_torch.kernels import segment, topk_block, xla_add
     from repro_torch.models import moe as MOE
     from repro_torch.models.common import SHAPES
@@ -2992,7 +3024,7 @@ def compressed_step(torch, model, params, spec, dev, kernels, counted,
         p, o, ef = state.pop("p"), state.pop("o"), state.pop("ef")
         return comp(p, o, ef, batch)
 
-    moe_fold = ({"segment_fold/moe": (MOE, "segment_fold")} if is_moe
+    moe_fold = ({"moe_combine": (MOE, "moe_combine_raw")} if is_moe
                 else {})
     ST.compressed_gradient_mean = timed_mean
     if is_moe:
@@ -3026,9 +3058,9 @@ def compressed_step(torch, model, params, spec, dev, kernels, counted,
         f"launches {used}")
     if not is_moe:
         return res
-    replay("segment_fold", segment.segment_fold, segment.segment_fold_plain,
-           kept.pop("segment_fold/moe"),
-           f"{what} (c): the MoE combine's segment fold")
+    replay("moe_combine", MC.moe_combine_raw, MC.moe_combine_plain,
+           kept.pop("moe_combine"),
+           f"{what} (c): the MoE combine's largest launch")
     del kept
 
     # ---- (d) the first layer's combine against the plain ordered fold ----
@@ -3038,24 +3070,82 @@ def compressed_step(torch, model, params, spec, dev, kernels, counted,
     want = MOE.combine_plain(contrib)
     check(bitwise_equal(torch, got, want), f"{what} (d): the combine "
           f"differs from the plain ordered fold")
+    check(bitwise_equal(torch, got, segment_route(torch, segment.segment_fold,
+                                                  contrib)),
+          f"{what} (d): the combine differs from the segment-fold route")
+    del got, want
+    combine.update(combine_times(torch, contrib,
+                                 segment_fold=segment.segment_fold))
+    combine["bitwise_to_plain"] = True
+    log(f"{what} (d): combine {combine['ms']:.3f} ms (queued "
+        f"{combine['queued_ms']:.3f}; plain {combine['plain_ms']:.3f}, "
+        f"index_add_ "
+        f"{combine['library_ms']:.3f}, the segment-fold route "
+        f"{combine['segment_route_ms']:.3f}, bound "
+        f"{combine['bound_ms']:.3f}) on {T} x {K} x {d} {combine['dtype']}, "
+        f"bitwise to the plain fold")
+    return res
+
+
+def segment_route(torch, fold, contrib):
+    """The route the MoE combine took before it had a kernel of its own:
+    the contributions laid out token by token, K to a feature (a copy), an
+    int32 id for every element (made contiguous by the wrapper) and the
+    ordered segment fold of each feature's run of K into a zero-filled
+    output, by ``fold`` (``segment.segment_fold``, or its plain version).
+    Kept here as the yardstick of the combine's kernel."""
+    T, K, d = contrib.shape
+    vals = contrib.transpose(1, 2).reshape(T, d * K)
+    gid = torch.arange(d, dtype=torch.int32,
+                       device=contrib.device).repeat_interleave(K)
+    return fold(vals, gid.expand(T, d * K), d)
+
+
+def combine_times(torch, contrib, plain: bool = True,
+                  segment_fold=None) -> dict:
+    """The MoE combine's kernel on ``contrib`` (T, K, d) on the card:
+    CUDA-event medians of the wrapper (``ms``), ``index_add_``
+    into a zero-filled output (``library_ms``: one PyTorch call of the
+    same sum, in no fixed order), the plain fold's (with ``plain``) and,
+    given the segment fold, the route before the kernel
+    (:func:`segment_route`); the kernel's, ``index_add_``'s and the
+    route's calls queued back to back too (``*queued_ms``,
+    :func:`queued_ms`: the device's time without the host's between
+    calls); the bound and the launch's geometry."""
+    from repro_torch.kernels import moe_combine as MC
+
+    T, K, d = contrib.shape
+    dev = contrib.device
     flat = contrib.reshape(T * K, d)
     tok = torch.arange(T, device=dev).repeat_interleave(K)
     nbytes = contrib.element_size() * (T * K * d + T * d)
     b_ms, b_by = bound(nbytes, T * K * d)
-    combine.update({
-        "shape": [T, K, d], "dtype": str(contrib.dtype).split(".")[-1],
-        "bitwise_to_plain": True,
-        "ms": cuda_ms(torch, lambda: MOE.combine(contrib), 10),
-        "plain_ms": cuda_ms(torch, lambda: MOE.combine_plain(contrib), 5),
-        "index_add_ms": cuda_ms(torch, lambda: torch.zeros(
-            (T, d), dtype=contrib.dtype, device=dev).index_add_(
-                0, tok, flat), 10),
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes})
-    log(f"{what} (d): combine {combine['ms']:.3f} ms (plain "
-        f"{combine['plain_ms']:.3f}, index_add_ {combine['index_add_ms']:.3f}"
-        f", bound {b_ms:.3f}) on {T} x {K} x {d} {combine['dtype']}, "
-        f"bitwise to the plain fold")
-    return res
+    out = {"shape": [T, K, d], "dtype": str(contrib.dtype).split(".")[-1],
+           "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+           "geometry": MC.launch_geometry(
+               T, K, d, contrib.dtype, contrib.data_ptr() % 16 == 0)}
+    out["ms"] = cuda_ms(torch, lambda: MC.moe_combine_raw(contrib), 20)
+
+    def library():
+        return torch.zeros((T, d), dtype=contrib.dtype,
+                           device=dev).index_add_(0, tok, flat)
+
+    out["library_ms"] = cuda_ms(torch, library, 20)
+    out["library"] = "index_add_"
+    out["queued_ms"] = queued_ms(torch, lambda: MC.moe_combine_raw(contrib))
+    out["library_queued_ms"] = queued_ms(torch, library, 10)
+    if plain:
+        out["plain_ms"] = cuda_ms(
+            torch, lambda: MC.moe_combine_plain(contrib), 5)
+    if segment_fold is not None:
+        def route():
+            return segment_route(torch, segment_fold, contrib)
+
+        out["segment_route_ms"] = cuda_ms(torch, route, 20)
+        out["segment_route_queued_ms"] = queued_ms(torch, route, 10)
+    out["bound_share"] = b_ms / out["ms"]
+    out["bound_share_queued"] = b_ms / out["queued_ms"]
+    return out
 
 
 def family_cpu_loss(torch, model, params, full, spec, dev) -> dict:
@@ -3258,7 +3348,7 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
     ms ending in a synchronize) and peak memory. (b) Moonshot-16B-A3B at
     depth 1 (drawn on the card) on 1 x 4,096 tokens: the loss and
     gradients of ``sharded_loss_and_grads`` bitwise to the plain ones; the
-    MoE combine's segment folds counted, its largest replayed through the
+    MoE combine's kernel launches counted, its largest replayed through the
     plain fold. (c) ``DeltaPublisher(..., mesh=mesh)`` on (a)'s
     trajectory, two epochs: frames byte-identical to a publisher without a
     mesh; its top-k and ``xla_add`` launches counted, the largest replayed.
@@ -3272,10 +3362,11 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
     the phase's start, read last), and its counted FLOPs, which must equal
     the dry-run's as integers. (f) The same for Moonshot-16B-A3B at full
     depth (:data:`SH_EP_ARCH`): the MoE's experts on their ``model``
-    shards over this rank's block of the capacity; the combine's segment
-    fold must launch (its launches join the phase's), and its largest
-    call is replayed through the plain fold on its ``gid`` and size with
-    values drawn on the card. (g) and (h) the same for Zamba2-2.7B at
+    shards over this rank's block of the capacity; the combine's kernel
+    must launch (its launches join the phase's), and its largest call is
+    replayed through the plain fold at its shape with values drawn on the
+    card, and timed beside ``index_add_`` there. (g) and (h) the same for
+    Zamba2-2.7B at
     full depth (:data:`SH_SSM_ARCH`: its Mamba blocks on their SSM heads,
     its shared block on its heads and ``d_ff`` columns at each site) and
     Whisper-medium (:data:`SH_ED_ARCH`, 24 + 24 layers on ``train_4k``'s
@@ -3339,10 +3430,10 @@ def run_sharding(torch, seed: int, dev, kernels: dict, mesh):
                 dry.kill()
                 dry.communicate()
     moe = phase["rank0_moe"]
-    check(moe["launches"].get("segment_fold", 0) > 0, "phase sharding (f): "
-          "the MoE combine's segment fold did not launch")
-    check("segment_fold" in moe["plain_replays"], "phase sharding (f): the "
-          "MoE combine's largest fold was not replayed")
+    check(moe["launches"].get("moe_combine", 0) > 0, "phase sharding (f): "
+          "the MoE combine's kernel did not launch")
+    check("moe_combine" in moe["plain_replays"], "phase sharding (f): the "
+          "MoE combine's largest launch was not replayed")
     for name, n in moe["launches"].items():
         phase["launches"][name] = phase["launches"].get(name, 0) + n
     for name, r in moe["plain_replays"].items():
@@ -3556,8 +3647,9 @@ def sharding_rank0(torch, seed: int, out_json: str,
     step under ``analyze_step`` (its FLOPs and ``temp_bytes``), then one
     step timed (host ms ending in a synchronize) with its peak above
     resident and the kernels' launches, each count set to 0 just before
-    it. The timed step's largest MoE combine fold, if any, is replayed
-    through the plain fold afterwards, bitwise. Writes the numbers to
+    it. The timed step's largest MoE combine, if any, is replayed through
+    the plain fold afterwards at its shape on values drawn on the card,
+    bitwise, and timed (:func:`combine_times`). Writes the numbers to
     ``out_json``."""
     import dataclasses
     import gc
@@ -3567,7 +3659,7 @@ def sharding_rank0(torch, seed: int, out_json: str,
 
     from repro_torch import compat
     from repro_torch.configs import get_config
-    from repro_torch.kernels import segment
+    from repro_torch.kernels import moe_combine as MC
     from repro_torch.launch import hlo_analysis as HA
     from repro_torch.launch.mesh import chips, production_mesh_shape
     from repro_torch.models import build_model
@@ -3603,39 +3695,41 @@ def sharding_rank0(torch, seed: int, out_json: str,
         gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        # the largest combine fold's gid and size, not its values: those
-        # come over the fake collectives, uninitialized
-        largest, fold = {}, MOE.segment_fold
+        # the largest combine's shape and type, not its values: those come
+        # over the fake collectives, uninitialized
+        largest, combine = {}, MOE.moe_combine_raw
 
-        def keeping_fold(vals, gid, num_segments):
-            if vals.numel() > largest.get("numel", 0):
-                largest.update(numel=vals.numel(), shape=tuple(vals.shape),
-                               dtype=vals.dtype, gid=gid, n=num_segments)
-            return fold(vals, gid, num_segments)
+        def keeping_combine(contrib):
+            if contrib.numel() > largest.get("numel", 0):
+                largest.update(numel=contrib.numel(),
+                               shape=tuple(contrib.shape),
+                               dtype=contrib.dtype)
+            return combine(contrib)
 
-        MOE.segment_fold = keeping_fold
-        segment.segment_fold.launches = 0
+        MOE.moe_combine_raw = keeping_combine
+        MC.moe_combine_raw.launches = 0
         try:
             t0 = time.perf_counter()
             out = step(*args)
             torch.cuda.synchronize()
             step_ms = (time.perf_counter() - t0) * 1e3
         finally:
-            MOE.segment_fold = fold
+            MOE.moe_combine_raw = combine
         peak = torch.cuda.max_memory_allocated(dev) - resident
-        launches = {"segment_fold": segment.segment_fold.launches}
+        launches = {"moe_combine": MC.moe_combine_raw.launches}
         del out, args
         gc.collect()
         torch.cuda.empty_cache()
-        plain_replays = {}
+        plain_replays, combine_t = {}, None
         if largest:  # values drawn on the card, replayed outside the count
             vals = torch.randn(largest["shape"], generator=gen,
                                device=dev).to(largest["dtype"])
-            plain_replays["segment_fold"] = replay_through_plain(
-                torch, segment.segment_fold, segment.segment_fold_plain,
-                ((vals, largest["gid"], largest["n"]), {}),
-                f"phase sharding: {cfg.arch_id}'s largest MoE combine fold "
-                f"on rank 0 (its gid and size; values drawn)")
+            plain_replays["moe_combine"] = replay_through_plain(
+                torch, MC.moe_combine_raw, MC.moe_combine_plain,
+                ((vals,), {}),
+                f"phase sharding: {cfg.arch_id}'s largest MoE combine on "
+                f"rank 0 (its shape; values drawn)")
+            combine_t = combine_times(torch, vals, plain=False)
             del vals
         rows = (cell.global_batch // mesh.size(0)
                 if cell.global_batch % mesh.size(0) == 0
@@ -3653,7 +3747,7 @@ def sharding_rank0(torch, seed: int, out_json: str,
                "peak_above_resident_bytes": peak, "flops": roof.flops,
                "temp_bytes": roof.temp_bytes, "arg_bytes": roof.arg_bytes,
                "coll_bytes": roof.coll_bytes, "launches": launches,
-               "plain_replays": plain_replays}
+               "plain_replays": plain_replays, "moe_combine": combine_t}
     finally:
         dist.destroy_process_group()
     with open(out_json, "w") as f:
@@ -3765,7 +3859,8 @@ def _run_sharding(torch, seed, dev, kernels, mesh):
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.data import make_batch
-    from repro_torch.kernels import segment, topk_block, xla_add
+    from repro_torch.kernels import moe_combine as MC
+    from repro_torch.kernels import topk_block, xla_add
     from repro_torch.models import build_model
     from repro_torch.models import moe as MOE
     from repro_torch.models.common import SHAPES
@@ -3776,7 +3871,7 @@ def _run_sharding(torch, seed, dev, kernels, mesh):
     from repro_torch.train import TrainHParams, make_train_step
     from repro_torch.train import step as ST
 
-    launches = dict.fromkeys(("topk_block", "xla_add", "segment_fold"), 0)
+    launches = dict.fromkeys(("topk_block", "xla_add", "moe_combine"), 0)
     plain_replays = {}
 
     def counted(fn):
@@ -3954,9 +4049,9 @@ def _run_sharding(torch, seed, dev, kernels, mesh):
     free()
     t = time.perf_counter()
     ((sloss, sgrads), kept), used_b = counted(lambda: keeping_largest_each(
-        {"segment_fold/moe": (MOE, "segment_fold")},
+        {"moe_combine": (MOE, "moe_combine_raw")},
         lambda: ST.sharded_loss_and_grads(moe_model, hp, smp, mb),
-        required=("segment_fold/moe",)))
+        required=("moe_combine",)))
     sharded_ms = sync_ms(t)
     peak = torch.cuda.max_memory_allocated(dev) - resident
     check(bitwise_equal(torch, loss, sloss), f"phase sharding (b): the "
@@ -3967,12 +4062,12 @@ def _run_sharding(torch, seed, dev, kernels, mesh):
     check(not bad, f"phase sharding (b): the sharded gradients differ at "
           f"{bad}")
     with launches_uncounted(kernels):
-        plain_replays["segment_fold"] = replay_through_plain(
-            torch, segment.segment_fold, segment.segment_fold_plain,
-            kept.pop("segment_fold/moe"),
-            "phase sharding (b): the MoE combine's largest segment fold")
-    check(used_b.get("segment_fold", 0) > 0, "phase sharding (b): the MoE "
-          "combine's segment fold did not launch")
+        plain_replays["moe_combine"] = replay_through_plain(
+            torch, MC.moe_combine_raw, MC.moe_combine_plain,
+            kept.pop("moe_combine"),
+            "phase sharding (b): the MoE combine's largest launch")
+    check(used_b.get("moe_combine", 0) > 0, "phase sharding (b): the MoE "
+          "combine's kernel did not launch")
     b = {"arch": full_cfg.arch_id, "depth": 1,
          "layers_full": full_cfg.n_layers, "batch": [B2, S2],
          "params": sum(x.numel() for x in TR.leaves(smp)),
@@ -3994,9 +4089,8 @@ def _run_sharding(torch, seed, dev, kernels, mesh):
             torch, seed, dev, mesh, arch, depth, prompts, n_tok))
         i[arch]["launches"] = used_i
         free()
-    check(i[SH_MOE_ARCH]["launches"].get("segment_fold", 0) > 0,
-          "phase sharding (i): the MoE combine's segment fold did not "
-          "launch")
+    check(i[SH_MOE_ARCH]["launches"].get("moe_combine", 0) > 0,
+          "phase sharding (i): the MoE combine's kernel did not launch")
     for name in launches:
         check(launches[name] > 0, f"phase sharding: the {name} kernel did "
               f"not launch")
@@ -4235,8 +4329,8 @@ def run(args, torch) -> int:
     from repro_torch.core import sparse as S
     from repro_torch.core import spkadd as A
     from repro_torch.kernels import _build, hash_accum, hash_slide, ops as kops
-    from repro_torch.kernels import partition, segment, spa_accum, topk_block
-    from repro_torch.kernels import xla_add
+    from repro_torch.kernels import moe_combine, partition, segment
+    from repro_torch.kernels import spa_accum, topk_block, xla_add
     from repro_torch.launch import fold_timing
 
     dev = torch.device("cuda")
@@ -4263,6 +4357,7 @@ def run(args, torch) -> int:
         "hash_symbolic": hash_accum.hash_symbolic_raw,
         "topk_block": topk_block.topk_block_raw,
         "xla_add": xla_add.xla_add_raw,
+        "moe_combine": moe_combine.moe_combine_raw,
     }
 
     def reset_counts():
@@ -5103,6 +5198,42 @@ def run(args, torch) -> int:
     })
     del xa, xb, plant, pick
 
+    # moe_combine, at the families' combine shape (Moonshot's first layer
+    # on 8 x 2,048 tokens), on bf16 values drawn on the card with
+    # subnormals, signed zeros, infinities and NaNs of both signs planted
+    # in a seeded sample of elements
+    cshape = phases["families"]["moe_combine"]["shape"]
+    cgen = torch.Generator(device=dev)
+    cgen.manual_seed(args.seed + 29)
+    contrib = torch.randn(cshape, generator=cgen, device=dev).to(
+        torch.bfloat16)
+    cplant = torch.randint(0, contrib.numel(), (65536,), generator=cgen,
+                           device=dev)
+    cedges = torch.tensor([0x0001, 0x8001, 0x007F, 0x807F, 0x8000, 0x7F80,
+                           0xFF80, 0x7FC0, 0xFFC0, 0x7FA1], device=dev)
+    cpick = torch.randint(0, cedges.numel(), (cplant.numel(),),
+                          generator=cgen, device=dev)
+    contrib.view(-1).view(torch.int16)[cplant] = (
+        cedges[cpick] - ((cedges[cpick] & 0x8000) << 1)).to(torch.int16)
+    got = moe_combine.moe_combine_raw(contrib)
+    want = moe_combine.moe_combine_plain(contrib)
+    check(bitwise_equal(torch, got, want),
+          "moe_combine kernel differs from its plain version")
+    both = torch.isfinite(got) & torch.isfinite(want)
+    ctimes = combine_times(torch, contrib)
+    report.append({
+        "name": "moe_combine", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_combine.cu",
+        "replaces": "src/repro/models/moe.py:102",
+        # the MoE's own path: phase families' decoders, counted from 0
+        "launches": phases["families"]["launches"]["moe_combine"],
+        "max_abs_err": float((got.float() - want.float())[both].abs().max()),
+        **ctimes, "planted_elements": cplant.numel(),
+        "families_d": phases["families"]["moe_combine"],
+        "sharding_f": phases["sharding"]["rank0_moe"]["moe_combine"],
+    })
+    del contrib, cplant, cpick, got, want, both
+
     for r in report:
         # the later slices' paths, each counted from 0 around its run
         r["launches_allreduce"] = phases["allreduce"]["launches"].get(
@@ -5115,8 +5246,6 @@ def run(args, torch) -> int:
         r["launches_sharding"] = phases["sharding"]["launches"].get(
             r["name"], 0)
         r["launches_tools"] = phases["tools"]["launches"].get(r["name"], 0)
-        if r["name"] == "segment_fold":  # the MoE combine's fold
-            r["moe_combine"] = phases["families"]["moe_combine"]
         for ph in ("allreduce", "spgemm", "workload", "families",
                    "sharding"):
             # a launch of the later paths replayed through the plain version

@@ -124,7 +124,7 @@ def count_sorts(thunk: Callable[[], object]) -> Tuple[int, int]:
 
 BAD_INDEX_DTYPES = (torch.int64, torch.uint64)
 KERNEL_MODULES = ("partition", "hash_slide", "segment", "spa_accum",
-                  "hash_accum", "topk_block", "xla_add")
+                  "hash_accum", "topk_block", "xla_add", "moe_combine")
 
 
 def kernel_wrappers() -> dict:

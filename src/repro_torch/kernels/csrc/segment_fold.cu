@@ -65,6 +65,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "xla_bf16.cuh"
+
 #define SF_THREADS 256
 #define SF_WARPS (SF_THREADS / 32)
 #define SF_ITEMS 8                     // elements a lane holds
@@ -77,14 +79,6 @@
 #define SF_MAX_GRID_ROWS 65535
 #define SF_FULL 0xffffffffu
 #define SF_NONE INT_MIN  // the key of a position outside the row
-
-__device__ __forceinline__ unsigned short sf_round_bf16(float v) {
-  const uint32_t bits = __float_as_uint(v);
-  return static_cast<unsigned short>(
-      (bits & 0x7FFFFFFFu) > 0x7F800000u
-          ? ((bits >> 16) & 0x8000u) | 0x7FC0u
-          : (bits + 0x7FFFu + ((bits >> 16) & 1u)) >> 16);
-}
 
 // A value type: loads of one 8-element chunk or one element (as f32), one
 // fold step, and the store of a total.
@@ -140,11 +134,11 @@ struct SfVal<__nv_bfloat16> {
   }
   // The add in f32, the total rounded to bf16 at once and kept as f32.
   static __device__ __forceinline__ float add(float acc, float v) {
-    return __uint_as_float(static_cast<uint32_t>(sf_round_bf16(acc + v))
+    return __uint_as_float(static_cast<uint32_t>(spk_round_bf16(acc + v))
                            << 16);
   }
   static __device__ __forceinline__ __nv_bfloat16 store(float acc) {
-    return __ushort_as_bfloat16(sf_round_bf16(acc));
+    return __ushort_as_bfloat16(spk_round_bf16(acc));
   }
   static constexpr int kPer16 = 8;  // values in 16 bytes
   static __device__ __forceinline__ void unpack16(uint4 q, float* o) {

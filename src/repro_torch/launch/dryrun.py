@@ -148,23 +148,23 @@ def _place_caches(caches, shardings):
     return _map_caches(lambda x: distribute(x, next(it)), caches)
 
 
-def _segment_fold_shape(vals, gid, num_segments):
-    """The ordered segment fold's result as a shape and a type only: on
-    fake tensors neither its kernel nor its plain version can run (the
-    plain fold's loop reads the run lengths)."""
-    return vals.new_empty(vals.shape[:-1] + (num_segments,))
+def _moe_combine_shape(contrib):
+    """The MoE combine's result as a shape and a type only: on fake
+    tensors neither its kernel nor its plain version runs."""
+    T, _, d = contrib.shape
+    return contrib.new_empty((T, d))
 
 
 @contextlib.contextmanager
 def _shape_only_combine():
-    """The MoE combine's segment fold as :func:`_segment_fold_shape` for
-    the duration of a fake trace."""
-    real = moe.segment_fold
-    moe.segment_fold = _segment_fold_shape
+    """The MoE combine as :func:`_moe_combine_shape` for the duration of a
+    fake trace."""
+    real = moe.moe_combine_raw
+    moe.moe_combine_raw = _moe_combine_shape
     try:
         yield
     finally:
-        moe.segment_fold = real
+        moe.moe_combine_raw = real
 
 
 def lower_cell(arch: str, shape_name: str, mesh,

@@ -14,10 +14,10 @@ reference's ``y.at[tok].add(contrib)`` applies its updates in operand
 order (expert-sorted, stable), so each token's contributions fold left to
 right from ``+0.0`` in the compute dtype, in ascending expert order (a
 token's experts are distinct). ``index_add_`` on the card adds in no fixed
-order, so :func:`combine` lays the contributions out token by token, K to
-a feature, and folds each feature's run of K with the ordered segment fold
-(``kernels/segment.py``: ``csrc/segment_fold.cu`` on the card, its plain
-version on the CPU), XLA's float rules included. A dropped assignment
+order, so :func:`combine` folds each token's K contributions where they
+lie in (T, K, d) with the MoE combine (``kernels/moe_combine.py``:
+``csrc/moe_combine.cu`` on the card, its plain version on the CPU), XLA's
+float rules included. A dropped assignment
 contributes ``+0.0``, which leaves a running sum that started at ``+0.0``
 unchanged (such a sum is never ``-0.0``).
 
@@ -59,8 +59,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.core.sparse import stable_argsort, top_k
-from repro_torch.kernels import xla_float
-from repro_torch.kernels.segment import segment_fold
+from repro_torch.kernels.moe_combine import (moe_combine_plain,
+                                             moe_combine_raw)
 from repro_torch.models.common import ModelConfig, dense_init
 from repro_torch.sharding.api import (ModelSplit, Placed, RowSplit,
                                       copy_to_model, gather_at_use,
@@ -203,12 +203,8 @@ class _Combine(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, contrib):
-        T, K, d = contrib.shape
         ctx.shape = contrib.shape
-        vals = contrib.transpose(1, 2).reshape(T, d * K)
-        gid = torch.arange(d, dtype=torch.int32,
-                           device=contrib.device).repeat_interleave(K)
-        return segment_fold(vals, gid.expand(T, d * K), d)
+        return moe_combine_raw(contrib)
 
     @staticmethod
     def backward(ctx, dy):
@@ -218,18 +214,13 @@ class _Combine(torch.autograd.Function):
 def combine(contrib: torch.Tensor) -> torch.Tensor:
     """The combine of ``contrib`` (T, K, d): each token's K contributions
     folded left to right from ``+0.0``, rounding after every add, by the
-    ordered segment fold (the kernel on the card)."""
+    MoE combine (the kernel on the card)."""
     return _Combine.apply(contrib)
 
 
-def combine_plain(contrib: torch.Tensor) -> torch.Tensor:
-    """:func:`combine` as K passes of XLA's add over the tokens, each pass
-    adding every token's next contribution: the plain left-to-right fold."""
-    T, K, d = contrib.shape
-    y = torch.zeros((T, d), dtype=contrib.dtype, device=contrib.device)
-    for r in range(K):
-        y = xla_float.add_as(y, contrib[:, r])
-    return y
+#: :func:`combine` as K passes of XLA's add over the tokens, each pass
+#: adding every token's next contribution: the plain left-to-right fold.
+combine_plain = moe_combine_plain
 
 
 def _routed_over_rows(split: RowSplit, probs: torch.Tensor,

@@ -448,7 +448,7 @@ def test_kernel_wrappers_are_found():
             "hash_slide.hash_slide_raw", "segment.segment_fold",
             "spa_accum.spa_accumulate_raw", "hash_accum.hash_accumulate_raw",
             "hash_accum.hash_symbolic_raw", "topk_block.topk_block_raw",
-            "xla_add.xla_add_raw"} <= names
+            "xla_add.xla_add_raw", "moe_combine.moe_combine_raw"} <= names
 
 
 def _tiny_schedule():

@@ -1682,19 +1682,87 @@ def _combine_edges(seed, dtype, T=300, K=6, d=96):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_moe_combine_on_card_bitwise_to_plain_fold(cuda, dtype, seed):
-    """The MoE combine at K = 6 (the segment-fold kernel) against the plain
-    left-to-right fold on the card and the combine on the CPU, bitwise."""
+    """The MoE combine at K = 6 (the ``moe_combine`` kernel, one launch, no
+    segment fold) against the plain left-to-right fold on the card and the
+    combine on the CPU, bitwise."""
+    from repro_torch.kernels import moe_combine as MC
     from repro_torch.models import moe as MOE
 
     c = _combine_edges(seed, dtype)
-    before = segment.segment_fold.launches
+    before = MC.moe_combine_raw.launches, segment.segment_fold.launches
     got = MOE.combine(c.to(cuda))
     torch.cuda.synchronize()
-    assert segment.segment_fold.launches == before + 1
+    assert (MC.moe_combine_raw.launches,
+            segment.segment_fold.launches) == (before[0] + 1, before[1])
     plain = MOE.combine_plain(c.to(cuda))
     cpu = MOE.combine(c)
     assert np.array_equal(bits(got), bits(plain))
     assert np.array_equal(bits(got), bits(cpu))
+
+
+#: f32 bit patterns planted in the combine's edge cases (here and in
+#: ``tests/test_torch_moe_combine.py``): subnormals and signed zeros,
+#: infinities, NaNs of both signs (one with a payload), the least normal.
+COMBINE_EDGES = np.array(
+    [0x00000001, 0x80000001, 0x007FFFFF, 0x807FFFFF, 0x00000000, 0x80000000,
+     0x7F800000, 0xFF800000, 0x7FC00000, 0xFFC00000, 0x7FA00001, 0x00800000],
+    dtype=np.uint32).view(np.float32)
+
+
+def combine_planted(seed, dtype, T, K, d):
+    """(T, K, d) normals, a seeded tenth set to the edge patterns, a token
+    of cancellations and one of ``-0.0``; bf16 by XLA's rounding (a NaN
+    keeps its sign)."""
+    from repro_torch.kernels import xla_float
+
+    rng = np.random.default_rng(seed)
+    c = rng.standard_normal((T, K, d)).astype(np.float32)
+    pick = rng.random((T, K, d)) < 0.1
+    c[pick] = rng.choice(COMBINE_EDGES, int(pick.sum()))
+    if K > 1:
+        c[0, 1] = -c[0, 0]
+    c[1] = -0.0
+    c = torch.from_numpy(c)
+    return xla_float.round_bf16(c) if dtype == torch.bfloat16 else c
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("d", [7, 96, 2048])
+@pytest.mark.parametrize("K", [1, 6, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_kernel_bitwise_to_plain_at_edges(cuda, dtype, K, d,
+                                                      offset):
+    """The kernel against ``moe_combine_plain`` on the card, bitwise, with
+    planted subnormals, signed zeros, infinities and NaNs of both signs: the
+    16-byte path, the element path (d = 7, or a view one element off a
+    16-byte boundary), K past one group of loads (9); one launch a
+    call."""
+    from repro_torch.kernels import moe_combine as MC
+
+    T = 700 if d == 2048 else 3000
+    c = combine_planted(K * 1000 + d, dtype, T, K, d)
+    flat = torch.empty(c.numel() + offset, dtype=dtype, device=cuda)
+    flat[offset:] = c.reshape(-1).to(cuda)
+    view = flat[offset:].view(T, K, d)
+    assert (view.data_ptr() % 16 == 0) == (offset == 0)
+    before = MC.moe_combine_raw.launches, segment.segment_fold.launches
+    got = MC.moe_combine_raw(view)
+    torch.cuda.synchronize()
+    assert (MC.moe_combine_raw.launches,
+            segment.segment_fold.launches) == (before[0] + 1, before[1])
+    want = MC.moe_combine_plain(view)
+    assert got.shape == (T, d) and got.dtype == dtype
+    assert np.array_equal(bits(got), bits(want))
+
+
+def test_moe_combine_kernel_refuses_other_types_on_card(cuda):
+    from repro_torch.kernels import moe_combine as MC
+
+    with pytest.raises(TypeError, match="moe_combine_raw"):
+        MC.moe_combine_raw(torch.zeros(4, 2, 8, dtype=torch.float16,
+                                       device=cuda))
+    with pytest.raises(ValueError, match="moe_combine_raw"):
+        MC.moe_combine_raw(torch.zeros(4, 8, device=cuda))
 
 
 @pytest.mark.parametrize("arch", ["gemma3-27b", "qwen2-vl-72b",

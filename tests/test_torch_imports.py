@@ -81,7 +81,7 @@ def test_kernel_sources_stand_alone():
     sources = sorted(os.listdir(csrc))
     assert {"partition.cu", "hash_slide.cu", "segment_fold.cu",
             "spa_accum.cu", "hash_accum.cu", "topk_block.cu",
-            "xla_add.cu"} <= set(sources)
+            "xla_add.cu", "moe_combine.cu"} <= set(sources)
     for name in sources:
         with open(os.path.join(csrc, name)) as f:
             text = f.read()
