@@ -357,6 +357,18 @@ def queued_ms(torch, fn, calls: int = 50, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def queued_times(torch, kernel, bound_ms: float, library=None,
+                 calls: int = 50) -> dict:
+    """A kernel row's queued times (:func:`queued_ms`): ``queued_ms`` of
+    ``kernel``, its ``bound_share_queued`` (``bound_ms`` over it) and, where
+    the row has a ``library`` call, ``library_queued_ms``."""
+    out = {"queued_ms": queued_ms(torch, kernel, calls)}
+    out["bound_share_queued"] = bound_ms / out["queued_ms"]
+    if library is not None:
+        out["library_queued_ms"] = queued_ms(torch, library, calls)
+    return out
+
+
 def host_ms(torch, fn, reps: int, times: list | None = None) -> float:
     """Median host time of ``fn`` ending in a device synchronize; each
     call's time is appended to ``times`` when it is given."""
@@ -1950,8 +1962,13 @@ def partition_catchup(torch, partition, call) -> dict:
             "sub_elems": partition.sub_tile_geometry(kw["part_elems"])[0],
             "ms": cuda_ms(torch, lambda: partition.partitioned_accumulate_raw(
                 keys, vals, cid, pid, **kw), 20),
+            "queued_ms": queued_ms(
+                torch, lambda: partition.partitioned_accumulate_raw(
+                    keys, vals, cid, pid, **kw), 20),
             "index_add_ms": cuda_ms(torch, lambda: acc.index_add_(
                 0, idx, flat_vals), 20),
+            "index_add_queued_ms": queued_ms(
+                torch, lambda: acc.index_add_(0, idx, flat_vals), 20),
             "bound_ms": ms_bound[0], "bytes": nbytes}
 
 
@@ -2002,15 +2019,35 @@ def slide_catchup(torch, hash_slide, caught, seed, sample: int = 8,
               f"differs from its plain version")
     del runs, tk, tv
     nbytes = 8 * B * cap + 8 * B * parts * T
-    valid = int((keys < kw["mn"]).sum())
+    valid_mask = keys < kw["mn"]
+    valid = int(valid_mask.sum())
+    library = {"index_add_queued_ms": None}
+    if B * kw["mn"] <= SLIDE_LIBRARY_MAX_SLOTS:
+        # index_add_ of the valid elements into a dense zero (B, mn)
+        # buffer made outside the timing: the same sums, another layout
+        acc = torch.zeros(B * kw["mn"], device=keys.device)
+        idx = (keys.long() + torch.arange(B, device=keys.device)
+               .unsqueeze(1) * kw["mn"])[valid_mask]
+        flat_vals = vals[valid_mask]
+        library["index_add_queued_ms"] = queued_ms(
+            torch, lambda: acc.index_add_(0, idx, flat_vals), 10)
+        del acc, idx, flat_vals
     return {"B": B, "cap": cap, "valid": valid, "parts": parts,
             "table_size": T, "blocks": B * parts, "sampled_parts": picks,
             "ms": cuda_ms(torch, lambda: hash_slide.hash_slide_raw(
                 keys, vals, **kw), 5),
+            "queued_ms": queued_ms(torch, lambda: hash_slide.hash_slide_raw(
+                keys, vals, **kw), 10),
+            **library,
             "bound_ms": bound(nbytes, valid)[0], "bytes": nbytes,
             "moved_bytes": hash_slide.moved_bytes(B, cap, table_size=T,
                                                   parts=parts),
             "buckets": caught.get("buckets")}
+
+
+#: Dense slots (f32) up to which :func:`slide_catchup` times
+#: ``index_add_`` into a zero (B, m n) buffer beside the kernel (4 GiB).
+SLIDE_LIBRARY_MAX_SLOTS = 1 << 30
 
 
 def topk_design(torch, topk_block, x, k, block, leaves, dev, seed) -> dict:
@@ -4331,7 +4368,7 @@ def run(args, torch) -> int:
     from repro_torch.kernels import _build, hash_accum, hash_slide, ops as kops
     from repro_torch.kernels import moe_combine, partition, segment
     from repro_torch.kernels import spa_accum, topk_block, xla_add
-    from repro_torch.launch import fold_timing
+    from repro_torch.launch import fold_timing, xla_add_timing
 
     dev = torch.device("cuda")
     card = nvidia_smi_line()
@@ -4734,6 +4771,13 @@ def run(args, torch) -> int:
 
     # ---- 7. kernels against their plain versions ------------------------
     report = []
+    # the phases' xla_add launches are the publishers' and the means' adds
+    # (DeltaPublisher.publish, sparsify_with_feedback) and their replays,
+    # all on fresh allocations: every one must take the vector route
+    xla_routes = dict(xla_add.xla_add_raw.routes)
+    check(xla_routes["scalar"] == 0 and xla_routes["vector"] > 0,
+          f"xla_add: the phases' launches took the routes {xla_routes}; "
+          f"all should be vector")
 
     # partition, at phase 1's step tables
     cat1 = S.concat(mats)
@@ -4769,6 +4813,12 @@ def run(args, torch) -> int:
         "bound_by": part_bound[1],
         "library_ms": cuda_ms(torch, lambda: lib_acc.index_add_(
             0, lib_idx, vals_p[0]), 20),
+        "library": "index_add_",
+        **queued_times(
+            torch, lambda: partition.partitioned_accumulate_raw(
+                keys_p, vals_p, steps.chunk_id, steps.part_id, **pkw),
+            part_bound[0],
+            lambda: lib_acc.index_add_(0, lib_idx, vals_p[0])),
         "bytes": part_bytes, "geometry": geom1._asdict(),
         **partition_design(torch, partition, keys_p, steps, pkw, dev),
         "catchup": partition_catchup(torch, partition,
@@ -4809,6 +4859,8 @@ def run(args, torch) -> int:
         "bound_ms": hash_bound[0],
         "bound_by": hash_bound[1],
         "library_ms": None,
+        **queued_times(torch, lambda: hash_slide.hash_slide_raw(
+            cat2.keys, cat2.vals, **hkw), hash_bound[0]),
         # the kernel has one route (bucketing when parts > 1) and no
         # one-thread loop, so nothing to count
         "kernel_route": "bucketed" if geom2.parts > 1 else "one part",
@@ -4882,6 +4934,9 @@ def run(args, torch) -> int:
         "bound_by": seg_bound[1],
         "library_ms": seg_lib_ms,
         "library": "index_add_",
+        **queued_times(
+            torch, lambda: segment.segment_fold(v_s, gid, cat1.cap),
+            seg_bound[0], lambda: seg_acc.index_add_(0, gid_long, v_s)),
         "zero_fill_ms": seg_fill_ms,
         "device_split": seg_split,
         "bytes": seg_bytes,
@@ -4980,6 +5035,11 @@ def run(args, torch) -> int:
         "library_ms": cuda_ms(torch, lambda: spa_lib.index_add_(
             0, spa_idx, spa_vals), 20),
         "library": "index_add_",
+        **queued_times(
+            torch, lambda: spa_accum.spa_accumulate_raw(spa_keys, spa_vals,
+                                                        **skw),
+            spa_bound[0], lambda: spa_lib.index_add_(0, spa_idx, spa_vals),
+            20),
         "bytes": spa_bytes,
         "moved_bytes": spa_moved, "moved_bytes_total": spa_moved_total,
         "bucket_geometry": spa_accum.bucket_geometry(
@@ -5090,6 +5150,8 @@ def run(args, torch) -> int:
         "ms": full["acc_ms"], "plain_ms": full["acc_plain_ms"],
         "bound_ms": acc_bound[0], "bound_by": acc_bound[1],
         "library_ms": None, "bytes": acc_bytes,
+        **queued_times(torch, lambda: hash_accum.hash_accumulate_raw(
+            cat3.keys, cat3.vals, sent=sent3), acc_bound[0], calls=20),
         "table_size": full["table_size"],
         "kernel_route": full["acc_route"],
         "serial_launches": phases["hash_alg"]["accumulate_serial_launches"],
@@ -5109,6 +5171,9 @@ def run(args, torch) -> int:
         "ms": full["sym_ms"], "plain_ms": full["sym_plain_ms"],
         "bound_ms": sym_bound[0], "bound_by": sym_bound[1],
         "library_ms": sym_library_ms, "library": "torch.unique",
+        **queued_times(torch, lambda: hash_accum.hash_symbolic_raw(
+            cat3.keys, sent=sent3), sym_bound[0],
+            lambda: torch.unique(cat3.keys), 10),
         "bytes": sym_bytes, "kernel_route": full["sym_route"],
         "serial_launches": phases["hash_alg"]["symbolic_serial_launches"],
         "table_size": full["table_size"], "in_smem": full["sym_in_smem"],
@@ -5146,6 +5211,10 @@ def run(args, torch) -> int:
         "library_ms": cuda_ms(torch, lambda: torch.topk(
             embed_blocks.abs(), per_e, dim=1), 20),
         "library": "torch.topk", "bytes": topk_bytes,
+        **queued_times(
+            torch, lambda: topk_block.topk_block_raw(embed_x, **tkw),
+            topk_bound[0],
+            lambda: torch.topk(embed_blocks.abs(), per_e, dim=1)),
         "geometry": {"blocks": nb_e, "block": block_e, "per": per_e},
         **topk_design(torch, topk_block, embed_x, per_e, block_e,
                       captured["topk_leaves"], dev, args.seed),
@@ -5180,6 +5249,9 @@ def run(args, torch) -> int:
         xla_err = max(xla_err, float((got - want).abs().max()))
     xla_bytes = 12 * n_x
     xla_bound = bound(xla_bytes, n_x)
+    # the wrapper's host time a call: 2,000 calls of final_ln's 576-element
+    # add enqueued back to back, shorter on the card than on the host
+    small_a, small_b = xa[:576].clone(), xb[:576].clone()
     report.append({
         "name": "xla_add", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/xla_add.cu",
@@ -5194,9 +5266,18 @@ def run(args, torch) -> int:
         # a yardstick only: torch.sub keeps subnormals
         "library_ms": cuda_ms(torch, lambda: torch.sub(xa, xb), 20),
         "library": "torch.sub", "bytes": xla_bytes,
+        **queued_times(torch, lambda: xla_add.xla_add_raw(
+            xa, xb, subtract=True), xla_bound[0],
+            lambda: torch.sub(xa, xb)),
+        "host_us_576": xla_add_timing.host_us(
+            lambda: xla_add.xla_add_raw(small_a, small_b)),
+        "library_host_us_576": xla_add_timing.host_us(
+            lambda: torch.add(small_a, small_b)),
+        "geometry": xla_add.launch_geometry(n_x, True),
+        "routes_main_path": xla_routes,
         "elements": n_x, "planted_subnormal_slots": 4096,
     })
-    del xa, xb, plant, pick
+    del xa, xb, plant, pick, small_a, small_b
 
     # moe_combine, at the families' combine shape (Moonshot's first layer
     # on 8 x 2,048 tokens), on bf16 values drawn on the card with
@@ -5257,9 +5338,13 @@ def run(args, torch) -> int:
         check(r["launches"] > 0, f"{r['name']}: no launch on its path")
         check(r["max_abs_err"] == 0.0, f"{r['name']}: max_abs_err "
               f"{r['max_abs_err']}")
-        log(f"{r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.2f} ms, library {r['library_ms']}) "
-            f"launches={r['launches']}")
+        check("queued_ms" in r and (r["library_ms"] is None
+                                    or "library_queued_ms" in r),
+              f"{r['name']}: a row without its queued times")
+        log(f"{r['name']}: {r['ms']:.4f} ms, queued {r['queued_ms']:.4f} "
+            f"(bound {r['bound_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, "
+            f"library {r['library_ms']}, queued "
+            f"{r.get('library_queued_ms')}) launches={r['launches']}")
     phases["kernel_checks_s"] = took()
     phases["build_s"] = build_s
     phases["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)

@@ -13,16 +13,24 @@
 //
 // Input: a and b, n f32 each; out, n f32 (may alias neither).
 //
-// Design. A grid-stride loop over float4 groups when all three pointers
-// are 16-byte aligned (the wrapper says so), one element at a time
-// otherwise and for the tail.
+// Design. A grid-stride loop over units: float4 groups when all three
+// pointers are 16-byte aligned (the vector route; the wrapper says so),
+// else elements (the scalar route); the n % 4 elements past the last
+// float4 go to the first threads of block 0. The grid, at most 132 x 16
+// blocks of XA_THREADS, comes from kernels/xla_add.py launch_geometry,
+// which also models this index map (index_spans).
+// Queued back to back on an H100 it moves 84-86 % of the card's 3.35 TB/s
+// at the publisher's largest leaves, torch.sub 87-89 %; one pass that
+// loads all of a thread's float4 groups first with streaming hints, and a
+// persistent grid of 1-D bulk copies into a ring of shared-memory stages,
+// were no faster (PERF.md).
 //
 // Bound: bytes. Each input is read once and the output written once:
 // 12 B an element, one add each.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
+#define XA_THREADS 256
 
 template <bool kSub>
 __device__ __forceinline__ float spk_op(float x, float y) {
@@ -64,26 +72,24 @@ __global__ void xla_add_kernel(const float* __restrict__ a,
 #include "common.cuh"
 
 // subtract: 0 = a + b, 1 = a - b. vectorized: all three pointers are
-// 16-byte aligned.
+// 16-byte aligned. blocks: the grid (kernels/xla_add.py launch_geometry).
 extern "C" int spk_xla_add(const void* a, const void* b, void* out, int64_t n,
-                           int subtract, int vectorized, int device,
-                           void* stream) {
+                           int subtract, int vectorized, int64_t blocks,
+                           int device, void* stream) {
   const SpkLaunchScope scope(device);
   if (scope.error() != cudaSuccess) return static_cast<int>(scope.error());
+  if (n < 1 || blocks < 1 || blocks > 0x7FFFFFFF)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const int64_t work = vectorized ? (n + 3) / 4 : n;
-  // enough blocks to fill the card several times over; the loop strides
-  const int64_t blocks = std::min<int64_t>((work + threads - 1) / threads,
-                                           132 * 16);
+  const unsigned grid = static_cast<unsigned>(blocks);
   const float* fa = static_cast<const float*>(a);
   const float* fb = static_cast<const float*>(b);
   float* fo = static_cast<float*>(out);
   if (subtract)
-    xla_add_kernel<true><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        fa, fb, fo, n, vectorized);
+    xla_add_kernel<true><<<grid, XA_THREADS, 0, s>>>(fa, fb, fo, n,
+                                                     vectorized);
   else
-    xla_add_kernel<false><<<static_cast<unsigned>(blocks), threads, 0, s>>>(
-        fa, fb, fo, n, vectorized);
+    xla_add_kernel<false><<<grid, XA_THREADS, 0, s>>>(fa, fb, fo, n,
+                                                      vectorized);
   return static_cast<int>(cudaGetLastError());
 }

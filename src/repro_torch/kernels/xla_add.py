@@ -9,19 +9,29 @@ zero of its sign. The plain version, :func:`xla_float.add` /
 kernel, built with ``-ftz=true``, does the add and the flush in one pass.
 
 :func:`xla_add_raw` takes the plain version for tensors on the CPU and the CUDA
-kernel for f32 tensors on the card, and has no other path.
+kernel for f32 tensors on the card, and has no other path. Each launch
+takes one of two routes, counted in ``xla_add_raw.routes``: ``vector``
+(16-byte units) when ``a``, ``b`` and the output are all 16-byte aligned,
+else ``scalar`` (one element a unit).
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, xla_float
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, _P]
+             ctypes.c_int64, ctypes.c_int, _P]
+#: The kernel's block (``csrc/xla_add.cu`` ``XA_THREADS``) and its largest
+#: grid: 16 blocks an SM of the H100's 132, through which the loop strides.
+THREADS = 256
+MAX_BLOCKS = 132 * 16
+#: f32 elements in a vector route's unit (one float4).
+VECTOR = 4
 
 
 def xla_add_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -29,6 +39,63 @@ def xla_add_plain(a: torch.Tensor, b: torch.Tensor, *,
     """Plain version: :func:`xla_float.sub_as` or :func:`xla_float.add_as`
     (f32 through :func:`xla_float.add` / :func:`xla_float.sub`)."""
     return xla_float.sub_as(a, b) if subtract else xla_float.add_as(a, b)
+
+
+def launch_geometry(n: int, aligned: bool) -> dict:
+    """The launch :func:`xla_add_raw` makes for ``n`` elements: its route
+    (``vector`` when the three pointers are ``aligned`` to 16 bytes, else
+    ``scalar``), its units (float4 groups or elements), the ``tail`` of
+    elements past the last float4 (block 0's first threads take them), its
+    blocks (none at ``n = 0``: no launch; one block of ``THREADS`` a
+    ``THREADS`` units, at most ``MAX_BLOCKS``) and the most units a thread
+    takes in its grid-stride loop (``items``)."""
+    units = n // VECTOR if aligned else n
+    blocks = 0 if n == 0 else min(max(1, -(-units // THREADS)), MAX_BLOCKS)
+    return {"route": "vector" if aligned else "scalar", "units": units,
+            "unit_elems": VECTOR if aligned else 1,
+            "tail": n % VECTOR if aligned else 0, "blocks": blocks,
+            "threads": THREADS,
+            "items": -(-units // (blocks * THREADS)) if blocks else 0}
+
+
+def index_spans(n: int, aligned: bool) -> np.ndarray:
+    """The kernel's index map, as ``(start, stop)`` element spans, one for
+    each (block, loop iteration) that owns units and one for the tail:
+    thread ``t`` of block ``k`` owns units ``k * THREADS + t + i * blocks *
+    THREADS`` below ``units`` (``i = 0, 1, ...``, its grid-stride loop),
+    so at each ``i`` a block's threads cover up to ``THREADS`` consecutive
+    units; thread ``t < tail`` of block 0 owns element ``units * 4 + t``."""
+    geo = launch_geometry(n, aligned)
+    stride = geo["blocks"] * THREADS
+    k = np.arange(geo["blocks"], dtype=np.int64)[:, None]
+    i = np.arange(geo["items"], dtype=np.int64)[None, :]
+    lo = (k * THREADS + i * stride).reshape(-1)
+    lo = lo[lo < geo["units"]]
+    size = geo["unit_elems"]
+    spans = np.stack([lo * size, np.minimum(lo + THREADS, geo["units"])
+                      * size], axis=1)
+    if geo["tail"]:
+        start = geo["units"] * size
+        spans = np.concatenate([spans, [[start, start + geo["tail"]]]])
+    return spans.reshape(-1, 2)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
+            subtract: bool) -> None:
+    """One launch of the kernel on contiguous ``a``, ``b`` and ``out``
+    (none at 0 elements), counted with its route."""
+    n = a.numel()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (a, b, out))
+    geo = launch_geometry(n, aligned)
+    if geo["blocks"] == 0:
+        return  # no launch
+    fn = _build.entry("xla_add", "spk_xla_add", _ARGTYPES)
+    _build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+                    int(subtract), int(aligned), geo["blocks"],
+                    a.device.index or 0, _build.stream_ptr(a)),
+                 "xla_add launch")
+    xla_add_raw.launches += 1
+    xla_add_raw.routes[geo["route"]] += 1
 
 
 def xla_add_raw(a: torch.Tensor, b: torch.Tensor, *,
@@ -49,16 +116,11 @@ def xla_add_raw(a: torch.Tensor, b: torch.Tensor, *,
                         f"{b.dtype}")
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty_like(a)
-    if a.numel() == 0:
-        return out  # no launch
-    aligned = all(t.data_ptr() % 16 == 0 for t in (a, b, out))
-    fn = _build.entry("xla_add", "spk_xla_add", _ARGTYPES)
-    _build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-                    int(subtract), int(aligned), a.device.index or 0,
-                    _build.stream_ptr(a)), "xla_add launch")
-    xla_add_raw.launches += 1
+    _launch(a, b, out, subtract=subtract)
     return out
 
 
-#: Launches of the CUDA kernel (the plain version does not count).
+#: Launches of the CUDA kernel (the plain version does not count), and
+#: how many took each route.
 xla_add_raw.launches = 0
+xla_add_raw.routes = {"vector": 0, "scalar": 0}

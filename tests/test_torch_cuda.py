@@ -1136,25 +1136,65 @@ SUBNORMAL_PAIRS = np.float32([
     [np.inf, 1.0], [-0.0, 0.0]])
 
 
-@pytest.mark.parametrize("n,offset", [(1, 0), (7, 0), (4099, 0), (4099, 1),
-                                      (1 << 20, 0)])
+#: NaNs and infinities of both signs, planted beside the subnormal pairs.
+NAN_INF_PAIRS = np.float32([
+    [np.nan, 1.0], [-np.nan, -2.0], [np.inf, np.inf], [-np.inf, np.inf],
+    [1.0, -np.nan], [np.inf, -1.0], [-np.inf, 1e-40]])
+#: One block's span in one trip of the kernel's grid-stride loop: THREADS
+#: float4 groups on the vector route (1,024 elements), THREADS elements on
+#: the scalar route; the loop's stride at the largest grid.
+XLA_ADD_SPAN = xla_add.THREADS
+XLA_ADD_STRIDE = xla_add.MAX_BLOCKS * xla_add.THREADS
+
+
+@pytest.mark.parametrize("n,a_off,b_off", [
+    (1, 0, 0), (7, 0, 0), (4099, 0, 0), (4099, 1, 1), (1 << 20, 0, 0),
+    (4 * XLA_ADD_SPAN - 1, 0, 0), (4 * XLA_ADD_SPAN, 0, 0),
+    (4 * XLA_ADD_SPAN + 1, 0, 0), (8 * XLA_ADD_SPAN + 3, 0, 0),
+    (XLA_ADD_SPAN - 1, 1, 1), (XLA_ADD_SPAN, 2, 2), (XLA_ADD_SPAN + 1, 3, 3),
+    (4 * XLA_ADD_STRIDE - 1, 0, 0), (4 * XLA_ADD_STRIDE + 5, 0, 0),
+    (XLA_ADD_STRIDE + 1, 1, 1), (17280, 0, 0), (576, 0, 0),
+    (3317760, 0, 0), (5001, 1, 0), (5001, 0, 2), (5001, 3, 1),
+    (17280, 2, 0)])
+@pytest.mark.parametrize("edges", [False, True])
 @pytest.mark.parametrize("subtract", [False, True])
-def test_xla_add_kernel_bitwise_vs_plain(cuda, n, offset, subtract):
+def test_xla_add_kernel_bitwise_vs_plain(cuda, n, a_off, b_off, edges,
+                                         subtract):
     """Subnormal inputs and results flushed to a zero of their sign, on the
-    float4 path, the scalar tail and a misaligned view (offset 1)."""
-    rng = np.random.default_rng(n + offset)
-    ab = rng.standard_normal((2, n + offset)).astype(np.float32)
-    pick = rng.integers(0, len(SUBNORMAL_PAIRS), n + offset)
-    plant = rng.random(n + offset) < 0.3
-    ab[:, plant] = SUBNORMAL_PAIRS[pick[plant]].T
-    a = torch.as_tensor(ab[0])[offset:]
-    b = torch.as_tensor(ab[1])[offset:]
-    want = xla_add.xla_add_plain(a, b, subtract=subtract)
+    vector route (its float4 groups, a block's span in one trip of the loop
+    and the loop's stride at the largest grid, the scalar tail), on the
+    scalar route (a view off a 16-byte boundary, ``a`` and ``b`` at
+    different offsets), at the publisher's two smallest leaves; with NaNs
+    and infinities planted too (``edges``), held to the plain version run
+    on the card, whose f32 adds make the same NaN. One launch a call, on
+    the route the pointers' alignment names."""
+    rng = np.random.default_rng(n * 16 + a_off * 4 + b_off)
+    pairs = (np.concatenate([SUBNORMAL_PAIRS, NAN_INF_PAIRS]) if edges
+             else SUBNORMAL_PAIRS)
+    ab = rng.standard_normal((2, n + 3)).astype(np.float32)
+    pick = rng.integers(0, len(pairs), n + 3)
+    plant = rng.random(n + 3) < 0.3
+    ab[:, plant] = pairs[pick[plant]].T
+    a = torch.as_tensor(ab[0])[a_off:a_off + n]
+    b = torch.as_tensor(ab[1])[b_off:b_off + n]
+    a_dev = torch.as_tensor(ab[0]).to(cuda)[a_off:a_off + n]
+    b_dev = torch.as_tensor(ab[1]).to(cuda)[b_off:b_off + n]
+    assert (a_dev.data_ptr() % 16 == 0) == (a_off == 0)
     before = xla_add.xla_add_raw.launches
-    got = xla_add.xla_add_raw(a.to(cuda), b.to(cuda), subtract=subtract)
+    routes = dict(xla_add.xla_add_raw.routes)
+    got = xla_add.xla_add_raw(a_dev, b_dev, subtract=subtract)
     torch.cuda.synchronize()
     assert xla_add.xla_add_raw.launches == before + 1
-    np.testing.assert_array_equal(bits(got), bits(want))
+    route = "vector" if a_off == b_off == 0 else "scalar"
+    other = "scalar" if route == "vector" else "vector"
+    assert xla_add.xla_add_raw.routes[route] == routes[route] + 1
+    assert xla_add.xla_add_raw.routes[other] == routes[other]
+    np.testing.assert_array_equal(
+        bits(got), bits(xla_add.xla_add_plain(a_dev, b_dev,
+                                              subtract=subtract)))
+    if not edges:  # no NaN: the CPU's plain version gives the same bits
+        np.testing.assert_array_equal(
+            bits(got), bits(xla_add.xla_add_plain(a, b, subtract=subtract)))
 
 
 def test_subnormal_publish_on_card_equals_cpu(cuda):
