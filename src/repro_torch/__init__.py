@@ -5,7 +5,7 @@ module names: ``core.*`` (sparse, spkadd, engine, topk, streaming,
 stream_service, allreduce, spgemm), ``kernels.*``, ``runtime.*``,
 ``checkpoint``, ``optim``, ``models`` (the dense decoder family),
 ``configs``, ``data``, ``train.step``, ``sharding``, ``launch.*`` (with
-the dry-run and its cost analysis), ``obs`` (with the ledger),
+the dry-run and its cost analysis), ``obs`` (spans and metrics),
 ``analysis`` (spkaddlint) and ``compat``, plus ``tree`` (parameter trees
 in JAX's leaf order). It imports neither JAX
 nor anything of ``repro``. Entry points follow their input tensors'

@@ -49,9 +49,9 @@ from repro_torch.analysis.findings import Finding, is_waived, parse_waivers
 SORT_HOME = "core/sparse.py"
 PRIVATE_HOME = "compat.py"
 
-SPAN_ALLOWED_FILES = {"core/engine.py", "core/streaming.py",
-                      "core/stream_service.py", "core/allreduce.py",
-                      "kernels/ops.py"}
+SPAN_ALLOWED_FILES = {"core/engine.py", "core/spgemm.py",
+                      "core/streaming.py", "core/stream_service.py",
+                      "core/allreduce.py", "kernels/ops.py"}
 SPAN_ALLOWED_DIRS = ("obs/", "launch/", "runtime/", "serve/", "train/")
 
 GLOBAL_ALLOWED_DIRS = ("obs/",)

@@ -274,7 +274,10 @@ def _partitioned_core(keys: torch.Tensor, vals: torch.Tensor,
                       smem_budget_bytes: Optional[int]) -> PaddedCOO:
     """The ONE partitioned pipeline — plan/sort, step tables, kernel launch,
     canonical gather — over ``(B, cap)`` concatenated streams. Both the
-    single-collection regimes (B = 1) and :func:`spkadd_batched` run it."""
+    single-collection regimes (B = 1) and :func:`spkadd_batched` run it.
+    Its leaf spans, in stream order: ``engine.plan`` and
+    ``engine.accumulate`` inside ``engine.partitioned_launch``, then
+    ``engine.canonical_gather``."""
     m, n = shape
     cap = keys.shape[-1]
     budget = _budget(smem_budget_bytes, keys.device)
@@ -285,16 +288,20 @@ def _partitioned_core(keys: torch.Tensor, vals: torch.Tensor,
                   batch=keys.shape[0], cap=cap, parts=geom.parts,
                   part_elems=geom.part_elems, chunk=geom.chunk,
                   num_chunks=geom.num_chunks, max_steps=geom.max_steps):
-        plan, keys_p, steps = plan_and_partition(
-            keys, shape, part_elems=geom.part_elems, chunk=geom.chunk)
-        vals_p = torch.zeros(keys_p.shape, dtype=torch.float32,
-                             device=keys.device)
-        vals_p[:, :cap] = torch.gather(vals, -1, plan.order)
-        flat = kops.partitioned_accumulate_flat(
-            keys_p, vals_p, steps.chunk_id, steps.part_id, m=m, n=n,
-            part_elems=geom.part_elems, parts=geom.parts, chunk=geom.chunk)
-    out_vals = _canonical_gather(plan.out_keys, plan.nnz, flat,
-                                 sentinel_key(shape), vals.dtype)
+        with obs.span("engine.plan"):
+            plan, keys_p, steps = plan_and_partition(
+                keys, shape, part_elems=geom.part_elems, chunk=geom.chunk)
+        with obs.span("engine.accumulate"):
+            vals_p = torch.zeros(keys_p.shape, dtype=torch.float32,
+                                 device=keys.device)
+            vals_p[:, :cap] = torch.gather(vals, -1, plan.order)
+            flat = kops.partitioned_accumulate_flat(
+                keys_p, vals_p, steps.chunk_id, steps.part_id, m=m, n=n,
+                part_elems=geom.part_elems, parts=geom.parts,
+                chunk=geom.chunk)
+    with obs.span("engine.canonical_gather"):
+        out_vals = _canonical_gather(plan.out_keys, plan.nnz, flat,
+                                     sentinel_key(shape), vals.dtype)
     return PaddedCOO(keys=plan.out_keys, vals=out_vals, nnz=plan.nnz,
                      shape=shape)
 
@@ -308,7 +315,8 @@ def _run_partitioned(mats: Sequence[PaddedCOO], regime: str,
                      smem_budget_bytes: Optional[int] = None) -> PaddedCOO:
     """One-pass partitioned regimes (``vec`` / ``blocked_spa``) as a B = 1
     batch of the shared core."""
-    cat = concat(mats)
+    with obs.span("engine.concat", k=len(mats)):
+        cat = concat(mats)
     return _first_row(_partitioned_core(
         cat.keys[None], cat.vals[None], cat.shape, regime, smem_budget_bytes))
 

@@ -21,6 +21,7 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.core.allreduce import all_gather_flat
 from repro_torch.core.engine import spkadd_run
 from repro_torch.core.sparse import PaddedCOO, from_dense
@@ -41,6 +42,17 @@ def local_summa_stage(a_blk: torch.Tensor, b_blk: torch.Tensor
     return _full_f32_matmul(a_blk, b_blk)
 
 
+def _stage_partial(a_stripe: torch.Tensor, b_stripe: torch.Tensor,
+                   s: int, blk: int, cap: int) -> PaddedCOO:
+    """Stage ``s``'s product (the stripes' blocks ``s`` of width ``blk``)
+    as a PaddedCOO of capacity ``cap``."""
+    with obs.span("spgemm.stage_matmul", stage=s):
+        prod = local_summa_stage(a_stripe[:, s * blk:(s + 1) * blk],
+                                 b_stripe[s * blk:(s + 1) * blk, :])
+    with obs.span("spgemm.from_dense", stage=s, cap=cap):
+        return from_dense(prod, cap=cap)
+
+
 def summa_partials(a_stripe: torch.Tensor, b_stripe: torch.Tensor,
                    stages: int, cap: int) -> List[PaddedCOO]:
     """The ``stages`` partial products of one worker: stage ``s``
@@ -52,10 +64,8 @@ def summa_partials(a_stripe: torch.Tensor, b_stripe: torch.Tensor,
     n_loc = b_stripe.shape[1]
     blk = k_glob // stages
     cap = min(cap, m_loc * n_loc)
-    return [from_dense(local_summa_stage(
-        a_stripe[:, s * blk:(s + 1) * blk],
-        b_stripe[s * blk:(s + 1) * blk, :]), cap=cap)
-        for s in range(stages)]
+    return [_stage_partial(a_stripe, b_stripe, s, blk, cap)
+            for s in range(stages)]
 
 
 def summa_block(a_stripe: torch.Tensor, b_stripe: torch.Tensor,
@@ -64,10 +74,17 @@ def summa_block(a_stripe: torch.Tensor, b_stripe: torch.Tensor,
     """One worker's body after the gathers: the stage partials
     (:func:`summa_partials`, capacity ``partial_cap_per_stage`` or the
     whole tile), their SpKAdd reduction with ``algorithm``, and the dense
-    ``(m_loc, n_loc)`` block of C."""
-    cap = partial_cap_per_stage or a_stripe.shape[0] * b_stripe.shape[1]
-    partials = summa_partials(a_stripe, b_stripe, stages, cap)
-    return spkadd_run(partials, algorithm=algorithm).to_dense()
+    ``(m_loc, n_loc)`` block of C.
+
+    Spans (``SPKADD_OBS``): ``spgemm.summa_block`` around the whole; per
+    stage the leaves ``spgemm.stage_matmul`` and ``spgemm.from_dense``;
+    the reduction's own (``engine.*``); the leaf ``spgemm.to_dense``."""
+    with obs.span("spgemm.summa_block", stages=stages, algorithm=algorithm):
+        cap = partial_cap_per_stage or a_stripe.shape[0] * b_stripe.shape[1]
+        partials = summa_partials(a_stripe, b_stripe, stages, cap)
+        reduced = spkadd_run(partials, algorithm=algorithm)
+        with obs.span("spgemm.to_dense"):
+            return reduced.to_dense()
 
 
 def gather_tiled(x: torch.Tensor, group, axis: int) -> torch.Tensor:

@@ -31,7 +31,6 @@ import math
 import numpy as np
 import torch
 
-from repro_torch import obs
 from repro_torch.kernels import _build, xla_float
 from repro_torch.kernels.hash_accum import (HASH_PRIME, check_rb_tile,
                                             first_positions, hash_table_size,
@@ -264,7 +263,6 @@ def modeled_insert_stats(keys, *, mn: int, table_size: int, part_span: int,
             inserts += 1
             probes_total += probes
             max_probes = max(max_probes, probes)
-            obs.histogram("kernels.hash_slide.probes").observe(probes)
         occ_max = max(occ_max, occ)
 
     cap = flat.shape[0] if keys is not None else 0
@@ -281,7 +279,4 @@ def modeled_insert_stats(keys, *, mn: int, table_size: int, part_span: int,
         "chunk_loads": chunk_loads,
         "chunk_loads_lower_bound": num_chunks,
     }
-    obs.gauge("kernels.hash_slide.inserts").set(inserts)
-    obs.gauge("kernels.hash_slide.chunk_loads").set(chunk_loads)
-    obs.gauge("kernels.hash_slide.load_factor_max").set(stats["load_factor_max"])
     return stats

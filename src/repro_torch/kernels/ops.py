@@ -321,11 +321,6 @@ def partitioned_launch_geometry(cap: int, *, m: int, n: int,
     parts = max(1, (mn + part_elems - 1) // part_elems)
     cap_pad = _round_up(max(cap, 1), chunk)
     num_chunks = cap_pad // chunk
-    obs.counter("kernels.partition.geometry_calls").inc()
-    obs.gauge("kernels.partition.parts").set(parts)
-    obs.gauge("kernels.partition.part_elems").set(part_elems)
-    obs.gauge("kernels.partition.chunk").set(chunk)
-    obs.gauge("kernels.partition.num_chunks").set(num_chunks)
     return PartitionGeometry(part_elems=part_elems, parts=parts, chunk=chunk,
                              num_chunks=num_chunks,
                              max_steps=num_chunks + parts)

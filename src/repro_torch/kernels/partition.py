@@ -28,7 +28,6 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.vec_accum import fold_runs
 
@@ -208,10 +207,6 @@ def modeled_chunk_loads(keys, *, mn: int, part_elems: int, parts: int,
     chunk_id = steps.chunk_id.numpy()
     part_id = steps.part_id.numpy()
     loads = 1 + int((np.diff(chunk_id) != 0).sum())
-    obs.gauge("kernels.partition.modeled.onepass_loads").set(loads)
-    obs.gauge("kernels.partition.modeled.lower_bound").set(nonempty_chunks)
-    obs.gauge("kernels.partition.modeled.all_pairs_loads").set(
-        parts * num_chunks)
     return {
         "onepass": loads,
         "legacy_all_pairs": parts * num_chunks,

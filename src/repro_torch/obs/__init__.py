@@ -2,14 +2,12 @@
 
 - :mod:`repro_torch.obs.trace` — context-manager **spans** gated by the
   ``SPKADD_OBS`` env switch (a shared no-op when off), JSONL-exportable,
-  wrapping ``torch.profiler.record_function`` so spans land on profiler
-  timelines.
+  with host time on the profiler's wall clock and, where CUDA is
+  initialised, device time from CUDA events on the same clock; each wraps
+  ``torch.profiler.record_function`` so spans land on profiler timelines.
 - :mod:`repro_torch.obs.metrics` — always-on named
   **counters/gauges/histograms** with snapshot/reset semantics and the
   reference package's metric names.
-- :mod:`repro_torch.obs.ledger` — the perf-history **ledger** keyed by
-  (commit, backend, suite, geometry) and its regression gate, in the
-  reference's format.
 
 The re-exports below are the instrumentation API the rest of the port uses:
 ``obs.span(...)``, ``obs.counter(...)``, etc.

@@ -1,8 +1,9 @@
 """Named counters / gauges / histograms with snapshot + reset semantics.
 
 The port's copy of the reference registry, with the same metric names
-(``sparse.stable_argsort.calls``, ``engine.dispatch.<regime>``, the launch
-geometry gauges), so a reading from either package means the same thing.
+(``sparse.stable_argsort.calls``, ``engine.dispatch.<regime>``, the
+sliding-hash launch geometry gauges), so a reading from either package
+means the same thing.
 Metrics are **always on** — they are plain host-side integer/float updates
 issued at launch boundaries (never per element, never on the device), so
 they cost nothing measurable and counters like ``sparse.sort_calls()`` keep

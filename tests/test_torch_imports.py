@@ -58,7 +58,7 @@ def test_scan_covers_the_port():
                    "launch/train_100m.py", "launch/quickstart.py",
                    "launch/mesh.py", "sharding/__init__.py",
                    "sharding/api.py", "sharding/params.py", "compat.py",
-                   "obs/ledger.py", "launch/hlo_analysis.py",
+                   "obs/trace.py", "launch/hlo_analysis.py",
                    "launch/dryrun.py", "analysis/__init__.py",
                    "analysis/findings.py", "analysis/ast_rules.py",
                    "analysis/trace_rules.py", "analysis/smem.py",
